@@ -1,0 +1,401 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``repro_torch``) on one NVIDIA GPU and check it.
+
+Run from the repository root: ``python3 chip_smoke.py``.  It needs one CUDA
+card and nvcc (CUDA_HOME or PATH); it imports the port from ``src/`` and
+nothing of JAX or of the JAX package.  Phases, each fatal on failure:
+
+  1. device   the card's name and power limit (nvidia-smi);
+  2. build    both kernels compiled from ``src/repro_torch/kernels/csrc``;
+  3. kernels  each CUDA kernel against its plain PyTorch version on the card,
+              at the main path's shapes and a few edge cases, timed beside
+              its bound and a library call that computes the same function;
+  4. parity   qwen3-4b's widths at depth 2 in fp32: prefill + 4 decode steps
+              through the kernels on the card against the plain path on the CPU;
+  5. serve    ``repro_torch.launch.serve.main`` on the full qwen3-4b (36
+              layers, bf16, random weights) at batch 4, prompt 512, 32 tokens,
+              with the kernels' launch counts read over exactly that run;
+  6. profile  where the time goes: the same model's prefill and decode steps,
+              warm, timed untraced and then traced with torch.profiler.
+
+The last lines are a ``kernels`` summary, a JSON object of per-kernel
+numbers, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+SRC = Path(__file__).resolve().parent / "src"
+HBM_BYTES_PER_S = 3.35e12                              # H100 SXM data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor core bf16; fp32 CUDA cores
+L2_BYTES = 50 * 2**20
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}      # tests/test_kernels.py
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# Phase 4: both sides run fp32 with TF32 off, so they differ only by the
+# order of fp32 sums (over D = 2560, F = 9728, two layers, five forwards):
+# about 1e-6 relative.  A wrong mask, GQA index or cache slot moves logits
+# by O(1); 1e-4 separates the two.
+PARITY_TOL = 1e-4
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def time_ms(fn, arg_sets, iters: int) -> float:
+    """Device ms per call of ``fn``, cycling through ``arg_sets`` (copies whose
+    total exceeds L2, so each call reads its inputs cold).  The ``iters`` calls
+    are captured in one CUDA graph and replayed between two events, so the
+    host's cost of launching from Python is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream, as capture needs
+        for args in arg_sets[:2]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copies(tensors, nbytes: int):
+    """Enough copies of ``tensors`` to exceed twice the L2 cache."""
+    n = max(2, min(16, math.ceil(2 * L2_BYTES / nbytes)))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rmsnorm_case(shape, dtype, gen):
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    scale = (torch.rand(shape[-1], generator=gen, device="cuda") + 0.5).contiguous()
+    got, want = rmsnorm(x, scale), rmsnorm_plain(x, scale)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = RMS_TOL[dtype]
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    nbytes = 2 * x.numel() * x.element_size() + 4 * shape[-1]
+    sets = copies((x, scale), nbytes)
+    w = scale.to(dtype)
+    lib_sets = [(a, w) for a, _ in sets]
+    b_ms, b_by = bound(nbytes, 4 * x.numel(), torch.float32)
+    return {
+        "case": f"rmsnorm {list(shape)} {str(dtype)[6:]}", "max_abs_err": err, "tol": tol,
+        "ok": ok, "ms": time_ms(rmsnorm, sets, 50), "plain_ms": time_ms(rmsnorm_plain, sets, 20),
+        "library_ms": time_ms(lambda a, s: F.rms_norm(a, (shape[-1],), s, 1e-6), lib_sets, 50),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def live_pairs(Sq, Sk, causal, window) -> int:
+    q = np.arange(Sq)[:, None]
+    k = np.arange(Sk)[None, :]
+    keep = np.ones((Sq, Sk), bool)
+    if causal:
+        keep &= q >= k
+    if window is not None:
+        keep &= q - k < window
+    return int(keep.sum())
+
+
+def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softcap=None):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got, want = flash_attention(q, k, v, **kw), flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dtype]
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    sets = copies((q, k, v), nbytes)
+    flops = 4 * hd * B * H * live_pairs(Sq, Sk, causal, window)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    lib_ms = None
+    if window is None and not softcap:  # one library call computes the same function
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
+                enable_gqa=True)
+        lib_ms = time_ms(sdpa, sets, 20)
+    name = (f"flash B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} {str(dtype)[6:]}"
+            f"{' causal' if causal else ''}{f' window={window}' if window else ''}"
+            f"{f' softcap={softcap}' if softcap else ''}")
+    return {
+        "case": name, "max_abs_err": err, "tol": tol, "ok": ok,
+        "ms": time_ms(lambda *a: flash_attention(*a, **kw), sets, 20),
+        "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, **kw), sets, 3),
+        "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def print_case(c) -> None:
+    lib = f"{c['library_ms']:.4f}ms" if c["library_ms"] is not None else "n/a"
+    print(f"  {c['case']}: max_err={c['max_abs_err']:.3e} tol={c['tol']:g} "
+          f"{'ok' if c['ok'] else 'DISAGREES'}  kernel={c['ms']:.4f}ms "
+          f"plain={c['plain_ms']:.4f}ms library={lib} "
+          f"bound={c['bound_ms'] * 1e3:.2f}us ({c['bound_by']})")
+
+
+def phase_kernels():
+    gen = torch.Generator("cuda").manual_seed(0)
+    print("[3] kernels vs plain versions on the card")
+    rms = [
+        rmsnorm_case((2048, 2560), torch.bfloat16, gen),   # ln1/ln2 at prefill B4 S512
+        rmsnorm_case((65536, 128), torch.bfloat16, gen),   # q-norm at prefill B4 S512 H32
+        rmsnorm_case((37, 1024), torch.float32, gen),
+    ]
+    flash = [
+        flash_case(4, 512, 512, 32, 8, 128, torch.bfloat16, gen),  # qwen3-4b prefill
+        flash_case(1, 300, 300, 32, 8, 128, torch.float32, gen),   # ragged tiles
+        flash_case(1, 256, 256, 4, 2, 64, torch.float32, gen, window=100),
+        flash_case(2, 128, 128, 2, 2, 64, torch.float32, gen, causal=False, softcap=30.0),
+        flash_case(1, 128, 256, 4, 4, 64, torch.float32, gen, causal=False),
+        flash_case(1, 200, 200, 4, 1, 256, torch.bfloat16, gen),   # hd 256 tiles, MQA
+        flash_case(1, 192, 64, 2, 1, 256, torch.float32, gen, window=32),  # rows, no live key
+    ]
+    for c in rms + flash:
+        print_case(c)
+    for c in rms + flash:
+        require(c["ok"], f"{c['case']} disagrees with its plain version "
+                         f"(max err {c['max_abs_err']:.3e} > tol {c['tol']:g})")
+    return {"rmsnorm": rms, "flash_attention": flash}
+
+
+def phase_parity():
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import to_device
+
+    full = get_config("qwen3-4b")
+    unit, _ = full.program[0]
+    cfg = full.reduced(num_layers=2, program=((unit, 2),), dtype="float32")
+    cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    p_cpu = cpu.init(torch.Generator("cpu").manual_seed(0))
+    p_gpu = to_device(p_cpu, "cuda")
+    P, steps = 256, 4
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, P)))
+    l_cpu, c_cpu = cpu.prefill(p_cpu, {"tokens": tokens}, max_seq=P + steps)
+    l_gpu, c_gpu = gpu.prefill(p_gpu, {"tokens": tokens.cuda()}, max_seq=P + steps)
+
+    def rel(a, b):
+        return ((a.cpu().float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    worst, same = rel(l_gpu, l_cpu), 0
+    for i in range(steps):
+        tok_cpu = l_cpu[:, -1].argmax(-1, keepdim=True)
+        same += int(torch.equal(l_gpu[:, -1].argmax(-1, keepdim=True).cpu(), tok_cpu))
+        l_cpu, c_cpu = cpu.decode_step(p_cpu, c_cpu, tok_cpu, P + i)
+        l_gpu, c_gpu = gpu.decode_step(p_gpu, c_gpu, tok_cpu.cuda(), P + i)
+        worst = max(worst, rel(l_gpu, l_cpu))
+    cache_err = max(rel(g["kv"][n], c["kv"][n]) for g, c in zip(c_gpu, c_cpu) for n in "kv")
+    print(f"[4] parity qwen3-4b widths, 2 layers, fp32, B1 P{P} + {steps} decode steps: "
+          f"max rel logit diff {worst:.3e}, max rel cache diff {cache_err:.3e} "
+          f"(tol {PARITY_TOL:g}), greedy tokens equal {same}/{steps}, "
+          f"{time.perf_counter() - t0:.1f}s")
+    require(worst < PARITY_TOL, f"kernel path logits differ from the plain path by {worst:.3e}")
+    require(cache_err < PARITY_TOL, f"kernel path cache differs by {cache_err:.3e}")
+    require(torch.isfinite(l_gpu).all().item(), "non-finite logits in the parity run")
+
+
+def phase_serve():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    cfg = get_config("qwen3-4b")
+    B, P, G = 4, 512, 32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        gen = serve.main(["--arch", "qwen3-4b", "--batch", str(B), "--prompt-len", str(P),
+                          "--gen", str(G)])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    text = out.getvalue()
+    prefill_s = float(re.search(r"prefill: \S+ in ([0-9.]+)s", text).group(1))
+    decode_tps = float(re.search(r"\(([0-9.]+) tok/s\)", text).group(1))
+    print(f"[5] serve qwen3-4b (36 layers, bf16) B{B} P{P} gen {G}:")
+    for line in text.strip().splitlines():
+        print(f"  {line}")
+    print(f"  logits finite (serve raises otherwise), "
+          f"prefill {prefill_s * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s, "
+          f"peak memory {peak / 2**30:.2f} GiB, launches {counts}, "
+          f"main() wall {wall:.1f}s (init included)")
+    per_forward = 4 * cfg.num_layers + 1
+    require(counts["flash_attention"] == cfg.num_layers,
+            f"flash_attention launched {counts['flash_attention']} times, want {cfg.num_layers}")
+    require(counts["rmsnorm"] == per_forward * G,
+            f"rmsnorm launched {counts['rmsnorm']} times, want {per_forward} x {G}")
+    require(tuple(gen.shape) == (B, G), f"generated shape {tuple(gen.shape)}")
+    require(int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size, "token out of range")
+    return counts
+
+
+def device_breakdown(prof, wall_ms: float, top: int = 6) -> str:
+    """Device busy time by kernel name from a torch.profiler trace, and the idle share."""
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    if busy == 0.0:
+        return "device time not measured (the profiler recorded no kernel)"
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    names = "; ".join(f"{n[:60]} {ms:.2f}ms ({ms / busy:.0%})" for n, ms in rows)
+    return (f"device busy {busy:.2f} of {wall_ms:.2f} ms wall, idle {1 - busy / wall_ms:.1%}; "
+            f"top: {names}")
+
+
+def op_breakdown(prof, top: int = 6) -> str:
+    """Device time by the PyTorch op that launched it, with its input shapes
+    (the port's own kernels, launched through ctypes, belong to no op)."""
+    rows = [e for e in prof.key_averages(group_by_input_shape=True)
+            if e.key.startswith("aten::") and e.self_device_time_total > 0]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows)
+    if busy == 0:
+        return "no op launched device work"
+    return f"ops' device time {busy / 1e3:.2f} ms; top: " + "; ".join(
+        f"{e.key} {str(e.input_shapes)[:70]} {e.self_device_time_total / 1e3:.2f}ms "
+        f"({e.self_device_time_total / busy:.0%})" for e in rows[:top])
+
+
+def phase_profile():
+    """Where the time goes in the served model: a warm prefill and warm decode
+    steps at the serve phase's shapes, timed untraced, then traced once each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen3-4b")
+    B, P, G, steps = 4, 512, 32, 16
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, P))).cuda()
+
+    def prefill():
+        logits, cache = model.prefill(params, {"tokens": tokens}, max_seq=P + G)
+        return logits[:, -1].argmax(-1, keepdim=True), cache
+
+    def decode(tok, cache):
+        for i in range(steps):
+            logits, cache = model.decode_step(params, cache, tok, P + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+        return tok
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    decode(*prefill())  # warm: lazily loaded library kernels, allocator
+    (tok, cache), prefill_ms = timed(prefill)
+    _, decode_ms = timed(decode, tok, cache)
+    print(f"[6] profile qwen3-4b B{B} P{P}, warm, untraced: prefill {prefill_ms:.2f} ms, "
+          f"decode {decode_ms / steps:.2f} ms/step ({B * steps / decode_ms * 1e3:.1f} tok/s)")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts, record_shapes=True) as prof:
+        (tok, cache), wall = timed(prefill)
+    print(f"  prefill traced: {device_breakdown(prof, wall)}")
+    print(f"  prefill by op: {op_breakdown(prof)}")
+    with profile(activities=acts, record_shapes=True) as prof:
+        _, wall = timed(decode, tok, cache)
+    print(f"  decode ({steps} steps) traced: {device_breakdown(prof, wall)}")
+    print(f"  decode by op: {op_breakdown(prof)}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; this script needs one GPU")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"[1] device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    print(smi)
+
+    t0 = time.perf_counter()
+    logs = _build.build()
+    print(f"[2] build: {time.perf_counter() - t0:.1f}s "
+          f"({', '.join(logs) or 'all cached'}) for sm_90a")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    cases = phase_kernels()
+    phase_parity()
+    counts = phase_serve()
+    phase_profile()
+
+    srcs = {"rmsnorm": "src/repro/kernels/rmsnorm.py:25",
+            "flash_attention": "src/repro/kernels/flash_attention.py:99"}
+    kernels = []
+    for name, main_case in ((n, cases[n][0]) for n in srcs):
+        require(counts[name] > 0, f"{name} was not launched on the main path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": srcs[name], "launches": counts[name],
+            "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+            "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
+        })
+    print("kernels: " + "; ".join(
+        f"{k['name']} launches={k['launches']} parity=ok ({len(cases[k['name']])} cases)"
+        for k in kernels))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,48 @@
+"""Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
+
+The port carries one architecture so far; the others of the JAX package's
+registry are named here so that asking for one says why it is missing.
+"""
+
+from __future__ import annotations
+
+from importlib import import_module
+
+from .base import SHAPES, LayerSpec, ModelConfig, ShapeSpec, uniform_program  # noqa: F401
+
+ARCHS: dict[str, str] = {
+    "qwen3-4b": "qwen3_4b",
+}
+
+NOT_PORTED = (
+    "gemma3-4b",
+    "starcoder2-7b",
+    "gemma2-9b",
+    "deepseek-v2-lite-16b",
+    "llama4-maverick-400b-a17b",
+    "qwen2-vl-7b",
+    "mamba2-370m",
+    "whisper-large-v3",
+    "hymba-1.5b",
+)
+
+
+def _module(arch: str):
+    if arch in NOT_PORTED:
+        raise KeyError(f"arch {arch!r} is not yet ported, see ROADMAP.md")
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+    return import_module(f"repro_torch.configs.{ARCHS[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).config()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()
+
+
+def list_archs() -> list[str]:
+    """The architectures the port can build."""
+    return list(ARCHS)

@@ -1,0 +1,45 @@
+"""Public kernel entry points: the tensor's device picks the implementation.
+
+Counterpart of ``repro/kernels/ops.py`` (``flash_mha`` :30, ``fused_rmsnorm``
+:52).  A CPU tensor goes to the kernel's plain PyTorch version; a CUDA
+tensor goes to the Hopper kernel, which launches or raises.  Nothing falls
+back from the card to the plain version: the kernel masks ragged tiles, so
+the JAX package's length-based fallback is not needed.  ``ssd`` arrives with
+the SSD slice.
+"""
+
+from __future__ import annotations
+
+from .flash_attention import flash_attention, flash_attention_plain
+from .rmsnorm import rmsnorm, rmsnorm_plain
+
+# The CUDA wrappers, each counting its launches in ``.launches``.
+KERNELS = (rmsnorm, flash_attention)
+
+
+def _on_cpu(x) -> bool:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or plain version for device {x.device}")
+    return x.device.type == "cpu"
+
+
+def flash_mha(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
+    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd] (blockwise attention)."""
+    fn = flash_attention_plain if _on_cpu(q) else flash_attention
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+
+
+def fused_rmsnorm(x, scale, *, eps=1e-6):
+    """x [..., D], scale [D] fp32 -> like x."""
+    if _on_cpu(x):
+        return rmsnorm_plain(x, scale, eps)
+    return rmsnorm(x, scale, eps=eps)
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

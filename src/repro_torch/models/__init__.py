@@ -1,0 +1,15 @@
+"""Model zoo of the port: the dense decoder so far."""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+
+from .layers import NOT_PORTED
+from .transformer import Model
+
+
+def build_model(cfg: ModelConfig, device) -> Model:
+    """The model object for ``cfg`` on ``device`` (init/init_cache/prefill/decode_step)."""
+    if cfg.is_encoder_decoder or cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}) {NOT_PORTED}")
+    return Model(cfg, device)

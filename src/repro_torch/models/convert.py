@@ -1,0 +1,72 @@
+"""Carry a JAX ``Model.init`` pytree (as numpy arrays) into the port's layout.
+
+The reference stacks the layers of a repeated program segment on a leading
+axis (``repro/models/transformer.py:279 init_program``, built with
+``jax.vmap``) and scans over it; the port keeps one entry per layer.
+``unstack_program`` turns the one form into the other for any per-segment
+pytree, the parameters and the KV cache alike; ``params_from_jax`` also
+casts matrices to ``cfg.dtype`` (norm scales stay fp32) and moves them to
+the device.  Parameter names and einsum layouts are the reference's; the KV
+cache's is not (``kv_from_jax``, ``cache_from_jax``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from .layers import dtype_of
+
+
+def map_tree(fn, tree):
+    """Apply ``fn`` to every leaf of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def unstack_program(segs, program) -> list:
+    """Per-segment pytrees (leaves [reps, ...] when reps > 1) -> one pytree per layer."""
+    layers = []
+    for (unit, reps), seg in zip(program, segs):
+        for r in range(reps):
+            for i in range(len(unit)):
+                node = seg[f"l{i}"]
+                layers.append(map_tree(lambda a, r=r: a[r], node) if reps > 1 else node)
+    return layers
+
+
+def params_from_jax(np_params, cfg: ModelConfig, device):
+    """JAX ``Model.init`` params as numpy -> the port's params on ``device``."""
+    dt = dtype_of(cfg)
+
+    def leaf(a):
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(device=device, dtype=dt if t.ndim >= 2 else torch.float32)
+
+    return {
+        "embed": map_tree(leaf, np_params["embed"]),
+        "blocks": [map_tree(leaf, p) for p in unstack_program(np_params["blocks"], cfg.program)],
+        "final_norm": map_tree(leaf, np_params["final_norm"]),
+    }
+
+
+def kv_from_jax(a, device="cpu"):
+    """One layer's JAX cache leaf [B, W, KV, hd] -> the port's head-major
+    [B, KV, W, hd] (``models/attention.py``), in float32."""
+    return torch.from_numpy(np.array(a, dtype=np.float32)).transpose(1, 2).contiguous().to(device)
+
+
+def cache_from_jax(np_cache, cfg: ModelConfig, device="cpu") -> list:
+    """JAX ``prefill``/``decode_step`` cache (per segment, leaves [reps, B, W, KV, hd])
+    -> the port's per-layer list of {"kv": {"k", "v"}}."""
+    return [map_tree(lambda a: kv_from_jax(a, device), layer)
+            for layer in unstack_program(np_cache, cfg.program)]
+
+
+def to_device(tree, device):
+    """Every tensor of ``tree`` moved to ``device``."""
+    return map_tree(lambda t: t.to(device), tree)

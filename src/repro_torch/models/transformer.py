@@ -1,0 +1,144 @@
+"""Decoder-only LM for serving: prefill into a KV cache, then decode steps.
+
+Counterpart of ``repro/models/transformer.py``, dense full-attention layers
+only; other layer kinds raise NotImplementedError naming the ROADMAP item.
+The reference scans stacked segment parameters with ``lax.scan``; here
+``params["blocks"]`` and the cache hold one entry per layer, in program
+order, and a Python loop runs them (``models/convert.py`` unstacks a JAX
+pytree into this form).  Training (``Model.loss``) arrives with queue A
+items 3-4.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
+from . import attention as attn_mod
+from .layers import (
+    NOT_PORTED,
+    apply_dense_ffn,
+    apply_norm,
+    dtype_of,
+    embed_tokens,
+    init_dense_ffn,
+    init_embedding,
+    init_norm,
+    lm_logits,
+)
+from .rope import rope_angles
+
+
+def _check_spec(spec: LayerSpec) -> None:
+    if spec.ffn != "dense":
+        raise NotImplementedError(f"ffn {spec.ffn!r} {NOT_PORTED}")
+    attn_mod.check_spec(spec)
+
+
+def layer_specs(program: tuple[Segment, ...]) -> list[LayerSpec]:
+    """One LayerSpec per layer, in execution order."""
+    return [spec for unit, reps in program for _ in range(reps) for spec in unit]
+
+
+# ---------------------------------------------------------------- layers
+def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
+    _check_spec(spec)
+    dev = generator.device
+    return {
+        "ln1": init_norm(cfg, dev),
+        "attn": attn_mod.init_attention(generator, cfg, spec),
+        "ln2": init_norm(cfg, dev),
+        "ffn": init_dense_ffn(generator, cfg),
+    }
+
+
+def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int):
+    """Forward one layer over the whole prompt, emitting its decode cache."""
+    cache: dict[str, Any] = {}
+    h = apply_norm(p["ln1"], x, cfg)
+    h, cache["kv"] = attn_mod.prefill_attention(p["attn"], h, cfg, spec, angles, max_seq)
+    x = x + h
+    x = x + apply_dense_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
+    return x, cache
+
+
+def decode_layer(p, x, cache, pos: int, cfg: ModelConfig, spec: LayerSpec, angles):
+    """One token through one layer; updates ``cache`` in place and returns it."""
+    h = apply_norm(p["ln1"], x, cfg)
+    h, cache["kv"] = attn_mod.decode_attention(p["attn"], h, cache["kv"], pos, cfg, spec, angles)
+    x = x + h
+    x = x + apply_dense_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
+    return x, cache
+
+
+def init_program_cache(cfg: ModelConfig, program, batch: int, max_seq: int, dtype, device):
+    """One zeroed {"kv": {"k", "v"}} per layer, in execution order."""
+    return [
+        {"kv": attn_mod.init_kv_cache(cfg, spec, batch, max_seq, dtype, device)}
+        for spec in layer_specs(program)
+    ]
+
+
+# ------------------------------------------------------------------ model
+@dataclass
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        for spec in layer_specs(self.cfg.program):
+            _check_spec(spec)
+
+    # ---- parameters ----
+    def init(self, generator: torch.Generator):
+        """Random parameters from ``generator``, which must live on ``self.device``."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on {self.device}")
+        cfg = self.cfg
+        return {
+            "embed": init_embedding(generator, cfg),
+            "blocks": [init_layer(generator, cfg, spec) for spec in layer_specs(cfg.program)],
+            "final_norm": init_norm(cfg, self.device),
+        }
+
+    def _angles(self, positions):
+        return rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
+
+    # ---- serving ----
+    def init_cache(self, batch: int, max_seq: int):
+        return init_program_cache(
+            self.cfg, self.cfg.program, batch, max_seq, dtype_of(self.cfg), self.device
+        )
+
+    def prefill(self, params, batch, max_seq: int | None = None):
+        """Forward the prompt, return (last-position logits [B,1,V], filled cache)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed_tokens(params["embed"], tokens, cfg)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        angles = self._angles(positions)
+        max_seq = max_seq or S
+        cache = []
+        for p, spec in zip(params["blocks"], layer_specs(cfg.program)):
+            x, c = prefill_layer(p, x, cfg, spec, angles, max_seq)
+            cache.append(c)
+        # The norm is row-wise: norming the last position alone equals the
+        # reference's norm of all positions followed by the slice.
+        x = apply_norm(params["final_norm"], x[:, -1:].contiguous(), cfg)
+        return lm_logits(params["embed"], x, cfg), cache
+
+    def decode_step(self, params, cache, tokens, pos: int):
+        """tokens [B,1] int, pos int -> (logits [B,1,V], cache updated in place)."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens, cfg)
+        positions = torch.full(tokens.shape, pos, device=tokens.device)
+        angles = self._angles(positions)
+        for p, c, spec in zip(params["blocks"], cache, layer_specs(cfg.program)):
+            x, _ = decode_layer(p, x, c, pos, cfg, spec, angles)
+        x = apply_norm(params["final_norm"], x, cfg)
+        return lm_logits(params["embed"], x, cfg), cache
