@@ -6,20 +6,26 @@ card and nvcc (CUDA_HOME or PATH); it imports the port from ``src/`` and
 nothing of JAX or of the JAX package.  Phases, each fatal on failure:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    both kernels compiled from ``src/repro_torch/kernels/csrc``;
+  2. build    the three kernels compiled from ``src/repro_torch/kernels/csrc``,
+              one nvcc each, in parallel;
   3. kernels  each CUDA kernel against its plain PyTorch version on the card,
-              at the main path's shapes and a few edge cases, timed beside
-              its bound and a library call that computes the same function;
-  4. parity   qwen3-4b's widths at depth 2 in fp32: prefill + 4 decode steps
-              through the kernels on the card against the plain path on the CPU;
+              at the main paths' shapes and a few edge cases, timed beside
+              its bound and a library call that computes the same function
+              (none computes the SSD scan);
+  4. parity   qwen3-4b's and mamba2-370m's widths at depth 2 in fp32: prefill
+              + 4 decode steps through the kernels on the card against the
+              plain path on the CPU, logits and every layer's cache;
   5. serve    ``repro_torch.launch.serve.main`` on the full qwen3-4b (36
               layers, bf16, random weights) at batch 4, prompt 512, 32 tokens,
-              with the kernels' launch counts read over exactly that run;
-  6. profile  where the time goes: the same model's prefill and decode steps,
-              warm, timed untraced and then traced with torch.profiler.
+              and on the full mamba2-370m (48 layers) at batch 4, prompt 2048,
+              32 tokens, with the kernels' launch counts set to 0 just before
+              each run and read just after it;
+  6. profile  where the time goes: each served model's prefill and decode
+              steps, warm, timed untraced and then traced with torch.profiler.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
-numbers, the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
+numbers (``launches`` summed over the serve runs, whose own counts the
+summary prints), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -44,10 +50,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor core bf16;
 L2_BYTES = 50 * 2**20
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}      # tests/test_kernels.py
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# Relative to max|want|, for y and the final state: tests/test_kernels.py's
+# SSD tolerance in fp32; one bf16 rounding of y, and room for it, in bf16.
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Phase 4: both sides run fp32 with TF32 off, so they differ only by the
-# order of fp32 sums (over D = 2560, F = 9728, two layers, five forwards):
-# about 1e-6 relative.  A wrong mask, GQA index or cache slot moves logits
-# by O(1); 1e-4 separates the two.
+# order of fp32 sums (over D = 2560, F = 9728 or d_inner = 2048, two layers,
+# five forwards): about 1e-6 relative.  A wrong mask, GQA index, cache slot,
+# decay or carried state moves logits by O(1); 1e-4 separates the two.
 PARITY_TOL = 1e-4
 
 
@@ -80,10 +89,15 @@ def time_ms(fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def n_copies(nbytes: int) -> int:
+    """How many copies of a call's inputs exceed twice the L2 cache."""
+    return max(2, min(16, math.ceil(2 * L2_BYTES / nbytes)))
+
+
 def copies(tensors, nbytes: int):
     """Enough copies of ``tensors`` to exceed twice the L2 cache."""
-    n = max(2, min(16, math.ceil(2 * L2_BYTES / nbytes)))
-    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(n_copies(nbytes) - 1)]
 
 
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
@@ -160,9 +174,72 @@ def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softc
     }
 
 
+def ssd_flops(b, s, h, p, n) -> int:
+    """Flops of the kernel's chunking on these shapes: for a chunk of c steps,
+    the lower triangle of C B^T and of its product with x dt, c (c + 1) / 2
+    (N + P) multiply-adds, and the inter-chunk term and the state update,
+    2 c P N."""
+    from repro_torch.kernels.ssd_scan import CHUNK
+
+    steps = 0
+    for c0 in range(0, s, CHUNK):
+        c = min(CHUNK, s - c0)
+        steps += c * (c + 1) // 2 * (n + p) + 2 * c * p * n
+    return 2 * b * h * steps
+
+
+def ssd_case(b, s, h, p, g, n, dtype, gen, views=False):
+    """``views``: x, B and C are views into one [b, s, h p + 2 g n] tensor, as
+    the model hands them over from its conv output (strided batch and
+    sequence axes); otherwise each is contiguous."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def make():
+        if views:
+            xbc = randn(b, s, h * p + 2 * g * n)
+            x, Bm, Cm = (t.unflatten(-1, (k, d)) for t, k, d in zip(
+                xbc.split([h * p, g * n, g * n], dim=-1), (h, g, g), (p, n, n)))
+        else:
+            x, Bm, Cm = randn(b, s, h, p), randn(b, s, g, n), randn(b, s, g, n)
+        # dt about 0.02 (softplus(N(0, 1) - 4)) with init_mamba's A from -1 to
+        # -16: the slow heads carry their state across many 64-step chunks, so
+        # the inter-chunk term and the final state are checked, not only the
+        # diagonal blocks.
+        dt = F.softplus(randn(b, s, h).float() - 4.0).to(dtype)
+        A = (-torch.linspace(1.0, 16.0, h, device="cuda")).to(dtype)
+        return x, dt, A, Bm, Cm
+
+    args = make()
+    (y, state), (y_want, state_want) = ssd_scan(*args), ssd_scan_plain(*args)
+    torch.cuda.synchronize()
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+    tol = SSD_TOL[dtype]
+    rel_y, rel_state = rel(y, y_want), rel(state, state_want)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, y, state))
+    b_ms, b_by = bound(nbytes, ssd_flops(b, s, h, p, n), dtype)
+    sets = [args] + [make() for _ in range(n_copies(nbytes) - 1)]
+    return {
+        "case": f"ssd x[{b},{s},{h},{p}] B/C[{b},{s},{g},{n}] {str(dtype)[6:]}"
+                f"{' (views of one tensor)' if views else ''} "
+                f"(error relative to max|want|: y {rel_y:.2e}, state {rel_state:.2e})",
+        "max_abs_err": (y.float() - y_want.float()).abs().max().item(), "tol": tol,
+        "relative": True,
+        "ok": rel_y < tol and rel_state < tol,
+        "ms": time_ms(ssd_scan, sets, 10), "plain_ms": time_ms(ssd_scan_plain, sets, 3),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 def print_case(c) -> None:
-    lib = f"{c['library_ms']:.4f}ms" if c["library_ms"] is not None else "n/a"
-    print(f"  {c['case']}: max_err={c['max_abs_err']:.3e} tol={c['tol']:g} "
+    lib = f"{c['library_ms']:.4f}ms" if c["library_ms"] is not None else "none"
+    tol = f"relative tol={c['tol']:g}" if c.get("relative") else f"tol={c['tol']:g}"
+    print(f"  {c['case']}: max_abs_err={c['max_abs_err']:.3e} {tol} "
           f"{'ok' if c['ok'] else 'DISAGREES'}  kernel={c['ms']:.4f}ms "
           f"plain={c['plain_ms']:.4f}ms library={lib} "
           f"bound={c['bound_ms'] * 1e3:.2f}us ({c['bound_by']})")
@@ -175,6 +252,8 @@ def phase_kernels():
         rmsnorm_case((2048, 2560), torch.bfloat16, gen),   # ln1/ln2 at prefill B4 S512
         rmsnorm_case((65536, 128), torch.bfloat16, gen),   # q-norm at prefill B4 S512 H32
         rmsnorm_case((37, 1024), torch.float32, gen),
+        rmsnorm_case((8192, 2048), torch.bfloat16, gen),   # mamba2 gated norm, B4 S2048
+        rmsnorm_case((8192, 1024), torch.bfloat16, gen),   # mamba2 ln1, B4 S2048
     ]
     flash = [
         flash_case(4, 512, 512, 32, 8, 128, torch.bfloat16, gen),  # qwen3-4b prefill
@@ -185,27 +264,34 @@ def phase_kernels():
         flash_case(1, 200, 200, 4, 1, 256, torch.bfloat16, gen),   # hd 256 tiles, MQA
         flash_case(1, 192, 64, 2, 1, 256, torch.float32, gen, window=32),  # rows, no live key
     ]
-    for c in rms + flash:
+    ssd = [
+        ssd_case(4, 2048, 32, 64, 1, 128, torch.bfloat16, gen, views=True),  # mamba2 prefill
+        ssd_case(1, 512, 32, 64, 1, 128, torch.float32, gen),
+        ssd_case(2, 256, 8, 64, 2, 64, torch.float32, gen, views=True),      # two groups
+        ssd_case(1, 300, 4, 64, 1, 128, torch.float32, gen),     # ragged last chunk
+        ssd_case(1, 300, 4, 16, 2, 8, torch.bfloat16, gen),      # narrow tiles, ragged
+    ]
+    for c in rms + flash + ssd:
         print_case(c)
-    for c in rms + flash:
+    for c in rms + flash + ssd:
         require(c["ok"], f"{c['case']} disagrees with its plain version "
-                         f"(max err {c['max_abs_err']:.3e} > tol {c['tol']:g})")
-    return {"rmsnorm": rms, "flash_attention": flash}
+                         f"(max abs err {c['max_abs_err']:.3e}, tol {c['tol']:g})")
+    return {"rmsnorm": rms, "flash_attention": flash, "ssd_scan": ssd}
 
 
-def phase_parity():
+def phase_parity(arch: str, P: int):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.convert import to_device
 
-    full = get_config("qwen3-4b")
+    full = get_config(arch)
     unit, _ = full.program[0]
     cfg = full.reduced(num_layers=2, program=((unit, 2),), dtype="float32")
     cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, "cuda")
     t0 = time.perf_counter()
     p_cpu = cpu.init(torch.Generator("cpu").manual_seed(0))
     p_gpu = to_device(p_cpu, "cuda")
-    P, steps = 256, 4
+    steps = 4
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, P)))
     l_cpu, c_cpu = cpu.prefill(p_cpu, {"tokens": tokens}, max_seq=P + steps)
     l_gpu, c_gpu = gpu.prefill(p_gpu, {"tokens": tokens.cuda()}, max_seq=P + steps)
@@ -220,30 +306,34 @@ def phase_parity():
         l_cpu, c_cpu = cpu.decode_step(p_cpu, c_cpu, tok_cpu, P + i)
         l_gpu, c_gpu = gpu.decode_step(p_gpu, c_gpu, tok_cpu.cuda(), P + i)
         worst = max(worst, rel(l_gpu, l_cpu))
-    cache_err = max(rel(g["kv"][n], c["kv"][n]) for g, c in zip(c_gpu, c_cpu) for n in "kv")
-    print(f"[4] parity qwen3-4b widths, 2 layers, fp32, B1 P{P} + {steps} decode steps: "
+    # every leaf of every layer's cache: kv {k, v} or ssm {state, conv}
+    cache_err = max(rel(g[kind][n], c[kind][n])
+                    for g, c in zip(c_gpu, c_cpu) for kind in c for n in c[kind])
+    print(f"[4] parity {arch} widths, 2 layers, fp32, B1 P{P} + {steps} decode steps: "
           f"max rel logit diff {worst:.3e}, max rel cache diff {cache_err:.3e} "
           f"(tol {PARITY_TOL:g}), greedy tokens equal {same}/{steps}, "
           f"{time.perf_counter() - t0:.1f}s")
-    require(worst < PARITY_TOL, f"kernel path logits differ from the plain path by {worst:.3e}")
-    require(cache_err < PARITY_TOL, f"kernel path cache differs by {cache_err:.3e}")
-    require(torch.isfinite(l_gpu).all().item(), "non-finite logits in the parity run")
+    require(worst < PARITY_TOL,
+            f"{arch}: kernel path logits differ from the plain path by {worst:.3e}")
+    require(cache_err < PARITY_TOL, f"{arch}: kernel path cache differs by {cache_err:.3e}")
+    require(torch.isfinite(l_gpu).all().item(), f"{arch}: non-finite logits in the parity run")
 
 
-def phase_serve():
+def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
+    """Serve the full model through ``serve.main`` (a prefill and G - 1 decode
+    steps); each kernel must have been launched ``want[name]`` times."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    cfg = get_config("qwen3-4b")
-    B, P, G = 4, 512, 32
+    cfg = get_config(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
     out = io.StringIO()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        gen = serve.main(["--arch", "qwen3-4b", "--batch", str(B), "--prompt-len", str(P),
+        gen = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
                           "--gen", str(G)])
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -251,18 +341,14 @@ def phase_serve():
     text = out.getvalue()
     prefill_s = float(re.search(r"prefill: \S+ in ([0-9.]+)s", text).group(1))
     decode_tps = float(re.search(r"\(([0-9.]+) tok/s\)", text).group(1))
-    print(f"[5] serve qwen3-4b (36 layers, bf16) B{B} P{P} gen {G}:")
+    print(f"[5] serve {arch} ({cfg.num_layers} layers, bf16) B{B} P{P} gen {G}:")
     for line in text.strip().splitlines():
         print(f"  {line}")
     print(f"  logits finite (serve raises otherwise), "
           f"prefill {prefill_s * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s, "
           f"peak memory {peak / 2**30:.2f} GiB, launches {counts}, "
           f"main() wall {wall:.1f}s (init included)")
-    per_forward = 4 * cfg.num_layers + 1
-    require(counts["flash_attention"] == cfg.num_layers,
-            f"flash_attention launched {counts['flash_attention']} times, want {cfg.num_layers}")
-    require(counts["rmsnorm"] == per_forward * G,
-            f"rmsnorm launched {counts['rmsnorm']} times, want {per_forward} x {G}")
+    require(counts == want, f"{arch}: launch counts {counts}, want {want}")
     require(tuple(gen.shape) == (B, G), f"generated shape {tuple(gen.shape)}")
     require(int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size, "token out of range")
     return counts
@@ -297,7 +383,7 @@ def op_breakdown(prof, top: int = 6) -> str:
         f"({e.self_device_time_total / busy:.0%})" for e in rows[:top])
 
 
-def phase_profile():
+def phase_profile(arch: str, B: int, P: int, G: int):
     """Where the time goes in the served model: a warm prefill and warm decode
     steps at the serve phase's shapes, timed untraced, then traced once each."""
     from torch.profiler import ProfilerActivity, profile
@@ -305,8 +391,8 @@ def phase_profile():
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = get_config("qwen3-4b")
-    B, P, G, steps = 4, 512, 32, 16
+    cfg = get_config(arch)
+    steps = 16
     model = build_model(cfg, "cuda")
     params = model.init(torch.Generator("cuda").manual_seed(0))
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, P))).cuda()
@@ -331,7 +417,7 @@ def phase_profile():
     decode(*prefill())  # warm: lazily loaded library kernels, allocator
     (tok, cache), prefill_ms = timed(prefill)
     _, decode_ms = timed(decode, tok, cache)
-    print(f"[6] profile qwen3-4b B{B} P{P}, warm, untraced: prefill {prefill_ms:.2f} ms, "
+    print(f"[6] profile {arch} B{B} P{P}, warm, untraced: prefill {prefill_ms:.2f} ms, "
           f"decode {decode_ms / steps:.2f} ms/step ({B * steps / decode_ms * 1e3:.1f} tok/s)")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts, record_shapes=True) as prof:
@@ -370,25 +456,42 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     cases = phase_kernels()
-    phase_parity()
-    counts = phase_serve()
-    phase_profile()
+    phase_parity("qwen3-4b", 256)
+    phase_parity("mamba2-370m", 300)  # pads to 512: two chunks of 256, the second ragged
+    # Launches over 32 forwards (prefill and 31 decode steps): qwen3-4b runs
+    # flash once a layer in prefill, RMSNorm 4 times a layer (ln1, ln2,
+    # q-norm, k-norm) plus the final norm in every forward; mamba2-370m runs
+    # the SSD once a layer in prefill, RMSNorm twice a layer (ln1, the gated
+    # norm) plus the final norm in every forward.
+    serves = {
+        "qwen3-4b": phase_serve("qwen3-4b", 4, 512, 32, {
+            "rmsnorm": (4 * 36 + 1) * 32, "flash_attention": 36, "ssd_scan": 0}),
+        "mamba2-370m": phase_serve("mamba2-370m", 4, 2048, 32, {
+            "rmsnorm": (2 * 48 + 1) * 32, "flash_attention": 0, "ssd_scan": 48}),
+    }
+    phase_profile("qwen3-4b", 4, 512, 32)
+    phase_profile("mamba2-370m", 4, 2048, 32)
 
     srcs = {"rmsnorm": "src/repro/kernels/rmsnorm.py:25",
-            "flash_attention": "src/repro/kernels/flash_attention.py:99"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:99",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:65"}
     kernels = []
     for name, main_case in ((n, cases[n][0]) for n in srcs):
-        require(counts[name] > 0, f"{name} was not launched on the main path")
+        launches = sum(counts[name] for counts in serves.values())
+        require(launches > 0, f"{name} was not launched on a main path")
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": srcs[name], "launches": counts[name],
+            "replaces": srcs[name], "launches": launches,
             "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
         })
-    print("kernels: " + "; ".join(
-        f"{k['name']} launches={k['launches']} parity=ok ({len(cases[k['name']])} cases)"
-        for k in kernels))
+    summary = []
+    for k in kernels:
+        per_path = ", ".join(f"{arch} {counts[k['name']]}" for arch, counts in serves.items())
+        summary.append(f"{k['name']} launches={k['launches']} ({per_path}) "
+                       f"parity=ok ({len(cases[k['name']])} cases)")
+    print("kernels: " + "; ".join(summary))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

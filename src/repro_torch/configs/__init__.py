@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
-The port carries one architecture so far; the others of the JAX package's
-registry are named here so that asking for one says why it is missing.
+The port carries qwen3-4b and mamba2-370m so far; the others of the JAX
+package's registry are named here so that asking for one says why it is
+missing.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from .base import SHAPES, LayerSpec, ModelConfig, ShapeSpec, uniform_program  # 
 
 ARCHS: dict[str, str] = {
     "qwen3-4b": "qwen3_4b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 NOT_PORTED = (
@@ -21,7 +23,6 @@ NOT_PORTED = (
     "deepseek-v2-lite-16b",
     "llama4-maverick-400b-a17b",
     "qwen2-vl-7b",
-    "mamba2-370m",
     "whisper-large-v3",
     "hymba-1.5b",
 )

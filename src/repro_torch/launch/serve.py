@@ -6,9 +6,9 @@ with ``--seed``.  Prompt tokens come from ``numpy.random.default_rng(seed +
 1)``: the reference draws them with ``jax.random``, whose bits PyTorch cannot
 reproduce, so the two entry points serve different prompts from the same seed.
 Runs on CUDA unless ``--device cpu`` is given, and raises on a host without
-CUDA rather than falling back.  On the card, RMSNorm and prefill attention
-run through the port's Hopper kernels; matrix products stay in full fp32
-for fp32 models (TF32 off).
+CUDA rather than falling back.  On the card, RMSNorm, prefill attention
+and the SSD scan run through the port's Hopper kernels; matrix products
+stay in full fp32 for fp32 models (TF32 off).
 
 The planner flags of the reference (``--plan``, ``--plan-cache``,
 ``--colocate``) and its observability flags wait for ROADMAP queue A items
@@ -17,6 +17,8 @@ The planner flags of the reference (``--plan``, ``--plan-cache``,
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --batch 4 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 

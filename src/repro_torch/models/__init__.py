@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense decoder so far."""
+"""Model zoo of the port: the dense decoder and Mamba-2 so far."""
 
 from __future__ import annotations
 
@@ -10,6 +10,6 @@ from .transformer import Model
 
 def build_model(cfg: ModelConfig, device) -> Model:
     """The model object for ``cfg`` on ``device`` (init/init_cache/prefill/decode_step)."""
-    if cfg.is_encoder_decoder or cfg.family != "dense":
+    if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"{cfg.name} ({cfg.family}) {NOT_PORTED}")
     return Model(cfg, device)

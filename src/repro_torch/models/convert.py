@@ -7,7 +7,8 @@ axis (``repro/models/transformer.py:279 init_program``, built with
 pytree, the parameters and the KV cache alike; ``params_from_jax`` also
 casts matrices to ``cfg.dtype`` (norm scales stay fp32) and moves them to
 the device.  Parameter names and einsum layouts are the reference's; the KV
-cache's is not (``kv_from_jax``, ``cache_from_jax``).
+cache's is not (``kv_from_jax``, ``cache_from_jax``), while the Mamba-2
+cache's is.
 """
 
 from __future__ import annotations
@@ -54,16 +55,26 @@ def params_from_jax(np_params, cfg: ModelConfig, device):
     }
 
 
+def _f32(a, device="cpu"):
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
 def kv_from_jax(a, device="cpu"):
     """One layer's JAX cache leaf [B, W, KV, hd] -> the port's head-major
     [B, KV, W, hd] (``models/attention.py``), in float32."""
-    return torch.from_numpy(np.array(a, dtype=np.float32)).transpose(1, 2).contiguous().to(device)
+    return _f32(a).transpose(1, 2).contiguous().to(device)
 
 
 def cache_from_jax(np_cache, cfg: ModelConfig, device="cpu") -> list:
-    """JAX ``prefill``/``decode_step`` cache (per segment, leaves [reps, B, W, KV, hd])
-    -> the port's per-layer list of {"kv": {"k", "v"}}."""
-    return [map_tree(lambda a: kv_from_jax(a, device), layer)
+    """JAX ``prefill``/``decode_step`` cache (per segment, leaves [reps, ...])
+    -> the port's per-layer list of {"kv": {"k", "v"}} or {"ssm": {"state",
+    "conv"}}, in float32.  KV leaves change layout (``kv_from_jax``); the
+    ssm state [B,H,P,N] and conv tail [B,K-1,C] keep the reference's."""
+    def leaf(kind):
+        fn = kv_from_jax if kind == "kv" else _f32
+        return lambda a: fn(a, device)
+
+    return [{kind: map_tree(leaf(kind), c) for kind, c in layer.items()}
             for layer in unstack_program(np_cache, cfg.program)]
 
 

@@ -1,7 +1,10 @@
-"""Decoder-only LM for serving: prefill into a KV cache, then decode steps.
+"""Decoder-only LM for serving: prefill into a decode cache, then decode steps.
 
-Counterpart of ``repro/models/transformer.py``, dense full-attention layers
-only; other layer kinds raise NotImplementedError naming the ROADMAP item.
+Counterpart of ``repro/models/transformer.py``, for full-attention and Mamba-2
+mixers, each with a dense FFN or none; other layer kinds raise
+NotImplementedError naming the ROADMAP item.  Each layer dispatches on its
+kind as the reference's does: ln1, then the mixer, then the residual, then
+``ln2`` and the FFN where the layer has one.
 The reference scans stacked segment parameters with ``lax.scan``; here
 ``params["blocks"]`` and the cache hold one entry per layer, in program
 order, and a Python loop runs them (``models/convert.py`` unstacks a JAX
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .layers import (
     NOT_PORTED,
     apply_dense_ffn,
@@ -33,9 +37,10 @@ from .rope import rope_angles
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.ffn != "dense":
+    if spec.ffn not in ("dense", "none"):
         raise NotImplementedError(f"ffn {spec.ffn!r} {NOT_PORTED}")
-    attn_mod.check_spec(spec)
+    if spec.attn != "mamba":
+        attn_mod.check_spec(spec)
 
 
 def layer_specs(program: tuple[Segment, ...]) -> list[LayerSpec]:
@@ -47,37 +52,51 @@ def layer_specs(program: tuple[Segment, ...]) -> list[LayerSpec]:
 def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
     _check_spec(spec)
     dev = generator.device
-    return {
-        "ln1": init_norm(cfg, dev),
-        "attn": attn_mod.init_attention(generator, cfg, spec),
-        "ln2": init_norm(cfg, dev),
-        "ffn": init_dense_ffn(generator, cfg),
-    }
+    p: dict[str, Any] = {"ln1": init_norm(cfg, dev)}
+    if spec.attn == "mamba":
+        p["mamba"] = ssm_mod.init_mamba(generator, cfg)
+    else:
+        p["attn"] = attn_mod.init_attention(generator, cfg, spec)
+    if spec.ffn == "dense":
+        p["ln2"] = init_norm(cfg, dev)
+        p["ffn"] = init_dense_ffn(generator, cfg)
+    return p
+
+
+def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
+    if spec.ffn == "dense":
+        x = x + apply_dense_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
+    return x
 
 
 def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int):
     """Forward one layer over the whole prompt, emitting its decode cache."""
     cache: dict[str, Any] = {}
     h = apply_norm(p["ln1"], x, cfg)
-    h, cache["kv"] = attn_mod.prefill_attention(p["attn"], h, cfg, spec, angles, max_seq)
-    x = x + h
-    x = x + apply_dense_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
-    return x, cache
+    if spec.attn == "mamba":
+        h, cache["ssm"] = ssm_mod.apply_mamba(p["mamba"], h, cfg, return_cache=True)
+    else:
+        h, cache["kv"] = attn_mod.prefill_attention(p["attn"], h, cfg, spec, angles, max_seq)
+    return _ffn(p, x + h, cfg, spec), cache
 
 
 def decode_layer(p, x, cache, pos: int, cfg: ModelConfig, spec: LayerSpec, angles):
     """One token through one layer; updates ``cache`` in place and returns it."""
     h = apply_norm(p["ln1"], x, cfg)
-    h, cache["kv"] = attn_mod.decode_attention(p["attn"], h, cache["kv"], pos, cfg, spec, angles)
-    x = x + h
-    x = x + apply_dense_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
-    return x, cache
+    if spec.attn == "mamba":
+        h, cache["ssm"] = ssm_mod.decode_mamba(p["mamba"], h, cache["ssm"], cfg)
+    else:
+        h, cache["kv"] = attn_mod.decode_attention(p["attn"], h, cache["kv"], pos, cfg, spec,
+                                                   angles)
+    return _ffn(p, x + h, cfg, spec), cache
 
 
 def init_program_cache(cfg: ModelConfig, program, batch: int, max_seq: int, dtype, device):
-    """One zeroed {"kv": {"k", "v"}} per layer, in execution order."""
+    """One zeroed cache per layer, in execution order: {"kv": {"k", "v"}} for
+    attention, {"ssm": {"state", "conv"}} for Mamba-2."""
     return [
-        {"kv": attn_mod.init_kv_cache(cfg, spec, batch, max_seq, dtype, device)}
+        {"ssm": ssm_mod.init_mamba_cache(cfg, batch, dtype, device)} if spec.attn == "mamba"
+        else {"kv": attn_mod.init_kv_cache(cfg, spec, batch, max_seq, dtype, device)}
         for spec in layer_specs(program)
     ]
 
@@ -106,6 +125,8 @@ class Model:
         }
 
     def _angles(self, positions):
+        if self.cfg.num_heads == 0:  # attention-free (mamba2)
+            return None
         return rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
 
     # ---- serving ----

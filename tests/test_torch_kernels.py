@@ -152,7 +152,9 @@ def test_cpu_path_launches_no_kernel():
     ops.fused_rmsnorm(x, torch.ones(64))
     q = torch.randn(1, 64, 2, 64)
     ops.flash_mha(q, q, q)
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    ops.ssd(torch.randn(1, 70, 2, 8), torch.rand(1, 70, 2), -torch.ones(2),
+            torch.randn(1, 70, 1, 4), torch.randn(1, 70, 1, 4))
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
 
 
 def test_import_and_cpu_path_need_no_nvcc():
@@ -161,6 +163,8 @@ def test_import_and_cpu_path_need_no_nvcc():
         "from repro_torch.kernels import _build, ops\n"
         "ops.fused_rmsnorm(torch.ones(2, 8), torch.ones(8))\n"
         "ops.flash_mha(torch.ones(1, 4, 2, 16), torch.ones(1, 4, 1, 16), torch.ones(1, 4, 1, 16))\n"
+        "ops.ssd(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 2), -torch.ones(2), torch.ones(1, 4, 1, 4),"
+        " torch.ones(1, 4, 1, 4))\n"
         "assert not _build._LIBS\n"
     )
     env = dict(os.environ, PATH="", CUDA_HOME=str(ROOT / "no-cuda-here"),

@@ -196,7 +196,7 @@ def test_cpu_serving_launches_no_kernel():
                       "--gen", "4"])
     assert gen.shape == (2, 4) and gen.dtype == torch.int64
     assert 0 <= int(gen.min()) and int(gen.max()) < get_smoke_config(ARCH).vocab_size
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
 
 
 def test_entry_point_defaults_to_cuda():
@@ -208,7 +208,7 @@ def test_entry_point_defaults_to_cuda():
 
 
 def test_registry():
-    assert list_archs() == [ARCH]
+    assert list_archs() == [ARCH, "mamba2-370m"]
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
             full.d_ff, full.vocab_size) == (36, 2560, 32, 8, 128, 9728, 151_936)
