@@ -6,12 +6,16 @@ card and nvcc (CUDA_HOME or PATH); it imports the port from ``src/`` and
 nothing of JAX or of the JAX package.  Phases, each fatal on failure:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the three kernels compiled from ``src/repro_torch/kernels/csrc``,
-              one nvcc each, in parallel;
+  2. build    the four kernel libraries compiled from
+              ``src/repro_torch/kernels/csrc``, one nvcc each, in parallel,
+              and the count of HGMMA (warpgroup tensor-core) instructions in
+              the SASS of the wgmma flash library, which must not be 0;
   3. kernels  each CUDA kernel against its plain PyTorch version on the card,
               at the main paths' shapes and a few edge cases, timed beside
               its bound and a library call that computes the same function
-              (none computes the SSD scan);
+              (none computes the SSD scan); each flash case names the
+              variant that ran (``wgmma``: bf16 at head dim 64 or 128;
+              ``simt``: the rest) and checks that it was that one;
   4. parity   qwen3-4b's and mamba2-370m's widths at depth 2 in fp32: prefill
               + 4 decode steps through the kernels on the card against the
               plain path on the CPU, logits and every layer's cache;
@@ -19,7 +23,8 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               layers, bf16, random weights) at batch 4, prompt 512, 32 tokens,
               and on the full mamba2-370m (48 layers) at batch 4, prompt 2048,
               32 tokens, with the kernels' launch counts set to 0 just before
-              each run and read just after it;
+              each run and read just after it (all 36 of qwen3-4b's flash
+              launches on ``flash_attention/wgmma``);
   6. profile  where the time goes: each served model's prefill and decode
               steps, warm, timed untraced and then traced with torch.profiler.
 
@@ -141,15 +146,23 @@ def live_pairs(Sq, Sk, causal, window) -> int:
 
 
 def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softcap=None):
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    """bf16 cases hold the wgmma variant, which rounds P to bf16 before P.V,
+    to the plain version, which keeps P in fp32, at the bf16 tolerance."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
+                                                     variant)
 
     q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
+    var = variant(dtype, hd)
+    before = flash_attention.variant_launches[var]
     got, want = flash_attention(q, k, v, **kw), flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
+    require(flash_attention.variant_launches[var] == before + 1,
+            f"flash B{B} Sq{Sq} hd{hd} {dtype} did not launch the {var} kernel")
     err = (got.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
     tol = TOL[dtype]
     ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
@@ -163,11 +176,12 @@ def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softc
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
                 enable_gqa=True)
         lib_ms = time_ms(sdpa, sets, 20)
-    name = (f"flash B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} {str(dtype)[6:]}"
+    name = (f"flash [{var}] B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} {str(dtype)[6:]}"
             f"{' causal' if causal else ''}{f' window={window}' if window else ''}"
-            f"{f' softcap={softcap}' if softcap else ''}")
+            f"{f' softcap={softcap}' if softcap else ''} "
+            f"(error relative to max|want|: {rel:.2e})")
     return {
-        "case": name, "max_abs_err": err, "tol": tol, "ok": ok,
+        "case": name, "variant": var, "max_abs_err": err, "tol": tol, "ok": ok,
         "ms": time_ms(lambda *a: flash_attention(*a, **kw), sets, 20),
         "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, **kw), sets, 3),
         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -255,8 +269,19 @@ def phase_kernels():
         rmsnorm_case((8192, 2048), torch.bfloat16, gen),   # mamba2 gated norm, B4 S2048
         rmsnorm_case((8192, 1024), torch.bfloat16, gen),   # mamba2 ln1, B4 S2048
     ]
+    bf16 = torch.bfloat16
     flash = [
-        flash_case(4, 512, 512, 32, 8, 128, torch.bfloat16, gen),  # qwen3-4b prefill
+        flash_case(4, 512, 512, 32, 8, 128, bf16, gen),            # qwen3-4b prefill
+        # the wgmma variant (bf16, hd 64 and 128) at its edges
+        flash_case(1, 300, 300, 32, 8, 128, bf16, gen),            # ragged tiles, GQA
+        flash_case(1, 256, 256, 4, 2, 64, bf16, gen, window=100),
+        flash_case(1, 384, 128, 2, 1, 64, bf16, gen, window=32),   # rows, no live key; MQA
+        flash_case(2, 128, 128, 2, 2, 64, bf16, gen, causal=False, softcap=30.0),
+        flash_case(1, 128, 256, 4, 4, 64, bf16, gen, causal=False),  # Sq < Sk
+        flash_case(1, 256, 512, 4, 2, 128, bf16, gen),             # Sq < Sk, causal
+        flash_case(2, 512, 512, 8, 2, 64, bf16, gen),              # GQA at hd 64
+        flash_case(1, 256, 256, 8, 1, 128, bf16, gen),             # MQA at hd 128
+        # the simt variant: fp32, and bf16 at other head dims
         flash_case(1, 300, 300, 32, 8, 128, torch.float32, gen),   # ragged tiles
         flash_case(1, 256, 256, 4, 2, 64, torch.float32, gen, window=100),
         flash_case(2, 128, 128, 2, 2, 64, torch.float32, gen, causal=False, softcap=30.0),
@@ -329,6 +354,7 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     cfg = get_config(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # left by earlier phases; inside the peak
     out = io.StringIO()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -346,7 +372,8 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
         print(f"  {line}")
     print(f"  logits finite (serve raises otherwise), "
           f"prefill {prefill_s * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s, "
-          f"peak memory {peak / 2**30:.2f} GiB, launches {counts}, "
+          f"peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB of it held before "
+          f"the run), launches {counts}, "
           f"main() wall {wall:.1f}s (init included)")
     require(counts == want, f"{arch}: launch counts {counts}, want {want}")
     require(tuple(gen.shape) == (B, G), f"generated shape {tuple(gen.shape)}")
@@ -430,6 +457,16 @@ def phase_profile(arch: str, B: int, P: int, G: int):
     print(f"  decode by op: {op_breakdown(prof)}")
 
 
+def hgmma_count(build) -> int:
+    """HGMMA (warpgroup MMA) instructions in the SASS of the wgmma flash
+    library, by the cuobjdump of the toolkit whose nvcc built it."""
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "--dump-sass", str(build.lib_path("flash_attention_wgmma"))],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs one GPU")
@@ -452,8 +489,11 @@ def main() -> int:
           f"({', '.join(logs) or 'all cached'}) for sm_90a")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line.lower():
                 print(f"  {name}: {line.strip()}")
+    hgmma = hgmma_count(_build)
+    print(f"  HGMMA instructions in {_build.lib_path('flash_attention_wgmma').name}: {hgmma}")
+    require(hgmma > 0, "the wgmma flash library holds no HGMMA instruction")
 
     cases = phase_kernels()
     phase_parity("qwen3-4b", 256)
@@ -462,12 +502,15 @@ def main() -> int:
     # flash once a layer in prefill, RMSNorm 4 times a layer (ln1, ln2,
     # q-norm, k-norm) plus the final norm in every forward; mamba2-370m runs
     # the SSD once a layer in prefill, RMSNorm twice a layer (ln1, the gated
-    # norm) plus the final norm in every forward.
+    # norm) plus the final norm in every forward.  qwen3-4b's flash is bf16
+    # at head dim 128, so every launch is the wgmma variant's.
     serves = {
         "qwen3-4b": phase_serve("qwen3-4b", 4, 512, 32, {
-            "rmsnorm": (4 * 36 + 1) * 32, "flash_attention": 36, "ssd_scan": 0}),
+            "rmsnorm": (4 * 36 + 1) * 32, "flash_attention": 36, "flash_attention/wgmma": 36,
+            "flash_attention/simt": 0, "ssd_scan": 0}),
         "mamba2-370m": phase_serve("mamba2-370m", 4, 2048, 32, {
-            "rmsnorm": (2 * 48 + 1) * 32, "flash_attention": 0, "ssd_scan": 48}),
+            "rmsnorm": (2 * 48 + 1) * 32, "flash_attention": 0, "flash_attention/wgmma": 0,
+            "flash_attention/simt": 0, "ssd_scan": 48}),
     }
     phase_profile("qwen3-4b", 4, 512, 32)
     phase_profile("mamba2-370m", 4, 2048, 32)
@@ -479,13 +522,18 @@ def main() -> int:
     for name, main_case in ((n, cases[n][0]) for n in srcs):
         launches = sum(counts[name] for counts in serves.values())
         require(launches > 0, f"{name} was not launched on a main path")
-        kernels.append({
-            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        var = main_case.get("variant")
+        source = f"{name}_wgmma" if var == "wgmma" else name
+        entry = {
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}.cu",
             "replaces": srcs[name], "launches": launches,
             "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
-        })
+        }
+        if var:
+            entry["variant"] = var
+        kernels.append(entry)
     summary = []
     for k in kernels:
         per_path = ", ".join(f"{arch} {counts[k['name']]}" for arch, counts in serves.items())

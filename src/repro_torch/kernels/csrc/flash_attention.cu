@@ -1,4 +1,8 @@
-// Flash attention forward for Hopper (sm_90a).
+// Flash attention forward for Hopper (sm_90a) on the CUDA cores: the `simt`
+// variant of `flash_attention`, which the wrapper (kernels/
+// flash_attention.py, `variant`) routes fp32 and bf16 at head dims other
+// than 64 and 128 to.  bf16 at 64 and 128 runs on the tensor cores in
+// flash_attention_wgmma.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:99
 // `flash_attention` (body `_flash_kernel`): blockwise softmax(q k^T * scale) v
@@ -17,7 +21,7 @@
 // 3.35 TB/s: bytes, by a little.  Flops grow with Sq * Sk and bytes with
 // Sq + Sk, so longer prompts are bound by operations.
 //
-// Design (a first, simple version; tensor cores are later work): one block
+// Design (fp32 FMAs, so fp32 inputs keep IEEE products): one block
 // of 256 threads for each (q tile, head, batch).  Where the TPU walked the k
 // blocks as a sequential grid axis with (m, l, acc) in VMEM scratch, a block
 // here loops over its k tiles itself, because Hopper's blocks run in

@@ -47,9 +47,17 @@ def fused_rmsnorm(x, scale, *, eps=1e-6):
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    """Launches of each kernel wrapper; flash's also by variant
+    (``flash_attention/wgmma``, ``flash_attention/simt``), which sum to
+    ``flash_attention``."""
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    for var, n in flash_attention.variant_launches.items():
+        counts[f"flash_attention/{var}"] = n
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for var in flash_attention.variant_launches:
+        flash_attention.variant_launches[var] = 0

@@ -154,7 +154,8 @@ def test_cpu_path_launches_no_kernel():
     ops.flash_mha(q, q, q)
     ops.ssd(torch.randn(1, 70, 2, 8), torch.rand(1, 70, 2), -torch.ones(2),
             torch.randn(1, 70, 1, 4), torch.randn(1, 70, 1, 4))
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "flash_attention/wgmma": 0,
+                                  "flash_attention/simt": 0, "ssd_scan": 0}
 
 
 def test_import_and_cpu_path_need_no_nvcc():
