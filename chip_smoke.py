@@ -6,16 +6,26 @@ card and nvcc (CUDA_HOME or PATH); it imports the port from ``src/`` and
 nothing of JAX or of the JAX package.  Phases, each fatal on failure:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the four kernel libraries compiled from
+  2. build    the five kernel libraries compiled from
               ``src/repro_torch/kernels/csrc``, one nvcc each, in parallel,
-              and the count of HGMMA (warpgroup tensor-core) instructions in
-              the SASS of the wgmma flash library, which must not be 0;
+              and the count of tensor-core instructions in the SASS of the
+              two tensor-core libraries, neither of which may be 0: HGMMA
+              (warpgroup MMA) in the wgmma flash library, HMMA or HGMMA in
+              the tc SSD library;
   3. kernels  each CUDA kernel against its plain PyTorch version on the card,
               at the main paths' shapes and a few edge cases, timed beside
               its bound and a library call that computes the same function
-              (none computes the SSD scan); each flash case names the
-              variant that ran (``wgmma``: bf16 at head dim 64 or 128;
-              ``simt``: the rest) and checks that it was that one;
+              (none computes the SSD scan); each case names the variant
+              that ran and checks that it was that one (rmsnorm:
+              ``vector``, or ``scalar`` where D or alignment rules out
+              16-byte vectors; flash: ``wgmma`` for bf16 at head dim 64 or
+              128, ``simt`` the rest; SSD: ``tc`` for bf16 with P and N
+              multiples of 8 and 16-byte aligned rows, ``simt`` for fp32
+              and the other bf16 inputs).  Beside the tc SSD cases the
+              simt kernel is timed on the same inputs, and beside the
+              rmsnorm cases the scalar one, as yardsticks of the redesign
+              (through each module's ``_launch``, the wrapper's own
+              launcher, counting no launch);
   4. parity   qwen3-4b's and mamba2-370m's widths at depth 2 in fp32: prefill
               + 4 decode steps through the kernels on the card against the
               plain path on the CPU, logits and every layer's cache;
@@ -23,10 +33,15 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               layers, bf16, random weights) at batch 4, prompt 512, 32 tokens,
               and on the full mamba2-370m (48 layers) at batch 4, prompt 2048,
               32 tokens, with the kernels' launch counts set to 0 just before
-              each run and read just after it (all 36 of qwen3-4b's flash
-              launches on ``flash_attention/wgmma``);
+              each run and read just after it, exactly, by variant (every
+              flash launch ``wgmma``, every SSD launch ``tc``, every
+              RMSNorm launch ``vector``); the memory that earlier phases
+              hold is dropped first, and what is still held is printed, so
+              the peak is the serve's own;
   6. profile  where the time goes: each served model's prefill and decode
-              steps, warm, timed untraced and then traced with torch.profiler.
+              steps, warm, timed untraced and then traced with torch.profiler
+              (the top kernels, and each of the port's own kernels by name:
+              the tc SSD is two, its C B^T prepass and the scan).
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the serve runs, whose own counts the
@@ -36,6 +51,7 @@ summary prints), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -111,26 +127,43 @@ def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def rmsnorm_case(shape, dtype, gen):
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+def rmsnorm_case(shape, dtype, gen, want_variant, misaligned=False):
+    """``misaligned``: x is a contiguous view that starts one element into its
+    storage, so not 16-byte aligned."""
+    from repro_torch.kernels.rmsnorm import _launch, rmsnorm, rmsnorm_plain, variant
 
-    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    def alloc():  # keeps the case's alignment in every copy
+        n = math.prod(shape) + misaligned
+        return torch.empty(n, dtype=dtype, device="cuda")[misaligned:].view(shape)
+
+    x = alloc().copy_(torch.randn(shape, generator=gen, device="cuda"))
     scale = (torch.rand(shape[-1], generator=gen, device="cuda") + 0.5).contiguous()
+    var = variant(x, scale)
+    require(var == want_variant, f"rmsnorm {list(shape)} routes to {var}, want {want_variant}")
+    before = rmsnorm.variant_launches[var]
     got, want = rmsnorm(x, scale), rmsnorm_plain(x, scale)
     torch.cuda.synchronize()
+    require(rmsnorm.variant_launches[var] == before + 1,
+            f"rmsnorm {list(shape)} did not launch the {var} kernel")
     err = (got.float() - want.float()).abs().max().item()
     tol = RMS_TOL[dtype]
     ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
     nbytes = 2 * x.numel() * x.element_size() + 4 * shape[-1]
-    sets = copies((x, scale), nbytes)
+    sets = [(x, scale)] + [(alloc().copy_(x), scale.clone()) for _ in range(n_copies(nbytes) - 1)]
     w = scale.to(dtype)
     lib_sets = [(a, w) for a, _ in sets]
     b_ms, b_by = bound(nbytes, 4 * x.numel(), torch.float32)
+
+    def scalar_kernel(a, s):  # the scalar variant on any input, counting no launch
+        return _launch("scalar", a, s, 1e-6)
+
     return {
-        "case": f"rmsnorm {list(shape)} {str(dtype)[6:]}", "max_abs_err": err, "tol": tol,
+        "case": f"rmsnorm [{var}] {list(shape)} {str(dtype)[6:]}"
+                f"{' (misaligned view)' if misaligned else ''}",
+        "variant": var, "max_abs_err": err, "tol": tol,
         "ok": ok, "ms": time_ms(rmsnorm, sets, 50), "plain_ms": time_ms(rmsnorm_plain, sets, 20),
         "library_ms": time_ms(lambda a, s: F.rms_norm(a, (shape[-1],), s, 1e-6), lib_sets, 50),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, "other": ("scalar", time_ms(scalar_kernel, sets, 50)),
     }
 
 
@@ -202,18 +235,21 @@ def ssd_flops(b, s, h, p, n) -> int:
     return 2 * b * h * steps
 
 
-def ssd_case(b, s, h, p, g, n, dtype, gen, views=False):
-    """``views``: x, B and C are views into one [b, s, h p + 2 g n] tensor, as
-    the model hands them over from its conv output (strided batch and
-    sequence axes); otherwise each is contiguous."""
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+def ssd_case(b, s, h, p, g, n, dtype, gen, want_variant, layout="dense"):
+    """``layout``: ``"views"``, x, B and C are views into one [b, s, h p + 2 g n]
+    tensor, as the model hands them over from its conv output (strided batch
+    and sequence axes); ``"offset"``, views into such a tensor one element
+    wider that start one element in (not 16-byte aligned, odd sequence
+    stride); ``"dense"``, each is contiguous."""
+    from repro_torch.kernels.ssd_scan import _launch, ssd_scan, ssd_scan_plain, variant
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     def make():
-        if views:
-            xbc = randn(b, s, h * p + 2 * g * n)
+        if layout != "dense":
+            offset = int(layout == "offset")
+            xbc = randn(b, s, offset + h * p + 2 * g * n)[..., offset:]
             x, Bm, Cm = (t.unflatten(-1, (k, d)) for t, k, d in zip(
                 xbc.split([h * p, g * n, g * n], dim=-1), (h, g, g), (p, n, n)))
         else:
@@ -227,8 +263,14 @@ def ssd_case(b, s, h, p, g, n, dtype, gen, views=False):
         return x, dt, A, Bm, Cm
 
     args = make()
+    var = variant(args[0], args[3], args[4])
+    require(var == want_variant, f"ssd p{p} n{n} {dtype} {layout} routes to {var}, "
+                                 f"want {want_variant}")
+    before = ssd_scan.variant_launches[var]
     (y, state), (y_want, state_want) = ssd_scan(*args), ssd_scan_plain(*args)
     torch.cuda.synchronize()
+    require(ssd_scan.variant_launches[var] == before + 1,
+            f"ssd p{p} n{n} {dtype} did not launch the {var} kernel")
 
     def rel(got, want):
         return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
@@ -238,38 +280,53 @@ def ssd_case(b, s, h, p, g, n, dtype, gen, views=False):
     nbytes = sum(t.numel() * t.element_size() for t in (*args, y, state))
     b_ms, b_by = bound(nbytes, ssd_flops(b, s, h, p, n), dtype)
     sets = [args] + [make() for _ in range(n_copies(nbytes) - 1)]
+    other = None
+    if var == "tc":  # the simt kernel on the same inputs, counting no launch
+        other = ("simt", time_ms(lambda *a: _launch("simt", *a), sets, 10))
     return {
-        "case": f"ssd x[{b},{s},{h},{p}] B/C[{b},{s},{g},{n}] {str(dtype)[6:]}"
-                f"{' (views of one tensor)' if views else ''} "
+        "case": f"ssd [{var}] x[{b},{s},{h},{p}] B/C[{b},{s},{g},{n}] {str(dtype)[6:]}"
+                f"{LAYOUT_NOTE[layout]} "
                 f"(error relative to max|want|: y {rel_y:.2e}, state {rel_state:.2e})",
-        "max_abs_err": (y.float() - y_want.float()).abs().max().item(), "tol": tol,
-        "relative": True,
+        "variant": var, "max_abs_err": (y.float() - y_want.float()).abs().max().item(),
+        "tol": tol, "relative": True,
         "ok": rel_y < tol and rel_state < tol,
         "ms": time_ms(ssd_scan, sets, 10), "plain_ms": time_ms(ssd_scan_plain, sets, 3),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "other": other,
     }
+
+
+LAYOUT_NOTE = {"dense": "", "views": " (views of one tensor)",
+               "offset": " (views starting one element in: not 16-byte aligned)"}
 
 
 def print_case(c) -> None:
     lib = f"{c['library_ms']:.4f}ms" if c["library_ms"] is not None else "none"
     tol = f"relative tol={c['tol']:g}" if c.get("relative") else f"tol={c['tol']:g}"
+    other = f" {c['other'][0]}={c['other'][1]:.4f}ms" if c.get("other") else ""
     print(f"  {c['case']}: max_abs_err={c['max_abs_err']:.3e} {tol} "
-          f"{'ok' if c['ok'] else 'DISAGREES'}  kernel={c['ms']:.4f}ms "
+          f"{'ok' if c['ok'] else 'DISAGREES'}  kernel={c['ms']:.4f}ms{other} "
           f"plain={c['plain_ms']:.4f}ms library={lib} "
-          f"bound={c['bound_ms'] * 1e3:.2f}us ({c['bound_by']})")
+          f"bound={c['bound_ms'] * 1e3:.2f}us ({c['bound_by']}, "
+          f"kernel at {c['bound_ms'] / c['ms']:.0%} of it)")
 
 
 def phase_kernels():
     gen = torch.Generator("cuda").manual_seed(0)
     print("[3] kernels vs plain versions on the card")
-    rms = [
-        rmsnorm_case((2048, 2560), torch.bfloat16, gen),   # ln1/ln2 at prefill B4 S512
-        rmsnorm_case((65536, 128), torch.bfloat16, gen),   # q-norm at prefill B4 S512 H32
-        rmsnorm_case((37, 1024), torch.float32, gen),
-        rmsnorm_case((8192, 2048), torch.bfloat16, gen),   # mamba2 gated norm, B4 S2048
-        rmsnorm_case((8192, 1024), torch.bfloat16, gen),   # mamba2 ln1, B4 S2048
-    ]
     bf16 = torch.bfloat16
+    rms = [
+        rmsnorm_case((2048, 2560), bf16, gen, "vector"),   # ln1/ln2 at prefill B4 S512
+        rmsnorm_case((65536, 128), bf16, gen, "vector"),   # q-norm at prefill B4 S512 H32
+        rmsnorm_case((37, 1024), torch.float32, gen, "vector"),
+        rmsnorm_case((8192, 2048), bf16, gen, "vector"),   # mamba2 gated norm, B4 S2048
+        rmsnorm_case((8192, 1024), bf16, gen, "vector"),   # mamba2 ln1, B4 S2048
+        rmsnorm_case((4, 2560), bf16, gen, "vector"),      # qwen3-4b ln1/ln2 at decode B4
+        rmsnorm_case((128, 128), bf16, gen, "vector"),     # q-norm at decode B4 H32
+        rmsnorm_case((37, 1020), bf16, gen, "scalar"),     # D not a multiple of 8
+        rmsnorm_case((64, 2560), bf16, gen, "scalar", misaligned=True),
+        rmsnorm_case((8, 6144), torch.float32, gen, "vector"),  # rows wider than a warp
+        rmsnorm_case((37, 1022), torch.float32, gen, "scalar"),  # D not a multiple of 4
+    ]
     flash = [
         flash_case(4, 512, 512, 32, 8, 128, bf16, gen),            # qwen3-4b prefill
         # the wgmma variant (bf16, hd 64 and 128) at its edges
@@ -289,12 +346,18 @@ def phase_kernels():
         flash_case(1, 200, 200, 4, 1, 256, torch.bfloat16, gen),   # hd 256 tiles, MQA
         flash_case(1, 192, 64, 2, 1, 256, torch.float32, gen, window=32),  # rows, no live key
     ]
+    f32 = torch.float32
     ssd = [
-        ssd_case(4, 2048, 32, 64, 1, 128, torch.bfloat16, gen, views=True),  # mamba2 prefill
-        ssd_case(1, 512, 32, 64, 1, 128, torch.float32, gen),
-        ssd_case(2, 256, 8, 64, 2, 64, torch.float32, gen, views=True),      # two groups
-        ssd_case(1, 300, 4, 64, 1, 128, torch.float32, gen),     # ragged last chunk
-        ssd_case(1, 300, 4, 16, 2, 8, torch.bfloat16, gen),      # narrow tiles, ragged
+        ssd_case(4, 2048, 32, 64, 1, 128, bf16, gen, "tc", "views"),  # mamba2 prefill
+        ssd_case(1, 300, 4, 16, 2, 8, bf16, gen, "tc"),            # narrow tiles, ragged
+        ssd_case(2, 320, 4, 128, 2, 128, bf16, gen, "tc", "views"),  # the largest P and N
+        ssd_case(2, 256, 8, 64, 2, 64, bf16, gen, "tc", "views"),  # two groups
+        # the simt variant: fp32, and bf16 that the tc kernel's 16-byte rows rule out
+        ssd_case(1, 300, 4, 12, 2, 100, bf16, gen, "simt"),        # P, N not multiples of 8
+        ssd_case(2, 256, 8, 64, 2, 64, bf16, gen, "simt", "offset"),
+        ssd_case(1, 512, 32, 64, 1, 128, f32, gen, "simt"),
+        ssd_case(2, 256, 8, 64, 2, 64, f32, gen, "simt", "views"),  # two groups
+        ssd_case(1, 300, 4, 64, 1, 128, f32, gen, "simt"),         # ragged last chunk
     ]
     for c in rms + flash + ssd:
         print_case(c)
@@ -344,6 +407,26 @@ def phase_parity(arch: str, P: int):
     require(torch.isfinite(l_gpu).all().item(), f"{arch}: non-finite logits in the parity run")
 
 
+def release_memory() -> int:
+    """Drop what earlier phases hold on the card and reset the peak; return
+    the bytes still allocated, which the next peak includes.  The timing
+    phase leaves cuBLAS workspaces behind, one for each stream that ran a
+    matrix product (each case's capture stream): PyTorch allocates them
+    through its caching allocator and keeps them, so they count as
+    allocated memory until they are cleared."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    print(f"[5] memory: {before / 2**20:.1f} MiB allocated after the earlier phases, "
+          f"{(before - held) / 2**20:.1f} MiB of it cuBLAS workspaces (cleared); "
+          f"{held / 2**20:.1f} MiB still held")
+    return held
+
+
 def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     """Serve the full model through ``serve.main`` (a prefill and G - 1 decode
     steps); each kernel must have been launched ``want[name]`` times."""
@@ -352,9 +435,7 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     from repro_torch.launch import serve
 
     cfg = get_config(arch)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()  # left by earlier phases; inside the peak
+    held = release_memory()
     out = io.StringIO()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -372,7 +453,7 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
         print(f"  {line}")
     print(f"  logits finite (serve raises otherwise), "
           f"prefill {prefill_s * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s, "
-          f"peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB of it held before "
+          f"peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.3f} GiB of it held before "
           f"the run), launches {counts}, "
           f"main() wall {wall:.1f}s (init included)")
     require(counts == want, f"{arch}: launch counts {counts}, want {want}")
@@ -381,19 +462,34 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     return counts
 
 
+# The __global__ functions of csrc/*.cu, as a trace names them.
+PORT_KERNELS = ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel", "flash_fwd_wgmma_kernel",
+                "flash_fwd_kernel", "ssd_cb_kernel", "ssd_scan_tc_kernel", "ssd_scan_kernel")
+
+
 def device_breakdown(prof, wall_ms: float, top: int = 6) -> str:
-    """Device busy time by kernel name from a torch.profiler trace, and the idle share."""
+    """Device busy time by kernel name from a torch.profiler trace, the idle
+    share, and the time and calls of each of the port's own kernels."""
     by_name: dict[str, float] = {}
+    mine: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            ms = e.time_range.elapsed_us() / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            kernel = next((k for k in PORT_KERNELS if re.search(rf"\b{k}\b", e.name)), None)
+            if kernel:
+                mine.setdefault(kernel, [0.0, 0])
+                mine[kernel][0] += ms
+                mine[kernel][1] += 1
     busy = sum(by_name.values())
     if busy == 0.0:
         return "device time not measured (the profiler recorded no kernel)"
     rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     names = "; ".join(f"{n[:60]} {ms:.2f}ms ({ms / busy:.0%})" for n, ms in rows)
+    own = "; ".join(f"{k} {ms:.2f}ms ({ms / busy:.1%}, {calls} calls)"
+                    for k, (ms, calls) in mine.items())
     return (f"device busy {busy:.2f} of {wall_ms:.2f} ms wall, idle {1 - busy / wall_ms:.1%}; "
-            f"top: {names}")
+            f"top: {names}; the port's kernels: {own or 'none'}")
 
 
 def op_breakdown(prof, top: int = 6) -> str:
@@ -457,14 +553,14 @@ def phase_profile(arch: str, B: int, P: int, G: int):
     print(f"  decode by op: {op_breakdown(prof)}")
 
 
-def hgmma_count(build) -> int:
-    """HGMMA (warpgroup MMA) instructions in the SASS of the wgmma flash
-    library, by the cuobjdump of the toolkit whose nvcc built it."""
+def mma_count(build, lib: str, ops: tuple[str, ...]) -> int:
+    """Instructions of the SASS of library ``lib`` whose opcode is one of
+    ``ops`` (HGMMA: warpgroup MMA; HMMA: warp MMA), by the cuobjdump of the
+    toolkit whose nvcc built it."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(cuobjdump), "--dump-sass", str(build.lib_path("flash_attention_wgmma"))],
-        capture_output=True, text=True, timeout=120, check=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(build.lib_path(lib))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    return sum(any(re.search(rf"\b{op}\.", line) for op in ops) for line in sass.splitlines())
 
 
 def main() -> int:
@@ -491,9 +587,10 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "wgmma" in line.lower():
                 print(f"  {name}: {line.strip()}")
-    hgmma = hgmma_count(_build)
-    print(f"  HGMMA instructions in {_build.lib_path('flash_attention_wgmma').name}: {hgmma}")
-    require(hgmma > 0, "the wgmma flash library holds no HGMMA instruction")
+    for lib, ops in (("flash_attention_wgmma", ("HGMMA",)), ("ssd_scan_tc", ("HMMA", "HGMMA"))):
+        count = mma_count(_build, lib, ops)
+        print(f"  {'/'.join(ops)} instructions in {_build.lib_path(lib).name}: {count}")
+        require(count > 0, f"the {lib} library holds no {'/'.join(ops)} instruction")
 
     cases = phase_kernels()
     phase_parity("qwen3-4b", 256)
@@ -502,15 +599,18 @@ def main() -> int:
     # flash once a layer in prefill, RMSNorm 4 times a layer (ln1, ln2,
     # q-norm, k-norm) plus the final norm in every forward; mamba2-370m runs
     # the SSD once a layer in prefill, RMSNorm twice a layer (ln1, the gated
-    # norm) plus the final norm in every forward.  qwen3-4b's flash is bf16
-    # at head dim 128, so every launch is the wgmma variant's.
+    # norm) plus the final norm in every forward.  Everything is bf16 with
+    # widths that take 16-byte vectors: flash at head dim 128 is the wgmma
+    # variant, the SSD the tc variant, RMSNorm the vector variant.
+    def want(rms, flash, ssd):
+        return {"rmsnorm": rms, "rmsnorm/vector": rms, "rmsnorm/scalar": 0,
+                "flash_attention": flash, "flash_attention/wgmma": flash,
+                "flash_attention/simt": 0, "ssd_scan": ssd, "ssd_scan/tc": ssd,
+                "ssd_scan/simt": 0}
+
     serves = {
-        "qwen3-4b": phase_serve("qwen3-4b", 4, 512, 32, {
-            "rmsnorm": (4 * 36 + 1) * 32, "flash_attention": 36, "flash_attention/wgmma": 36,
-            "flash_attention/simt": 0, "ssd_scan": 0}),
-        "mamba2-370m": phase_serve("mamba2-370m", 4, 2048, 32, {
-            "rmsnorm": (2 * 48 + 1) * 32, "flash_attention": 0, "flash_attention/wgmma": 0,
-            "flash_attention/simt": 0, "ssd_scan": 48}),
+        "qwen3-4b": phase_serve("qwen3-4b", 4, 512, 32, want((4 * 36 + 1) * 32, 36, 0)),
+        "mamba2-370m": phase_serve("mamba2-370m", 4, 2048, 32, want((2 * 48 + 1) * 32, 0, 48)),
     }
     phase_profile("qwen3-4b", 4, 512, 32)
     phase_profile("mamba2-370m", 4, 2048, 32)
@@ -522,17 +622,16 @@ def main() -> int:
     for name, main_case in ((n, cases[n][0]) for n in srcs):
         launches = sum(counts[name] for counts in serves.values())
         require(launches > 0, f"{name} was not launched on a main path")
-        var = main_case.get("variant")
-        source = f"{name}_wgmma" if var == "wgmma" else name
+        var = main_case["variant"]
+        source = {"wgmma": "flash_attention_wgmma", "tc": "ssd_scan_tc"}.get(var, name)
         entry = {
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}.cu",
             "replaces": srcs[name], "launches": launches,
             "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
+            "variant": var,
         }
-        if var:
-            entry["variant"] = var
         kernels.append(entry)
     summary = []
     for k in kernels:

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("rmsnorm", "flash_attention", "flash_attention_wgmma", "ssd_scan")
+SOURCES = ("rmsnorm", "flash_attention", "flash_attention_wgmma", "ssd_scan", "ssd_scan_tc")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,4 +1,8 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a).
+// Mamba-2 SSD chunked scan for Hopper (sm_90a) on the CUDA cores.  The
+// `simt` variant of `ssd_scan`: fp32, whose 1e-4 parity needs IEEE fp32
+// products, and bf16 whose P or N is not a multiple of 8; the wrapper
+// (kernels/ssd_scan.py, `variant`) routes the rest of bf16 to the tensor-core
+// kernel of ssd_scan_tc.cu (`tc`).
 //
 // Replaces the TPU kernel repro/kernels/ssd_scan.py:65 `ssd_scan` (body
 // `_ssd_kernel`).  For each (batch, head) pair, with group g = h / (H / G):
@@ -23,7 +27,7 @@
 // (the lower triangle of the two chunk-square products, and the two P x N
 // products a step), are 11.9 GFLOP, 12.0 us at the bf16 tensor-core rate.
 //
-// Design (a first, simple version; tensor cores are later work).  The TPU
+// Design (the first, simple version, kept for fp32).  The TPU
 // walked the chunks as a sequential grid axis with the state in VMEM
 // scratch; here one block of 256 threads for each (batch, head) walks the
 // chunks in a loop and keeps the running [P, N] state in shared memory.

@@ -34,7 +34,10 @@ def ssd(x, dt, A, Bm, Cm):
     """Mamba-2 SSD scan: x [b,s,h,p], dt [b,s,h], A [h], Bm/Cm [b,s,g,n] ->
     (y [b,s,h,p], final state [b,h,p,n] fp32), at any s.  Unlike the JAX
     op, it returns the final state (the decode cache's) and takes no chunk:
-    the kernel chunks by its own 64 steps, which does not change the function."""
+    the plain version and both kernels (``tc`` for bf16 whose rows take
+    16-byte copies, ``simt`` for fp32 and the other bf16 inputs;
+    ``ssd_scan.variant``) chunk by their own 64 steps, which does not change
+    the function."""
     fn = ssd_scan_plain if _on_cpu(x) else ssd_scan
     return fn(x, dt, A, Bm, Cm)
 
@@ -47,17 +50,19 @@ def fused_rmsnorm(x, scale, *, eps=1e-6):
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each kernel wrapper; flash's also by variant
-    (``flash_attention/wgmma``, ``flash_attention/simt``), which sum to
-    ``flash_attention``."""
-    counts = {fn.__name__: fn.launches for fn in KERNELS}
-    for var, n in flash_attention.variant_launches.items():
-        counts[f"flash_attention/{var}"] = n
+    """Launches of each kernel wrapper, and of each by variant
+    (``rmsnorm/vector``, ``flash_attention/wgmma``, ``ssd_scan/tc``, ...),
+    which sum to the wrapper's own count."""
+    counts = {}
+    for fn in KERNELS:
+        counts[fn.__name__] = fn.launches
+        for var, n in fn.variant_launches.items():
+            counts[f"{fn.__name__}/{var}"] = n
     return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
-    for var in flash_attention.variant_launches:
-        flash_attention.variant_launches[var] = 0
+        for var in fn.variant_launches:
+            fn.variant_launches[var] = 0

@@ -1,16 +1,31 @@
-"""Mamba-2 SSD chunked scan: the CUDA kernel ``csrc/ssd_scan.cu`` and its
-plain version.
+"""Mamba-2 SSD chunked scan: two CUDA kernels and their plain version.
 
 Counterpart of ``repro/kernels/ssd_scan.py:65 ssd_scan`` (a Pallas TPU
-kernel).  ``ssd_scan`` launches the Hopper kernel on CUDA tensors and counts
-its launches in ``ssd_scan.launches``; ``ssd_scan_plain`` repeats the
-kernel's arithmetic in PyTorch (the same 64-step chunks, fp32 inside) and is
-what the CPU runs.  Both return the final state beside y, which the Pallas
-kernel keeps in scratch and drops: the decode cache starts from it.  Neither
-needs the length to divide the chunk.  The source note in the ``.cu`` file
-gives the kernel's bound and design.
-"""
+kernel).  ``ssd_scan`` launches a Hopper kernel on CUDA tensors:
+``variant(x, Bm, Cm)`` names which one, by type, shape and layout alone.
 
+- ``"tc"`` (``csrc/ssd_scan_tc.cu``): bf16 with P and N multiples of 8, on
+  the tensor cores (mma.sync, fp32 sums), a block for each 32 rows of a
+  (batch, head)'s state, 64-step chunks, after a prepass that computes
+  C B^T once per (batch, chunk, group) into fp32 scratch this wrapper
+  allocates.  It rounds three operands to bf16 (see the source note) and
+  copies 16-byte rows, so it takes 16-byte aligned x, B and C whose batch
+  and sequence strides are multiples of 8 elements, as every call on the
+  served model's path has.
+- ``"simt"`` (``csrc/ssd_scan.cu``): fp32, whose 1e-4 parity needs IEEE
+  fp32 products (TF32 keeps about three decimal digits), and the bf16
+  inputs that the tc kernel does not take; on the CUDA cores, a block for
+  each (batch, head), 64-step chunks.
+
+Each launch counts in ``ssd_scan.launches`` and in
+``ssd_scan.variant_launches[variant]``.  ``ssd_scan_plain`` repeats the
+chunked arithmetic in PyTorch, fp32 throughout (64-step chunks too) and is
+what the CPU runs; the kernels are held to it on the card.  All three
+return the final state beside y, which the Pallas kernel keeps in scratch
+and drops: the decode cache starts from it.  None needs the length to
+divide the chunk, and the chunk does not change the function.  The source
+notes in the ``.cu`` files give each kernel's bound and design.
+"""
 from __future__ import annotations
 
 import ctypes
@@ -19,11 +34,24 @@ import torch
 
 from . import _build
 
-CHUNK = 64     # the kernel's own chunk (L in csrc/ssd_scan.cu)
-MAX_DIM = 128  # largest head dim P and state N the kernel takes
+CHUNK = 64     # both kernels' own chunk (L in csrc/ssd_scan.cu and ssd_scan_tc.cu)
+MAX_DIM = 128  # largest head dim P and state N the kernels take
+_LIBS = {"tc": "ssd_scan_tc", "simt": "ssd_scan"}
+
+
+def variant(x, Bm, Cm) -> str:
+    """The kernel ``ssd_scan`` launches for x [b,s,h,p] and Bm, Cm [b,s,g,n]:
+    ``"tc"`` for bf16 with p and n multiples of 8 whose x, Bm and Cm start at
+    16-byte aligned addresses with batch and sequence strides that are
+    multiples of 8 elements, ``"simt"`` otherwise."""
+    rows = all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+               for t in (x, Bm, Cm))
+    return ("tc" if x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0
+            and Bm.shape[-1] % 8 == 0 and rows else "simt")
 
 _I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-_ARGTYPES = [_I] + [_P] * 7 + [_I] * 6 + [_L] * 8 + [_P]
+_ARGTYPES = [_I] + [_P] * 7 + [_I] * 6 + [_L] * 8 + [_P]  # simt's ssd_scan_fwd
+_TC_ARGTYPES = [_I] + [_P] * 8 + [_I] * 6 + [_L] * 8 + [_P]  # ssd_scan_tc_fwd: + C B^T scratch
 
 
 def ssd_scan_plain(x, dt, A, Bm, Cm):
@@ -82,24 +110,39 @@ def check_args(x, dt, A, Bm, Cm) -> None:
                          f"{[str(t.device) for t in (x, dt, A, Bm, Cm)]}")
 
 
-def ssd_scan(x, dt, A, Bm, Cm):
-    """x [b,s,h,p], dt [b,s,h], A [h], Bm/Cm [b,s,g,n] -> (y [b,s,h,p] in x's
-    dtype, final state [b,h,p,n] fp32), through the CUDA kernel."""
-    check_args(x, dt, A, Bm, Cm)
+def _launch(var: str, x, dt, A, Bm, Cm):
+    """Run kernel ``var`` on arguments that ``check_args`` passed; count nothing."""
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    fn = _build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
+    lib = _LIBS[var]
+    ptrs = [x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr()]
+    if var == "tc":  # the prepass's C B^T, one fp32 chunk-square per (batch, group, chunk)
+        cb = torch.empty((b, g, -(-s // CHUNK), CHUNK, CHUNK), dtype=torch.float32,
+                         device=x.device)
+        ptrs.append(cb.data_ptr())
+    fn = _build.function(lib, f"{lib}_fwd", _TC_ARGTYPES if var == "tc" else _ARGTYPES)
     with torch.cuda.device(x.device):
-        err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-                 Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, g, p, n,
-                 x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), Bm.stride(0),
+        err = fn(_build.DTYPE_CODES[x.dtype], *ptrs, y.data_ptr(), state.data_ptr(), b, s, h, g,
+                 p, n, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), Bm.stride(0),
                  Bm.stride(1), Cm.stride(0), Cm.stride(1),
                  torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("ssd_scan", err)
+    _build.check(lib, err)
+    return y, state
+
+
+def ssd_scan(x, dt, A, Bm, Cm):
+    """x [b,s,h,p], dt [b,s,h], A [h], Bm/Cm [b,s,g,n] -> (y [b,s,h,p] in x's
+    dtype, final state [b,h,p,n] fp32), through the CUDA kernel that
+    ``variant(x, Bm, Cm)`` names."""
+    check_args(x, dt, A, Bm, Cm)
+    var = variant(x, Bm, Cm)
+    y, state = _launch(var, x, dt, A, Bm, Cm)
     ssd_scan.launches += 1
+    ssd_scan.variant_launches[var] += 1
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.variant_launches = {"tc": 0, "simt": 0}

@@ -111,8 +111,11 @@ def apply_mamba(p, x_in, cfg: ModelConfig, *, return_cache: bool = False):
     out = y @ p["out_proj"].to(dt_)
     if not return_cache:
         return out
+    # The conv tail is the last K - 1 inputs; a prompt shorter than that is
+    # left-padded with zeros, as the causal conv pads it.
     K = cfg.conv_kernel
-    return out, {"state": final_state, "conv": xBC_raw[:, S - (K - 1) :].contiguous()}
+    tail = F.pad(xBC_raw, (0, 0, max(0, K - 1 - S), 0))[:, -(K - 1) :]
+    return out, {"state": final_state, "conv": tail.contiguous()}
 
 
 # ------------------------------------------------------------------ decode

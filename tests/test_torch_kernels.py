@@ -23,7 +23,7 @@ from repro.kernels.ops import flash_mha as jax_flash_mha
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import rmsnorm, variant as rmsnorm_variant
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -146,6 +146,33 @@ def test_rmsnorm_bf16_and_3d():
         np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-2, atol=2e-2)
 
 
+def _at_offset(shape, dtype, elements):
+    """A contiguous tensor of ``shape`` that starts ``elements`` into its storage."""
+    return torch.zeros(elements + int(np.prod(shape)), dtype=dtype)[elements:].view(shape)
+
+
+@pytest.mark.parametrize("dtype,shape,x_offset,scale_offset,want", [
+    (torch.bfloat16, (65536, 128), 0, 0, "vector"),  # qk-norm: 16 vectors a row
+    (torch.bfloat16, (4, 2560), 0, 0, "vector"),     # qwen3-4b ln at decode
+    (torch.bfloat16, (8192, 2048), 0, 0, "vector"),  # mamba2 gated norm
+    (torch.float32, (37, 1024), 0, 0, "vector"),
+    (torch.float32, (2, 4, 4), 0, 0, "vector"),      # D = one fp32 vector
+    (torch.bfloat16, (2, 4, 4), 0, 0, "scalar"),     # D = half a bf16 vector
+    (torch.bfloat16, (37, 1020), 0, 0, "scalar"),    # D not a multiple of 8
+    (torch.float32, (37, 1022), 0, 0, "scalar"),     # D not a multiple of 4
+    (torch.bfloat16, (64, 2560), 1, 0, "scalar"),    # x 2 bytes past 16-byte alignment
+    (torch.bfloat16, (64, 2560), 8, 0, "vector"),    # x 16 bytes in: aligned
+    (torch.float32, (64, 1024), 0, 1, "scalar"),     # scale 4 bytes past alignment
+])
+def test_rmsnorm_variant_routing_table(dtype, shape, x_offset, scale_offset, want):
+    """``variant`` routes by D and alignment alone; the served shapes take
+    16-byte vectors."""
+    x = _at_offset(shape, dtype, x_offset)
+    scale = _at_offset((shape[-1],), torch.float32, scale_offset)
+    assert (x.data_ptr() % 16 == 0) == (x_offset * x.element_size() % 16 == 0)
+    assert rmsnorm_variant(x, scale) == want
+
+
 def test_cpu_path_launches_no_kernel():
     ops.reset_launch_counts()
     x = torch.randn(4, 64)
@@ -154,8 +181,10 @@ def test_cpu_path_launches_no_kernel():
     ops.flash_mha(q, q, q)
     ops.ssd(torch.randn(1, 70, 2, 8), torch.rand(1, 70, 2), -torch.ones(2),
             torch.randn(1, 70, 1, 4), torch.randn(1, 70, 1, 4))
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "flash_attention/wgmma": 0,
-                                  "flash_attention/simt": 0, "ssd_scan": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm/vector": 0, "rmsnorm/scalar": 0,
+                                  "flash_attention": 0, "flash_attention/wgmma": 0,
+                                  "flash_attention/simt": 0, "ssd_scan": 0, "ssd_scan/tc": 0,
+                                  "ssd_scan/simt": 0}
 
 
 def test_import_and_cpu_path_need_no_nvcc():
@@ -185,6 +214,11 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         rmsnorm(x, torch.ones(32))
     with pytest.raises(ValueError, match="contiguous"):
         rmsnorm(torch.randn(64, 4).T, torch.ones(64))
+    # Both variants' inputs pass the layout checks and stop at the device check.
+    for xs in (_at_offset((4, 64), torch.bfloat16, 1), _at_offset((4, 60), torch.bfloat16, 0)):
+        assert rmsnorm_variant(xs, torch.ones(xs.shape[-1])) == "scalar"
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            rmsnorm(xs, torch.ones(xs.shape[-1]))
     q = torch.randn(1, 64, 4, 64)
     kv = torch.randn(1, 64, 2, 64)
     with pytest.raises(ValueError, match="CUDA"):

@@ -196,8 +196,10 @@ def test_cpu_serving_launches_no_kernel():
                       "--gen", "4"])
     assert gen.shape == (2, 4) and gen.dtype == torch.int64
     assert 0 <= int(gen.min()) and int(gen.max()) < get_smoke_config(ARCH).vocab_size
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "flash_attention/wgmma": 0,
-                                  "flash_attention/simt": 0, "ssd_scan": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm/vector": 0, "rmsnorm/scalar": 0,
+                                  "flash_attention": 0, "flash_attention/wgmma": 0,
+                                  "flash_attention/simt": 0, "ssd_scan": 0, "ssd_scan/tc": 0,
+                                  "ssd_scan/simt": 0}
 
 
 def test_entry_point_defaults_to_cuda():

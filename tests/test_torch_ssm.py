@@ -29,7 +29,7 @@ from repro.models import build_model as jax_build_model
 from repro.models import ssm as jax_ssm
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.ssd_scan import CHUNK, ssd_scan
+from repro_torch.kernels.ssd_scan import CHUNK, check_args, ssd_scan, variant
 from repro_torch.launch import serve
 from repro_torch.models import build_model, ssm
 from repro_torch.models.convert import cache_from_jax, params_from_jax
@@ -149,6 +149,118 @@ def test_ssd_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         ssd_scan(x, dt, A, Bm, Cm[..., :4])
     with pytest.raises(ValueError, match="device"):
         ops.ssd(*(t.to("meta") for t in T))
+    # bf16 inputs of both variants pass the layout checks and stop at the
+    # device check: dense ones (tc), and a view that starts one element into
+    # its storage, which the tc kernel's 16-byte rows rule out (simt).
+    xb = torch.zeros(1 + x.numel(), dtype=torch.bfloat16)[1:].view(x.shape)
+    Tb = [t.bfloat16() for t in T]
+    for args, want in ((Tb, "tc"), ([xb] + Tb[1:], "simt")):
+        assert variant(args[0], args[3], args[4]) == want
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            check_args(*args)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            ssd_scan(*args)
+
+
+def _ssd_operands(dtype, p, n, layout):
+    """x [2, 8, 4, p] and B, C [2, 8, 2, n] of ``dtype``: ``"dense"`` tensors,
+    ``"views"`` into one [2, 8, 4 p + 4 n] conv output as apply_mamba hands
+    them over, or ``"offset"`` views into a conv output one element wider
+    that start one element in (so x, B and C are not 16-byte aligned and
+    the sequence stride is odd)."""
+    if layout == "dense":
+        return torch.zeros(2, 8, 4, p, dtype=dtype), *torch.zeros(2, 2, 8, 2, n, dtype=dtype)
+    offset = int(layout == "offset")
+    xbc = torch.zeros(2, 8, offset + 4 * p + 4 * n, dtype=dtype)[..., offset:]
+    return [t.unflatten(-1, shape) for t, shape in
+            zip(xbc.split([4 * p, 2 * n, 2 * n], dim=-1), ((4, p), (2, n), (2, n)))]
+
+
+@pytest.mark.parametrize("dtype,p,n,layout,want", [
+    (torch.bfloat16, 64, 128, "views", "tc"),    # mamba2-370m
+    (torch.bfloat16, 64, 128, "dense", "tc"),
+    (torch.bfloat16, 128, 128, "dense", "tc"),   # the largest P and N
+    (torch.bfloat16, 16, 8, "dense", "tc"),
+    (torch.bfloat16, 8, 8, "views", "tc"),
+    (torch.bfloat16, 12, 128, "dense", "simt"),  # P not a multiple of 8
+    (torch.bfloat16, 64, 100, "dense", "simt"),  # N not a multiple of 8
+    (torch.bfloat16, 64, 128, "offset", "simt"),  # not 16-byte aligned, odd stride
+    (torch.bfloat16, 16, 8, "offset", "simt"),
+    (torch.float32, 64, 128, "views", "simt"),   # fp32 keeps IEEE products
+    (torch.float32, 128, 128, "dense", "simt"),
+    (torch.float32, 16, 8, "dense", "simt"),
+])
+def test_ssd_variant_routing_table(dtype, p, n, layout, want):
+    """``variant`` routes by type, P, N and layout alone; bf16 inputs that
+    the tc kernel's 16-byte rows rule out go to simt, which the parent
+    served them with, and pass ``check_args``."""
+    x, Bm, Cm = _ssd_operands(dtype, p, n, layout)
+    assert variant(x, Bm, Cm) == want
+    dt = torch.zeros(2, 8, 4, dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        check_args(x, dt, torch.zeros(4, dtype=dtype), Bm, Cm)
+
+
+def _tc_emulation(x, dt, A, Bm, Cm):
+    """The tc kernel's decomposition (csrc/ssd_scan_tc.cu) in PyTorch, with its
+    bf16 roundings at the points its source note states: 64-step chunks,
+    cumsum(dt A), every exp and every dt factor in fp32; the masked tile
+    C B^T o exp(cum_i - cum_j) o dt_j, B o dt exp(cum_last - cum) and the
+    state entering C state^T rounded to bf16 once each, as the second
+    operand of their products; fp32 sums, and the carried state in fp32.
+    x, dt, A, Bm, Cm are bf16 and enter the products as given."""
+    bf = torch.bfloat16
+    b, s, h, p = x.shape
+    rep = h // Bm.shape[2]
+    xf = x.float().transpose(1, 2)                                   # [b,h,s,p]
+    Bh = Bm.float().repeat_interleave(rep, dim=2).transpose(1, 2)    # [b,h,s,n]
+    Ch = Cm.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    dtf = dt.float().transpose(1, 2)                                 # [b,h,s]
+    state = torch.zeros((b, h, p, Bm.shape[3]))
+    y = torch.empty((b, h, s, p))
+    for c0 in range(0, s, CHUNK):
+        c1 = min(c0 + CHUNK, s)
+        xc, bc, cc, dc = xf[:, :, c0:c1], Bh[:, :, c0:c1], Ch[:, :, c0:c1], dtf[:, :, c0:c1]
+        cum = (dc * A.float()[None, :, None]).cumsum(-1)
+        lower = torch.ones((c1 - c0, c1 - c0), dtype=torch.bool).tril()
+        diff = (cum[..., :, None] - cum[..., None, :]).masked_fill(~lower, -torch.inf)
+        m = ((cc @ bc.transpose(-1, -2)) * torch.exp(diff) * dc[..., None, :]).to(bf).float()
+        off = cc @ state.to(bf).float().transpose(-1, -2)
+        y[:, :, c0:c1] = torch.exp(cum)[..., None] * off + m @ xc
+        w = dc * torch.exp(cum[..., -1:] - cum)
+        bd = (bc * w[..., None]).to(bf).float()
+        state = state * torch.exp(cum[..., -1])[..., None, None] + xc.transpose(-1, -2) @ bd
+    return y.transpose(1, 2).to(bf), state
+
+
+@pytest.mark.parametrize("dt_shift", [0.0, -3.0], ids=["dt-0.7", "dt-0.05"])
+@pytest.mark.parametrize("g", [1, 2])
+def test_tc_decomposition_matches_pallas_kernel_and_oracle(g, dt_shift):
+    """The tc kernel's arithmetic, emulated on the CPU, on bf16 inputs at a
+    mamba2-like shape (h 4, p 16, n 16, S 300: four full 64-step chunks and
+    a ragged one, A from -1 to -16), against the Pallas kernel (interpret
+    mode) and the exact recurrence on the same bf16-rounded values in fp32:
+    y and the final state within 2e-2 of their max (a wrong decay, carry or
+    rounding point moves them by O(1)).  At dt about 0.05 a slow head keeps
+    most of its state across chunks, so the carry is checked, not only the
+    diagonal blocks."""
+    arrays = _ssd_inputs(10 + g, 1, 300, 4, 16, g, 16, A=-np.linspace(1.0, 16.0, 4),
+                         dt_shift=dt_shift)
+    arrays = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in arrays]
+    J, _ = _both(arrays)
+    _, T = _both(arrays, "bfloat16")
+    assert variant(T[0], T[3], T[4]) == "tc"
+    y, state = _tc_emulation(*T)
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    assert _rel(y, jax_ref.ssd_reference(*J)) < 2e-2
+    x, dt, A, Bm, Cm = arrays
+    padded = [np.pad(a, [(0, 0), (0, 20)] + [(0, 0)] * (a.ndim - 2)) for a in (x, dt, Bm, Cm)]
+    y_kernel = jax_ssd_scan(*(jnp.asarray(a) for a in padded[:2]), jnp.asarray(A),
+                            *(jnp.asarray(a) for a in padded[2:]), chunk=64)
+    assert _rel(y, np.asarray(y_kernel)[:, :300]) < 2e-2
+    _, state_model = jax_ssm.ssd_chunked(*(jnp.asarray(a) for a in padded[:2]), jnp.asarray(A),
+                                         *(jnp.asarray(a) for a in padded[2:]), 64)
+    assert _rel(state, state_model) < 2e-2
 
 
 # ------------------------------------------------------------ the mixer
@@ -296,8 +408,10 @@ def test_cpu_serving_launches_no_kernel():
                       "--prompt-len", "20", "--gen", "4"])
     assert gen.shape == (2, 4) and gen.dtype == torch.int64
     assert 0 <= int(gen.min()) and int(gen.max()) < get_smoke_config(ARCH).vocab_size
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "flash_attention/wgmma": 0,
-                                  "flash_attention/simt": 0, "ssd_scan": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm/vector": 0, "rmsnorm/scalar": 0,
+                                  "flash_attention": 0, "flash_attention/wgmma": 0,
+                                  "flash_attention/simt": 0, "ssd_scan": 0, "ssd_scan/tc": 0,
+                                  "ssd_scan/simt": 0}
 
 
 def test_gated_norm_goes_through_the_rmsnorm_op(monkeypatch):
@@ -320,3 +434,23 @@ def test_gated_norm_goes_through_the_rmsnorm_op(monkeypatch):
     widths.clear()
     tmodel.decode_step(tparams, cache, tokens[:, :1], 5)
     assert widths == per_forward
+
+
+@pytest.mark.parametrize("P", [1, 2])
+def test_prompt_shorter_than_the_conv_tail_serves(P):
+    """Prompts of 1 and 2 tokens, shorter than conv_kernel - 1 = 3: the conv
+    tail is left-padded with zeros, and each of 4 decode steps gives the
+    last-position logits of a prefill over the same tokens (fp32, 1e-5)."""
+    cfg = get_smoke_config(ARCH).reduced(dtype="float32")
+    assert P < cfg.conv_kernel - 1
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    B, steps = 2, 4
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.vocab_size, (B, P + steps)))
+    logits, cache = model.prefill(params, {"tokens": tokens[:, :P]}, max_seq=P + steps)
+    for c in cache:
+        assert c["ssm"]["conv"].shape == (B, cfg.conv_kernel - 1, ssm._dims(cfg)[-1])
+    for i in range(steps):
+        logits, cache = model.decode_step(params, cache, tokens[:, P + i:P + i + 1], P + i)
+        want, _ = model.prefill(params, {"tokens": tokens[:, :P + i + 1]})
+        assert _rel(logits[:, -1], want[:, -1]) < 1e-5, i
