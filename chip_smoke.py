@@ -41,7 +41,20 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
   6. profile  where the time goes: each served model's prefill and decode
               steps, warm, timed untraced and then traced with torch.profiler
               (the top kernels, and each of the port's own kernels by name:
-              the tc SSD is two, its C B^T prepass and the scan).
+              the tc SSD is two, its C B^T prepass and the scan);
+  7. planner  the figures the port's ``H100_SXM`` HardwareSpec prices swaps
+              with, measured: pinned host<->device copy rates of 256 MiB,
+              one direction at a time and both at once on two streams (the
+              paper's two swap streams), and one qwen3-4b activation's copy;
+              the bf16 GEMM rate at qwen3-4b's FFN shape (its MFU) alone and
+              beside both copies; a tiny op's launch cost; cudaMalloc and
+              cudaFree through libcudart.  Then the port's plan pipeline
+              (SmartPool, the baseline pools, AutoSwap's four scores at 90,
+              70 and 50% of the peak load, OffloadLowering) on a synthetic
+              trace of qwen3-4b's layer structure under ``H100_SXM`` and
+              under ``TPU_V5E``; every program must pass the static verifier
+              and round-trip through its artifact byte for byte.  A rate
+              above its data-sheet figure is an impossible reading and fails.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the serve runs, whose own counts the
@@ -51,6 +64,7 @@ summary prints), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import io
 import json
@@ -553,6 +567,240 @@ def phase_profile(arch: str, B: int, P: int, G: int):
     print(f"  decode by op: {op_breakdown(prof)}")
 
 
+# Phase 7: the figures the planner's HardwareSpec prices swaps with, on the card.
+PCIE5_X16_BYTES_PER_S = 64e9          # PCIe Gen5 x16, per direction, data sheet
+LINK_BYTES = 256 * 2**20              # one buffer of the link measurement
+ACT_BYTES = 4 * 512 * 2560 * 2        # qwen3-4b block_in at B4 S512, bf16
+GEMM_MKN = (2048, 2560, 9728)         # qwen3-4b's FFN at 2048 tokens: [M, K] x [K, N]
+# One qwen3-4b layer's bf16 matrices: q, k, v, o, and the FFN's three.
+LAYER_WEIGHT_BYTES = 2 * (2560 * 4096 + 2 * 2560 * 1024 + 4096 * 2560 + 3 * 2560 * 9728)
+SCORERS = ("doa", "aoa", "wdoa", "swdoa")
+LIMIT_FRACS = (0.9, 0.7, 0.5)
+
+
+def stream_seconds(stream, fn, reps: int) -> float:
+    """Seconds of ``reps`` calls of ``fn`` enqueued on ``stream``, timed by
+    CUDA events on it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    with torch.cuda.stream(stream):
+        for _ in range(reps):
+            fn()
+    end.record(stream)
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def concurrent_seconds(jobs):
+    """Start every ``(stream, fn, reps)`` of ``jobs`` at one event; the
+    seconds each stream took from it."""
+    go = torch.cuda.Event(enable_timing=True)
+    go.record()
+    ends = []
+    for stream, fn, reps in jobs:
+        stream.wait_event(go)
+        with torch.cuda.stream(stream):
+            for _ in range(reps):
+                fn()
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(stream)
+        ends.append(end)
+    for end in ends:
+        end.synchronize()
+    return [go.elapsed_time(end) / 1e3 for end in ends]
+
+
+def cudart():
+    """The CUDA runtime of the toolkit that builds the kernels, for calls
+    that must not go through PyTorch's caching allocator."""
+    from repro_torch.kernels import _build
+
+    lib = ctypes.CDLL(str(Path(_build._nvcc()).parents[1] / "lib64" / "libcudart.so"))
+    lib.cudaMalloc.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_size_t]
+    lib.cudaMalloc.restype = ctypes.c_int
+    lib.cudaFree.argtypes = [ctypes.c_void_p]
+    lib.cudaFree.restype = ctypes.c_int
+    return lib
+
+
+def malloc_free_seconds(lib, nbytes: int, reps: int = 20) -> tuple[float, float]:
+    """Host seconds of one cudaMalloc and of one cudaFree of ``nbytes``,
+    after one untimed pair (the library's first call sets up its state)."""
+    t_malloc = t_free = 0.0
+    for i in range(reps + 1):
+        ptr = ctypes.c_void_p()
+        t0 = time.perf_counter()
+        rc = lib.cudaMalloc(ctypes.byref(ptr), nbytes)
+        t1 = time.perf_counter()
+        require(rc == 0, f"cudaMalloc({nbytes}) returned {rc}")
+        rc = lib.cudaFree(ptr)
+        t2 = time.perf_counter()
+        require(rc == 0, f"cudaFree returned {rc}")
+        if i:
+            t_malloc += t1 - t0
+            t_free += t2 - t1
+    return t_malloc / reps, t_free / reps
+
+
+def phase_link_and_compute():
+    """Phase 7's measurements: pinned copy rates one direction at a time and
+    both at once, one activation's copy, the bf16 GEMM rate alone and beside
+    both copies, a tiny op's launch cost, cudaMalloc and cudaFree."""
+    from repro_torch.core.simulator import CUDA_MALLOC_COST_S, H100_SXM
+
+    spec = H100_SXM
+    host_in = torch.empty(LINK_BYTES, dtype=torch.uint8, pin_memory=True).fill_(1)
+    host_out = torch.empty(LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev_in = torch.empty(LINK_BYTES, dtype=torch.uint8, device="cuda")
+    dev_out = torch.ones(LINK_BYTES, dtype=torch.uint8, device="cuda")
+    s_out, s_in = torch.cuda.Stream(), torch.cuda.Stream()
+
+    def h2d():
+        dev_in.copy_(host_in, non_blocking=True)
+
+    def d2h():
+        host_out.copy_(dev_out, non_blocking=True)
+
+    reps = 8
+    for fn in (h2d, d2h):  # warm: first touch of the pinned pages
+        stream_seconds(s_in, fn, 1)
+    r = {"h2d": LINK_BYTES * reps / stream_seconds(s_in, h2d, reps),
+         "d2h": LINK_BYTES * reps / stream_seconds(s_out, d2h, reps)}
+    t_out, t_in = concurrent_seconds([(s_out, d2h, reps), (s_in, h2d, reps)])
+    r["both_d2h"], r["both_h2d"] = LINK_BYTES * reps / t_out, LINK_BYTES * reps / t_in
+    print(f"[7] link, pinned {LINK_BYTES >> 20} MiB copies on a side stream, {reps} each: "
+          f"H2D {r['h2d'] / 1e9:.2f} GB/s, D2H {r['d2h'] / 1e9:.2f} GB/s; both at once on two "
+          f"streams: D2H {r['both_d2h'] / 1e9:.2f}, H2D {r['both_h2d'] / 1e9:.2f} GB/s "
+          f"(H100_SXM.link_bw {spec.link_bw / 1e9:.2f} GB/s per direction with both busy; "
+          f"PCIe Gen5 x16 data sheet "
+          f"{PCIE5_X16_BYTES_PER_S / 1e9:.0f} GB/s per direction)")
+
+    act_reps = 50
+    act_in, act_out = dev_in[:ACT_BYTES], dev_out[:ACT_BYTES]
+    host_act_in, host_act_out = host_in[:ACT_BYTES], host_out[:ACT_BYTES]
+    t_act_in = stream_seconds(s_in, lambda: act_in.copy_(host_act_in, non_blocking=True),
+                              act_reps) / act_reps
+    t_act_out = stream_seconds(s_out, lambda: host_act_out.copy_(act_out, non_blocking=True),
+                               act_reps) / act_reps
+    print(f"[7] link, one activation (qwen3-4b block_in at B4 S512 bf16, {ACT_BYTES:,} B): "
+          f"H2D {t_act_in * 1e3:.4f} ms, D2H {t_act_out * 1e3:.4f} ms; "
+          f"the spec's size / link_bw {ACT_BYTES / spec.link_bw * 1e3:.4f} ms")
+
+    M, K, N = GEMM_MKN
+    gen = torch.Generator("cuda").manual_seed(0)
+    a = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randn((K, N), generator=gen, device="cuda").to(torch.bfloat16)
+    c = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+    main = torch.cuda.current_stream()
+
+    def gemm():
+        torch.matmul(a, b, out=c)
+
+    flops = 2 * M * K * N
+    gemm_reps = 200
+    stream_seconds(main, gemm, 20)  # warm: cuBLAS's choice of kernel, clocks
+    t_gemm = stream_seconds(main, gemm, gemm_reps)
+    r["gemm"] = flops * gemm_reps / t_gemm
+    require(torch.isfinite(c).all().item(), "the GEMM gave non-finite values")
+    # Copies long enough to outlast the GEMM loop in both directions.
+    copy_reps = max(reps, math.ceil(1.5 * t_gemm / (LINK_BYTES / min(r["h2d"], r["d2h"]))))
+    t_g, t_out, t_in = concurrent_seconds([(main, gemm, gemm_reps), (s_out, d2h, copy_reps),
+                                           (s_in, h2d, copy_reps)])
+    r["gemm_copies"] = flops * gemm_reps / t_g
+    r["copies_d2h"], r["copies_h2d"] = LINK_BYTES * copy_reps / t_out, LINK_BYTES * copy_reps / t_in
+    print(f"[7] compute, bf16 torch.matmul [{M}, {K}] x [{K}, {N}], {gemm_reps} calls: "
+          f"{r['gemm'] / 1e12:.1f} TFLOP/s, MFU {r['gemm'] / PEAK_FLOPS[torch.bfloat16]:.4f} of 989 TFLOP/s "
+          f"(H100_SXM.efficiency {spec.efficiency:.4f}); beside a D2H and an H2D copy on side "
+          f"streams ({copy_reps} x {LINK_BYTES >> 20} MiB each, running through the whole "
+          f"GEMM loop: {min(t_out, t_in) >= t_g}): {r['gemm_copies'] / 1e12:.1f} TFLOP/s "
+          f"({r['gemm_copies'] / r['gemm']:.4f} of alone), copies D2H "
+          f"{r['copies_d2h'] / 1e9:.2f}, H2D {r['copies_h2d'] / 1e9:.2f} GB/s")
+
+    x = torch.zeros(1, device="cuda")
+    n_ops = 2000
+    for _ in range(100):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_ops):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    host_per_op = (time.perf_counter() - t0) / n_ops
+    device_per_op = time_ms(lambda: x.add_(1.0), [()], 1000) / 1e3
+    lib = cudart()
+    mallocs = {n: malloc_free_seconds(lib, n) for n in (2**20, 256 * 2**20)}
+    print(f"[7] costs: a tiny op (add_ on one element) {host_per_op * 1e6:.2f} us a call from "
+          f"an eager loop, {device_per_op * 1e6:.2f} us a kernel replayed in a CUDA graph "
+          f"(H100_SXM.op_overhead_s {spec.op_overhead_s * 1e6:.2f} us); cudaMalloc + cudaFree "
+          f"through libcudart: " + ", ".join(
+              f"{n >> 20} MiB {m * 1e6:.1f} + {f * 1e6:.1f} us" for n, (m, f) in mallocs.items())
+          + f" (CUDA_MALLOC_COST_S {CUDA_MALLOC_COST_S * 1e6:.0f} us, the paper's; "
+            f"H100_SXM.malloc_cost_s {spec.malloc_cost_s:g})")
+    numbers = [*r.values(), t_act_in, t_act_out, host_per_op, device_per_op,
+               *(t for pair in mallocs.values() for t in pair)]
+    require(all(math.isfinite(v) and v > 0 for v in numbers), f"non-finite reading in {numbers}")
+    for k in ("h2d", "d2h", "both_d2h", "both_h2d", "copies_d2h", "copies_h2d"):
+        require(r[k] <= PCIE5_X16_BYTES_PER_S, f"{k} {r[k] / 1e9:.2f} GB/s exceeds the PCIe "
+                                               f"Gen5 x16 data sheet's 64 GB/s: impossible")
+    for k in ("gemm", "gemm_copies"):
+        require(r[k] <= PEAK_FLOPS[torch.bfloat16],
+                f"{k} {r[k] / 1e12:.1f} TFLOP/s exceeds the data sheet's 989")
+
+
+def phase_planner():
+    """The port's plan pipeline under H100_SXM and under TPU_V5E, on a
+    synthetic training trace of qwen3-4b's layer structure."""
+    from repro_torch.analyze import verify_program
+    from repro_torch.core.simulator import H100_SXM, TPU_V5E
+    from repro_torch.plan import (MemoryProgram, OffloadLowering, PassContext, Pipeline, PlanKey,
+                                  PoolPlacement, SwapSelection, TimingAssign, dumps_canonical,
+                                  program_from_json)
+    from repro_torch.runtime.workload import synthetic_train_trace
+
+    for hw in (H100_SXM, TPU_V5E):
+        trace = synthetic_train_trace(n_layers=36, act_bytes=ACT_BYTES,
+                                      weight_bytes=LAYER_WEIGHT_BYTES,
+                                      flops_per_op=2 * (LAYER_WEIGHT_BYTES // 2) * 2048,
+                                      bytes_per_op=LAYER_WEIGHT_BYTES)
+        for v in trace.variables:  # the activations are block_in's
+            if v.size == ACT_BYTES:
+                v.name = "block_in"
+        peak = trace.peak_load()
+        limits = [int(peak * f) for f in LIMIT_FRACS]
+        passes = [TimingAssign(), PoolPlacement(("best_fit", "first_fit", "cnmem", "exact"))]
+        passes += [SwapSelection(limit=lim, scorer=s) for lim in limits for s in SCORERS]
+        passes += [OffloadLowering(limit=lim, scorer=s) for lim in limits for s in SCORERS]
+        t0 = time.perf_counter()
+        prog = Pipeline(passes).run(
+            MemoryProgram.from_trace(trace, PlanKey("qwen3-4b", "train:synthetic", hw.name)),
+            PassContext(hw=hw))
+        solve_s = time.perf_counter() - t0
+        cert = verify_program(prog)
+        require(cert.ok, f"{hw.name}: the verifier failed {cert.failed()}")
+        blob = dumps_canonical(prog)
+        require(dumps_canonical(program_from_json(json.loads(blob))) == blob,
+                f"{hw.name}: the artifact does not round-trip byte for byte")
+        pools = {m: prog.pool_plans[m].footprint for m in ("best_fit", "first_fit")}
+        pools.update({m: prog.baselines[m].footprint for m in ("cnmem", "exact")})
+        print(f"[7] plan under {hw.name} (synthetic trace of qwen3-4b's shape: 36 layers, "
+              f"weights {LAYER_WEIGHT_BYTES:,} B and activations {ACT_BYTES:,} B a layer; "
+              f"not a captured trace): iteration {trace.op_times[-1] * 1e3:.3f} ms simulated, "
+              f"peak load w {peak:,} B; pools " + ", ".join(
+                  f"{m} {b:,} B ({b / peak:.4f} w)" for m, b in pools.items())
+              + f"; solved in {solve_s:.2f}s, verifier ok ({len(cert.checks)} checks), "
+                f"round trip byte-equal ({len(blob):,} B)")
+        for frac, lim in zip(LIMIT_FRACS, limits):
+            cells = []
+            for s in SCORERS:
+                summary = prog.swap_summaries[f"{s}@{lim}"]
+                require(math.isfinite(summary.overhead), f"{hw.name} {s}@{lim}: overhead")
+                cells.append(f"{s} {len(summary.decisions)} vars {summary.selected_bytes:,} B "
+                             f"overhead {summary.overhead:.4f} stalls {summary.stalls}")
+            offload = prog.offload_plans[f"swdoa@{lim}"].offload_names
+            print(f"  limit {frac:.0%} of w ({lim:,} B): " + "; ".join(cells)
+                  + f"; swdoa offloads {offload or 'nothing'}")
+
+
 def mma_count(build, lib: str, ops: tuple[str, ...]) -> int:
     """Instructions of the SASS of library ``lib`` whose opcode is one of
     ``ops`` (HGMMA: warpgroup MMA; HMMA: warp MMA), by the cuobjdump of the
@@ -614,6 +862,10 @@ def main() -> int:
     }
     phase_profile("qwen3-4b", 4, 512, 32)
     phase_profile("mamba2-370m", 4, 2048, 32)
+    t7 = time.perf_counter()
+    phase_link_and_compute()
+    phase_planner()
+    print(f"[7] planner phase took {time.perf_counter() - t7:.1f}s")
 
     srcs = {"rmsnorm": "src/repro/kernels/rmsnorm.py:25",
             "flash_attention": "src/repro/kernels/flash_attention.py:99",
