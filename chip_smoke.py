@@ -6,7 +6,7 @@ card and nvcc (CUDA_HOME or PATH); it imports the port from ``src/`` and
 nothing of JAX or of the JAX package.  Phases, each fatal on failure:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the five kernel libraries compiled from
+  2. build    the seven kernel libraries compiled from
               ``src/repro_torch/kernels/csrc``, one nvcc each, in parallel,
               and the count of tensor-core instructions in the SASS of the
               two tensor-core libraries, neither of which may be 0: HGMMA
@@ -25,7 +25,14 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               simt kernel is timed on the same inputs, and beside the
               rmsnorm cases the scalar one, as yardsticks of the redesign
               (through each module's ``_launch``, the wrapper's own
-              launcher, counting no launch);
+              launcher, counting no launch).  The training path's kernels
+              too: the RMSNorm backward (dx, and dscale bit-equal across
+              two runs) and the flash backward (dq, dk, dv; ``mma`` for
+              bf16 at head dim 64 or 128, ``simt`` the rest, the simt
+              kernel timed beside each mma case), each beside the library
+              call's backward (``torch.autograd.grad`` through
+              ``F.rms_norm`` or SDPA, its forward subtracted), and both
+              flash forwards with the LSE written;
   4. parity   qwen3-4b's and mamba2-370m's widths at depth 2 in fp32: prefill
               + 4 decode steps through the kernels on the card against the
               plain path on the CPU, logits and every layer's cache;
@@ -54,11 +61,30 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               trace of qwen3-4b's layer structure under ``H100_SXM`` and
               under ``TPU_V5E``; every program must pass the static verifier
               and round-trip through its artifact byte for byte.  A rate
-              above its data-sheet figure is an impossible reading and fails.
+              above its data-sheet figure is an impossible reading and fails;
+  8. train parity  one train step of qwen3-4b's widths at depth 2 in fp32
+              (B1 S128; ``Model.loss``, its gradients, ``adamw_step``) on
+              the card against the CPU from the same masters and batch: the
+              loss, every gradient, and the parameters after the card's
+              AdamW against the CPU's AdamW run on the card's gradients,
+              each under PARITY_TOL (the two whole steps' parameters are
+              printed beside them, held to no limit: AdamW's first update
+              is nearly lr sign(g), so gradients near 0 that the two sums
+              round apart may move 2 lr apart, the whole range of the
+              update);
+  9. train    ``repro_torch.launch.train.main`` on the full qwen3-4b (36
+              layers, fp32 masters, bf16 compute, per-layer remat, chunked
+              loss, AdamW) at batch 4, seq 512, 5 steps, after the memory
+              of earlier phases is dropped: finite losses, step times,
+              tokens/s, the peak beside the 64.36 GB of fp32 state and
+              under the card's memory, and exact launch counts by variant;
+ 10. profile  a warm train step timed, then traced (top kernels, the port's
+              kernels by name, the device's idle share).
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
-numbers (``launches`` summed over the serve runs, whose own counts the
-summary prints), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
+numbers (``launches`` summed over the main paths, the serve and train runs,
+with each path's own count in ``launches_by_path``), the nvidia-smi line,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -141,6 +167,15 @@ def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def close(got, want, tol: float) -> tuple[bool, float, str]:
+    """``torch.allclose(got, want, rtol=tol, atol=tol)`` as the number it
+    tests, max(|got - want| - tol |want|), which must not exceed tol: the
+    verdict, that number, and the check as printed."""
+    g, w = got.float(), want.float()
+    excess = ((g - w).abs() - tol * w.abs()).max().item()
+    return excess <= tol, excess, f"max(|got-want| - {tol:g}|want|) {excess:.3e} <= {tol:g}"
+
+
 def rmsnorm_case(shape, dtype, gen, want_variant, misaligned=False):
     """``misaligned``: x is a contiguous view that starts one element into its
     storage, so not 16-byte aligned."""
@@ -161,7 +196,7 @@ def rmsnorm_case(shape, dtype, gen, want_variant, misaligned=False):
             f"rmsnorm {list(shape)} did not launch the {var} kernel")
     err = (got.float() - want.float()).abs().max().item()
     tol = RMS_TOL[dtype]
-    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    ok, _, check = close(got, want, tol)
     nbytes = 2 * x.numel() * x.element_size() + 4 * shape[-1]
     sets = [(x, scale)] + [(alloc().copy_(x), scale.clone()) for _ in range(n_copies(nbytes) - 1)]
     w = scale.to(dtype)
@@ -174,10 +209,66 @@ def rmsnorm_case(shape, dtype, gen, want_variant, misaligned=False):
     return {
         "case": f"rmsnorm [{var}] {list(shape)} {str(dtype)[6:]}"
                 f"{' (misaligned view)' if misaligned else ''}",
-        "variant": var, "max_abs_err": err, "tol": tol,
+        "variant": var, "max_abs_err": err, "check": check,
         "ok": ok, "ms": time_ms(rmsnorm, sets, 50), "plain_ms": time_ms(rmsnorm_plain, sets, 20),
         "library_ms": time_ms(lambda a, s: F.rms_norm(a, (shape[-1],), s, 1e-6), lib_sets, 50),
         "bound_ms": b_ms, "bound_by": b_by, "other": ("scalar", time_ms(scalar_kernel, sets, 50)),
+    }
+
+
+def grad_ms(fwd, arg_sets, iters: int) -> float:
+    """Device ms of a library call's backward alone: ``fwd`` builds the
+    graph from fresh leaves and returns (output, leaves, upstream gradient);
+    its forward and backward together are timed and its forward alone, both
+    captured whole in a CUDA graph (autograd runs each backward op on its
+    forward's stream, so both must run on the capturing stream), and the
+    difference is returned."""
+    def both(*args):
+        out, leaves, g = fwd(*args)
+        return torch.autograd.grad(out, leaves, g)
+
+    return time_ms(both, arg_sets, iters) - time_ms(lambda *a: fwd(*a)[0], arg_sets, iters)
+
+
+def rmsnorm_bwd_case(shape, dtype, gen, want_variant):
+    """rmsnorm_bwd against rmsnorm_bwd_plain: dx at the dtype's tolerance, and
+    dscale, a sum over all rows whose summation order differs, at the same
+    tolerance relative to max|dscale|."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain, variant
+
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    scale = (torch.rand(shape[-1], generator=gen, device="cuda") + 0.5).contiguous()
+    var = variant(x, scale)
+    require(var == want_variant, f"rmsnorm_bwd {list(shape)} routes to {var}, want {want_variant}")
+    before = rmsnorm_bwd.variant_launches[var]
+    (dx, ds), (dx_want, ds_want) = rmsnorm_bwd(x, scale, dy), rmsnorm_bwd_plain(x, scale, dy)
+    torch.cuda.synchronize()
+    require(rmsnorm_bwd.variant_launches[var] == before + 1,
+            f"rmsnorm_bwd {list(shape)} did not launch the {var} kernel")
+    again = rmsnorm_bwd(x, scale, dy)[1]
+    require(torch.equal(again, ds), f"rmsnorm_bwd {list(shape)}: dscale differs between two runs")
+    tol = TOL[dtype]
+    ds_max = ds_want.abs().max().item()
+    ds_rel = (ds - ds_want).abs().max().item() / ds_max
+    dx_ok, _, dx_check = close(dx, dx_want, tol)
+    ok = dx_ok and ds_rel <= tol
+    check = f"dx {dx_check}; dscale max|got-want| / max|want| {ds_rel:.3e} <= {tol:g}"
+    err = (dx.float() - dx_want.float()).abs().max().item()
+    nbytes = 3 * x.numel() * x.element_size() + 8 * shape[-1]
+    sets = copies((x, scale, dy), nbytes)
+    b_ms, b_by = bound(nbytes, 10 * x.numel(), torch.float32)
+
+    def lib(a, s, g):
+        a, s = a.detach().requires_grad_(), s.detach().to(dtype).requires_grad_()
+        return F.rms_norm(a, (shape[-1],), s, 1e-6), (a, s), g
+
+    return {
+        "case": f"rmsnorm_bwd [{var}] {list(shape)} {str(dtype)[6:]} (max_abs_err of dx; "
+                f"max|dscale| {ds_max:.1f}; dscale bit-equal across two runs)",
+        "variant": var, "max_abs_err": err, "check": check, "ok": ok,
+        "ms": time_ms(rmsnorm_bwd, sets, 50), "plain_ms": time_ms(rmsnorm_bwd_plain, sets, 10),
+        "library_ms": grad_ms(lib, sets, 20), "bound_ms": b_ms, "bound_by": b_by,
     }
 
 
@@ -211,7 +302,7 @@ def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softc
     err = (got.float() - want.float()).abs().max().item()
     rel = err / want.float().abs().max().item()
     tol = TOL[dtype]
-    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    ok, _, check = close(got, want, tol)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     sets = copies((q, k, v), nbytes)
     flops = 4 * hd * B * H * live_pairs(Sq, Sk, causal, window)
@@ -228,10 +319,108 @@ def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softc
             f"{f' softcap={softcap}' if softcap else ''} "
             f"(error relative to max|want|: {rel:.2e})")
     return {
-        "case": name, "variant": var, "max_abs_err": err, "tol": tol, "ok": ok,
+        "case": name, "variant": var, "max_abs_err": err, "check": check, "ok": ok,
         "ms": time_ms(lambda *a: flash_attention(*a, **kw), sets, 20),
         "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, **kw), sets, 3),
         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def flash_lse_case(B, S, H, KV, hd, dtype, gen):
+    """Causal flash with the LSE written (as training runs it) against the
+    plain version's output and LSE; the LSE at fp32's tolerance in either
+    type, since both sum fp32 scores of the same inputs."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
+                                                     variant)
+
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
+    var = variant(dtype, hd)
+    before = flash_attention.variant_launches[var]
+    (out, lse), (out_want, lse_want) = (flash_attention(q, k, v, return_lse=True),
+                                        flash_attention_plain(q, k, v, return_lse=True))
+    torch.cuda.synchronize()
+    require(flash_attention.variant_launches[var] == before + 1,
+            f"flash with LSE B{B} S{S} hd{hd} {dtype} did not launch the {var} kernel")
+    tol, lse_tol = TOL[dtype], TOL[torch.float32]
+    (out_ok, _, out_check), (lse_ok, _, lse_check) = (close(out, out_want, tol),
+                                                      close(lse, lse_want, lse_tol))
+    ok = out_ok and lse_ok
+    err = (lse - lse_want).abs().max().item()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * lse.numel()
+    sets = copies((q, k, v), nbytes)
+    b_ms, b_by = bound(nbytes, 4 * hd * B * H * live_pairs(S, S, True, None), dtype)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True, enable_gqa=True)
+
+    return {
+        "case": f"flash+lse [{var}] B{B} S{S} H{H} KV{KV} hd{hd} {str(dtype)[6:]} causal "
+                f"(max_abs_err of the LSE)",
+        "variant": var, "max_abs_err": err, "ok": ok,
+        "check": f"LSE {lse_check}; output {out_check}",
+        "ms": time_ms(lambda *a: flash_attention(*a, return_lse=True), sets, 20),
+        "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, return_lse=True), sets, 3),
+        "library_ms": time_ms(sdpa, sets, 20), "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant):
+    """flash_attention_bwd against flash_attention_bwd_plain on the same q, k,
+    v, dO and the kernel forward's o and LSE: dq, dk and dv at the dtype's
+    tolerance.  Beside an mma case the simt kernel is timed on the same
+    inputs, as a yardstick."""
+    from repro_torch.kernels.flash_attention import (_launch_bwd, bwd_variant, flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_plain)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = randn(B, Sq, H, hd), randn(B, Sq, KV, hd), randn(B, Sq, KV, hd), \
+        randn(B, Sq, H, hd)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    var = bwd_variant(o, do)
+    require(var == want_variant, f"flash_bwd B{B} S{Sq} hd{hd} {dtype} routes to {var}, "
+                                 f"want {want_variant}")
+    before = flash_attention_bwd.variant_launches[var]
+    got, want = (flash_attention_bwd(q, k, v, o, do, lse),
+                 flash_attention_bwd_plain(q, k, v, o, do, lse))
+    torch.cuda.synchronize()
+    require(flash_attention_bwd.variant_launches[var] == before + 1,
+            f"flash_bwd B{B} S{Sq} hd{hd} {dtype} did not launch the {var} kernel")
+    tol = TOL[dtype]
+    checks = [close(g, w, tol) for g, w in zip(got, want)]
+    ok = all(c[0] for c in checks)
+    check = "; ".join(f"{n} {c[2]}" for n, c in zip(("dq", "dk", "dv"), checks))
+    errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+    rels = [e / w.float().abs().max().item() for e, w in zip(errs, want)]
+    args = (q, k, v, o, do, lse)
+    nbytes = sum(t.numel() * t.element_size() for t in args) + \
+        (q.numel() + 2 * k.numel()) * q.element_size()
+    sets = copies(args, nbytes)
+    b_ms, b_by = bound(nbytes, 10 * hd * B * H * live_pairs(Sq, Sq, True, None), dtype)
+
+    def sdpa(q, k, v, o, do, lse):
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                             v.transpose(1, 2), is_causal=True, enable_gqa=True)
+        return out, (q, k, v), do.transpose(1, 2)
+
+    other = None
+    if var == "mma":
+        other = ("simt", time_ms(lambda *a: _launch_bwd("simt", *a, hd**-0.5), sets, 5))
+    return {
+        "case": f"flash_bwd [{var}] B{B} S{Sq} H{H} KV{KV} hd{hd} {str(dtype)[6:]} causal "
+                f"(dq, dk, dv abs err {errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e}; relative to "
+                f"max|want| {max(rels):.2e})",
+        "variant": var, "max_abs_err": max(errs), "check": check, "ok": ok,
+        "ms": time_ms(flash_attention_bwd, sets, 10),
+        "plain_ms": time_ms(flash_attention_bwd_plain, sets, 3),
+        "library_ms": grad_ms(sdpa, sets, 10), "bound_ms": b_ms, "bound_by": b_by,
+        "other": other,
     }
 
 
@@ -299,11 +488,11 @@ def ssd_case(b, s, h, p, g, n, dtype, gen, want_variant, layout="dense"):
         other = ("simt", time_ms(lambda *a: _launch("simt", *a), sets, 10))
     return {
         "case": f"ssd [{var}] x[{b},{s},{h},{p}] B/C[{b},{s},{g},{n}] {str(dtype)[6:]}"
-                f"{LAYOUT_NOTE[layout]} "
-                f"(error relative to max|want|: y {rel_y:.2e}, state {rel_state:.2e})",
+                f"{LAYOUT_NOTE[layout]}",
         "variant": var, "max_abs_err": (y.float() - y_want.float()).abs().max().item(),
-        "tol": tol, "relative": True,
         "ok": rel_y < tol and rel_state < tol,
+        "check": f"max|got-want| / max|want|: y {rel_y:.3e}, state {rel_state:.3e}, "
+                 f"each < {tol:g}",
         "ms": time_ms(ssd_scan, sets, 10), "plain_ms": time_ms(ssd_scan_plain, sets, 3),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "other": other,
     }
@@ -315,9 +504,8 @@ LAYOUT_NOTE = {"dense": "", "views": " (views of one tensor)",
 
 def print_case(c) -> None:
     lib = f"{c['library_ms']:.4f}ms" if c["library_ms"] is not None else "none"
-    tol = f"relative tol={c['tol']:g}" if c.get("relative") else f"tol={c['tol']:g}"
     other = f" {c['other'][0]}={c['other'][1]:.4f}ms" if c.get("other") else ""
-    print(f"  {c['case']}: max_abs_err={c['max_abs_err']:.3e} {tol} "
+    print(f"  {c['case']}: max_abs_err={c['max_abs_err']:.3e}; {c['check']}: "
           f"{'ok' if c['ok'] else 'DISAGREES'}  kernel={c['ms']:.4f}ms{other} "
           f"plain={c['plain_ms']:.4f}ms library={lib} "
           f"bound={c['bound_ms'] * 1e3:.2f}us ({c['bound_by']}, "
@@ -327,7 +515,7 @@ def print_case(c) -> None:
 def phase_kernels():
     gen = torch.Generator("cuda").manual_seed(0)
     print("[3] kernels vs plain versions on the card")
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     rms = [
         rmsnorm_case((2048, 2560), bf16, gen, "vector"),   # ln1/ln2 at prefill B4 S512
         rmsnorm_case((65536, 128), bf16, gen, "vector"),   # q-norm at prefill B4 S512 H32
@@ -360,7 +548,6 @@ def phase_kernels():
         flash_case(1, 200, 200, 4, 1, 256, torch.bfloat16, gen),   # hd 256 tiles, MQA
         flash_case(1, 192, 64, 2, 1, 256, torch.float32, gen, window=32),  # rows, no live key
     ]
-    f32 = torch.float32
     ssd = [
         ssd_case(4, 2048, 32, 64, 1, 128, bf16, gen, "tc", "views"),  # mamba2 prefill
         ssd_case(1, 300, 4, 16, 2, 8, bf16, gen, "tc"),            # narrow tiles, ragged
@@ -373,12 +560,36 @@ def phase_kernels():
         ssd_case(2, 256, 8, 64, 2, 64, f32, gen, "simt", "views"),  # two groups
         ssd_case(1, 300, 4, 64, 1, 128, f32, gen, "simt"),         # ragged last chunk
     ]
-    for c in rms + flash + ssd:
+    # The training path's gradients: qwen3-4b at B4 S512 (ln1/ln2, q-norm,
+    # k-norm; causal GQA attention), and the kernels' edges.
+    rms_bwd = [
+        rmsnorm_bwd_case((2048, 2560), bf16, gen, "vector"),
+        rmsnorm_bwd_case((65536, 128), bf16, gen, "vector"),
+        rmsnorm_bwd_case((16384, 128), bf16, gen, "vector"),
+        rmsnorm_bwd_case((37, 1024), f32, gen, "vector"),
+        rmsnorm_bwd_case((4, 16384), f32, gen, "vector"),    # 64 KB of shared sums
+        rmsnorm_bwd_case((37, 1020), bf16, gen, "scalar"),   # D not a multiple of 8
+    ]
+    flash_lse = [
+        flash_lse_case(4, 512, 32, 8, 128, bf16, gen),       # qwen3-4b training forward
+        flash_lse_case(2, 512, 8, 2, 64, bf16, gen),
+        flash_lse_case(1, 300, 32, 8, 128, f32, gen),        # simt, ragged tiles
+    ]
+    flash_bwd = [
+        flash_bwd_case(4, 512, 32, 8, 128, bf16, gen, "mma"),  # qwen3-4b training
+        flash_bwd_case(2, 512, 8, 2, 64, bf16, gen, "mma"),
+        flash_bwd_case(1, 300, 32, 8, 128, bf16, gen, "mma"),  # S not a multiple of the tiles
+        flash_bwd_case(1, 200, 4, 1, 64, bf16, gen, "mma"),    # MQA
+        flash_bwd_case(1, 300, 32, 8, 128, f32, gen, "simt"),  # S not a multiple of the tile
+        flash_bwd_case(1, 200, 4, 1, 32, bf16, gen, "simt"),   # MQA, hd 32
+    ]
+    every = rms + flash + ssd + rms_bwd + flash_lse + flash_bwd
+    for c in every:
         print_case(c)
-    for c in rms + flash + ssd:
-        require(c["ok"], f"{c['case']} disagrees with its plain version "
-                         f"(max abs err {c['max_abs_err']:.3e}, tol {c['tol']:g})")
-    return {"rmsnorm": rms, "flash_attention": flash, "ssd_scan": ssd}
+    for c in every:
+        require(c["ok"], f"{c['case']} disagrees with its plain version ({c['check']})")
+    return {"rmsnorm": rms, "flash_attention": flash, "ssd_scan": ssd, "rmsnorm_bwd": rms_bwd,
+            "flash_attention_bwd": flash_bwd, "flash_lse": flash_lse}
 
 
 def phase_parity(arch: str, P: int):
@@ -421,7 +632,75 @@ def phase_parity(arch: str, P: int):
     require(torch.isfinite(l_gpu).all().item(), f"{arch}: non-finite logits in the parity run")
 
 
-def release_memory() -> int:
+def phase_train_parity(S: int):
+    """One train step of qwen3-4b's widths at depth 2 in fp32 (B1): the loss
+    and its gradients through ``Model.loss`` and ``torch.autograd.grad``,
+    then ``adamw_step``, as ``build_train_step`` runs them; through the
+    kernels on the card (forward and backward) against the plain path on the
+    CPU, from the same fp32 masters and batch.  Each number is relative to
+    its leaf's max and held to PARITY_TOL: the loss; every gradient leaf;
+    and every parameter after the card's AdamW against the CPU's AdamW run
+    on the card's own gradients.  The parameters after the two devices'
+    whole steps are printed but held to no limit, since none would be
+    usable: AdamW's first update is lr g / (|g| + eps), nearly lr sign(g),
+    so an element whose gradient lies within the two sums' disagreement of
+    0 (most of the tied embedding's, ~1e-8) may move up to 2 lr apart, and
+    2 lr is the whole range of any first update."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import to_device
+    from repro_torch.optim import adamw_init, adamw_step
+    from repro_torch.tree import map_tree, tree_leaves
+
+    full = get_config("qwen3-4b")
+    unit, _ = full.program[0]
+    cfg = full.reduced(num_layers=2, program=((unit, 2),), dtype="float32")
+    lr = 3e-4  # build_train_step's default
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(v).long()
+             for k, v in SyntheticTokens(cfg.vocab_size, S, 1, seed=0).batch_at(0).items()}
+    p_init = build_model(cfg, "cpu").init(torch.Generator("cpu").manual_seed(0), torch.float32)
+    start = {"cpu": map_tree(torch.clone, p_init), "cuda": to_device(p_init, "cuda")}
+    out = {}
+    for dev, params in start.items():
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = build_model(cfg, dev).loss(params, {k: v.to(dev) for k, v in batch.items()})
+        grads = list(torch.autograd.grad(loss, leaves))
+        seen = [g.clone() for g in grads]  # adamw_step clips grads in place
+        _, _, om = adamw_step(leaves, grads, adamw_init(leaves), lr)
+        out[dev] = (loss.detach(), om["grad_norm"], seen, [t.detach() for t in leaves])
+    (loss_c, norm_c, g_c, p_c), (loss_g, norm_g, g_g, p_g) = out["cpu"], out["cuda"]
+
+    def rel(a, b):
+        return ((a.cpu().float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    loss_err = rel(loss_g, loss_c)
+    grad_err = max(rel(g, w) for g, w in zip(g_g, g_c))
+    replay = [t.clone() for t in tree_leaves(p_init)]
+    adamw_step(replay, [g.cpu() for g in g_g], adamw_init(replay), lr)
+    update_err = max(rel(p, w) for p, w in zip(p_g, replay))
+    direct_abs = max((p.cpu() - w).abs().max().item() for p, w in zip(p_g, p_c))
+    near_zero = sum(int((gw.abs() <= (g.cpu() - gw).abs().max()).sum())
+                    for g, gw in zip(g_g, g_c))
+    print(f"[8] train parity qwen3-4b widths, 2 layers, fp32, B1 S{S}, one step (Model.loss, "
+          f"autograd, adamw_step): loss {float(loss_g):.6f} (cpu {float(loss_c):.6f}), rel loss "
+          f"diff {loss_err:.3e}, max rel grad diff {grad_err:.3e} over {len(g_c)} leaves, max "
+          f"rel param diff after the card's AdamW against the CPU's AdamW on the card's "
+          f"gradients {update_err:.3e} (tol {PARITY_TOL:g} each); grad norm {float(norm_g):.4f} "
+          f"(cpu {float(norm_c):.4f}); for information, held to no limit: the two whole steps' "
+          f"params differ by {direct_abs:.3e} at most (AdamW's first update spans 2 lr = "
+          f"{2 * lr:g}), {near_zero} element(s) have a CPU gradient within its leaf's "
+          f"disagreement of 0; {time.perf_counter() - t0:.1f}s")
+    require(math.isfinite(float(loss_g)), "train parity: non-finite loss on the card")
+    require(loss_err < PARITY_TOL, f"train parity: loss differs by {loss_err:.3e}")
+    require(grad_err < PARITY_TOL, f"train parity: a gradient differs by {grad_err:.3e}")
+    require(update_err < PARITY_TOL, f"train parity: the card's AdamW differs by {update_err:.3e}")
+
+
+def release_memory(phase: str = "5") -> int:
     """Drop what earlier phases hold on the card and reset the peak; return
     the bytes still allocated, which the next peak includes.  The timing
     phase leaves cuBLAS workspaces behind, one for each stream that ran a
@@ -435,7 +714,7 @@ def release_memory() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    print(f"[5] memory: {before / 2**20:.1f} MiB allocated after the earlier phases, "
+    print(f"[{phase}] memory: {before / 2**20:.1f} MiB allocated after the earlier phases, "
           f"{(before - held) / 2**20:.1f} MiB of it cuBLAS workspaces (cleared); "
           f"{held / 2**20:.1f} MiB still held")
     return held
@@ -476,9 +755,94 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     return counts
 
 
+# qwen3-4b in fp32 (4,022,468,096 parameters): masters, gradients, and AdamW's
+# m and v, 16 bytes a parameter.
+TRAIN_STATE_BYTES = 16 * 4_022_468_096
+
+
+def phase_train(B: int, S: int, steps: int, want: dict[str, int]):
+    """Train the full qwen3-4b through ``train.main`` (fp32 masters, bf16
+    compute, per-layer remat, chunked loss, AdamW) for ``steps`` steps; each
+    kernel must have been launched ``want[name]`` times."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    held = release_memory("9")
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses = train.main(["--arch", "qwen3-4b", "--batch", str(B), "--seq", str(S),
+                             "--steps", str(steps), "--log-every", "1"])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    text = out.getvalue()
+    step_ms = [float(m) for m in re.findall(r"loss +\S+ +([0-9.]+) ms", text)]
+    print(f"[9] train qwen3-4b (36 layers, fp32 masters, bf16 compute, remat) B{B} S{S}, "
+          f"{steps} steps:")
+    for line in text.strip().splitlines():
+        print(f"  {line}")
+    warm = step_ms[1:]
+    print(f"  losses {losses}; host ms a step (synchronised) {step_ms}; warm median "
+          f"{float(np.median(warm)):.0f} ms, {B * S / float(np.median(warm)) * 1e3:.0f} tokens/s; "
+          f"peak memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) beside "
+          f"{TRAIN_STATE_BYTES / 1e9:.2f} GB of fp32 state (masters, gradients, m, v) and "
+          f"{card / 2**30:.2f} GiB on the card ({held / 2**30:.3f} GiB held before the run); "
+          f"launches {counts}; main() wall {wall:.1f}s (init included)")
+    require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+            f"train: losses {losses}")
+    require(peak < card, f"train: peak {peak} B exceeds the card's {card} B")
+    require(counts == want, f"train: launch counts {counts}, want {want}")
+    return counts
+
+
+def phase_train_profile(B: int, S: int):
+    """Where a warm training step's time goes: one step timed untraced, then
+    one traced with torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+
+    release_memory("10")
+    cfg = get_config("qwen3-4b")
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
+    opt = adamw_init(params)
+    step_fn = build_train_step(model, cfg)
+    batch_fn = make_batch_fn(cfg, B, S, 0, "cuda")
+
+    def step(i):
+        nonlocal params, opt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch_fn(i), i)
+        loss = float(metrics["loss"])
+        return loss, (time.perf_counter() - t0) * 1e3
+
+    step(0)  # warm
+    loss, ms = step(1)
+    print(f"[10] profile train qwen3-4b B{B} S{S}, warm, untraced: {ms:.1f} ms a step "
+          f"({B * S / ms * 1e3:.0f} tokens/s), loss {loss:.4f}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        loss, wall = step(2)
+    print(f"  train step traced: {device_breakdown(prof, wall, top=8)}")
+    print(f"  train step by op: {op_breakdown(prof, top=8)}")
+    require(math.isfinite(loss), "train profile: non-finite loss")
+
+
 # The __global__ functions of csrc/*.cu, as a trace names them.
-PORT_KERNELS = ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel", "flash_fwd_wgmma_kernel",
-                "flash_fwd_kernel", "ssd_cb_kernel", "ssd_scan_tc_kernel", "ssd_scan_kernel")
+PORT_KERNELS = ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel", "rmsnorm_bwd_kernel",
+                "rmsnorm_bwd_reduce_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_kernel",
+                "flash_bwd_dot_kernel", "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel",
+                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                "ssd_cb_kernel", "ssd_scan_tc_kernel", "ssd_scan_kernel")
 
 
 def device_breakdown(prof, wall_ms: float, top: int = 6) -> str:
@@ -850,15 +1214,18 @@ def main() -> int:
     # norm) plus the final norm in every forward.  Everything is bf16 with
     # widths that take 16-byte vectors: flash at head dim 128 is the wgmma
     # variant, the SSD the tc variant, RMSNorm the vector variant.
-    def want(rms, flash, ssd):
+    def want(rms, flash, ssd, rms_bwd=0, flash_bwd=0):
         return {"rmsnorm": rms, "rmsnorm/vector": rms, "rmsnorm/scalar": 0,
+                "rmsnorm_bwd": rms_bwd, "rmsnorm_bwd/vector": rms_bwd, "rmsnorm_bwd/scalar": 0,
                 "flash_attention": flash, "flash_attention/wgmma": flash,
-                "flash_attention/simt": 0, "ssd_scan": ssd, "ssd_scan/tc": ssd,
-                "ssd_scan/simt": 0}
+                "flash_attention/simt": 0, "flash_attention_bwd": flash_bwd,
+                "flash_attention_bwd/mma": flash_bwd, "flash_attention_bwd/simt": 0,
+                "ssd_scan": ssd, "ssd_scan/tc": ssd, "ssd_scan/simt": 0}
 
-    serves = {
-        "qwen3-4b": phase_serve("qwen3-4b", 4, 512, 32, want((4 * 36 + 1) * 32, 36, 0)),
-        "mamba2-370m": phase_serve("mamba2-370m", 4, 2048, 32, want((2 * 48 + 1) * 32, 0, 48)),
+    paths = {
+        "serve qwen3-4b": phase_serve("qwen3-4b", 4, 512, 32, want((4 * 36 + 1) * 32, 36, 0)),
+        "serve mamba2-370m": phase_serve("mamba2-370m", 4, 2048, 32,
+                                         want((2 * 48 + 1) * 32, 0, 48)),
     }
     phase_profile("qwen3-4b", 4, 512, 32)
     phase_profile("mamba2-370m", 4, 2048, 32)
@@ -867,29 +1234,54 @@ def main() -> int:
     phase_planner()
     print(f"[7] planner phase took {time.perf_counter() - t7:.1f}s")
 
+    phase_train_parity(128)
+    # A train step of qwen3-4b under per-layer remat runs each layer's forward
+    # twice (the step's, then its recompute in backward) and the final norm
+    # once: RMSNorm forward 2 * 4 * 36 + 1 (ln1, ln2, q-norm, k-norm), flash
+    # forward 2 * 36, and each backward once: RMSNorm 4 * 36 + 1, flash 36.
+    # bf16 with 16-byte rows at head dim 128: every RMSNorm launch is
+    # `vector` both ways, every flash forward `wgmma`, every flash backward
+    # `mma`.
+    steps = 5
+    paths["train qwen3-4b"] = phase_train(
+        4, 512, steps, want((2 * 4 * 36 + 1) * steps, 2 * 36 * steps, 0,
+                            (4 * 36 + 1) * steps, 36 * steps))
+    phase_train_profile(4, 512)
+
+    # The backward kernels replace no Pallas kernel of their own: each is the
+    # gradient of the TPU kernel named, which the reference takes by XLA
+    # autodiff of its jnp paths.
     srcs = {"rmsnorm": "src/repro/kernels/rmsnorm.py:25",
             "flash_attention": "src/repro/kernels/flash_attention.py:99",
-            "ssd_scan": "src/repro/kernels/ssd_scan.py:65"}
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:65",
+            "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:25",
+            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:99"}
     kernels = []
     for name, main_case in ((n, cases[n][0]) for n in srcs):
-        launches = sum(counts[name] for counts in serves.values())
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        launches = sum(by_path.values())
         require(launches > 0, f"{name} was not launched on a main path")
         var = main_case["variant"]
         source = {"wgmma": "flash_attention_wgmma", "tc": "ssd_scan_tc"}.get(var, name)
-        entry = {
+        kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}.cu",
             "replaces": srcs[name], "launches": launches,
             "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
-            "variant": var,
-        }
-        kernels.append(entry)
-    summary = []
-    for k in kernels:
-        per_path = ", ".join(f"{arch} {counts[k['name']]}" for arch, counts in serves.items())
-        summary.append(f"{k['name']} launches={k['launches']} ({per_path}) "
-                       f"parity=ok ({len(cases[k['name']])} cases)")
+            "variant": var, "launches_by_path": by_path, "check": main_case["check"],
+        })
+    # The train path runs the flash forward's LSE instantiation (phase 9:
+    # 72 of a step's launches); its case at the same shape stands beside
+    # the serving one.
+    lse = cases["flash_lse"][0]
+    next(k for k in kernels if k["name"] == "flash_attention").update(
+        lse_ms=lse["ms"], lse_plain_ms=lse["plain_ms"], lse_bound_ms=lse["bound_ms"],
+        lse_library_ms=lse["library_ms"], lse_max_abs_err=lse["max_abs_err"],
+        lse_check=lse["check"])
+    summary = [f"{k['name']} launches={k['launches']} "
+               f"({', '.join(f'{p} {n}' for p, n in k['launches_by_path'].items())}) "
+               f"parity=ok ({len(cases[k['name']])} cases)" for k in kernels]
     print("kernels: " + "; ".join(summary))
     print(json.dumps({"kernels": kernels}))
     print(smi)

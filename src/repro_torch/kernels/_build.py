@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("rmsnorm", "flash_attention", "flash_attention_wgmma", "ssd_scan", "ssd_scan_tc")
+SOURCES = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_wgmma",
+           "flash_attention_bwd", "ssd_scan", "ssd_scan_tc")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,8 +86,8 @@ def build(names=SOURCES) -> dict[str, str]:
     return logs
 
 
-def function(name: str, symbol: str, argtypes):
-    """The C launcher ``symbol`` of library ``name``, built and loaded on first use.
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """The C function ``symbol`` of library ``name``, built and loaded on first use.
 
     Every pointer and the stream must be declared ``ctypes.c_void_p`` in
     ``argtypes``: undeclared, ctypes would pass them as 32-bit ints.
@@ -102,7 +103,7 @@ def function(name: str, symbol: str, argtypes):
             err = getattr(lib, f"{name}_error_string")
             err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         fn = _FUNCS[symbol] = getattr(lib, symbol)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fn.argtypes, fn.restype = argtypes, restype
     return fn
 
 

@@ -35,6 +35,11 @@
 // the ragged last q and k tiles are masked, so any Sq and Sk work.  A tile
 // of 64 rows at hd 128 needs 116 KB of shared memory, above the 48 KB
 // default, so the launcher raises the block's limit first.
+//
+// When `lse` is not null the launcher picks the instantiation that also
+// writes each row's log-sum-exp, m + log l in natural units, fp32 [B, H,
+// Sq], which the backward (flash_attention_bwd.cu) recomputes P from.
+// Serving passes null and runs the instantiation without it.
 
 #include <math.h>
 
@@ -51,10 +56,11 @@ size_t smem_bytes(int bq, int bk, int hd) {
           3 * (size_t)bq);
 }
 
-template <typename T, int BQ, int BK, int HDMAX>
+template <typename T, int BQ, int BK, int HDMAX, bool WRITE_LSE>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ out,
-    int Sq, int Sk, int H, int KV, int hd, float scale, int causal, int window, float softcap) {
+    float* __restrict__ lse, int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
+    int window, float softcap) {
   constexpr int RI = BQ / 16;     // q rows a thread owns
   constexpr int CJ = BK / 16;     // score columns a thread owns
   constexpr int DJ = HDMAX / 16;  // output columns a thread owns (at most)
@@ -189,6 +195,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     }
   }
 
+  if constexpr (WRITE_LSE)  // m_s and l_s are final: the last tile's barrier has passed
+    for (int r = tid; r < BQ && q0 + r < Sq; r += NT)
+      lse[((long long)b * H + h) * Sq + q0 + r] = m_s[r] + logf(l_s[r]);
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
@@ -203,40 +212,43 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 }
 
 template <typename T, int BQ, int BK, int HDMAX>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-                   int H, int KV, int hd, float scale, int causal, int window, float softcap,
-                   cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, BQ, BK, HDMAX>;
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int Sq, int Sk, int H, int KV, int hd, float scale, int causal, int window,
+                   float softcap, cudaStream_t stream) {
+  // Two instantiations, so that a call without the LSE runs the kernel without it.
+  auto kernel = lse ? flash_fwd_kernel<T, BQ, BK, HDMAX, true>
+                    : flash_fwd_kernel<T, BQ, BK, HDMAX, false>;
   const size_t smem = smem_bytes(BQ, BK, hd);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                     static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H,
-                                     KV, hd, scale, causal, window, softcap);
+                                     static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk,
+                                     H, KV, hd, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                     int Sk, int H, int KV, int hd, float scale, int causal, int window,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                     int Sq, int Sk, int H, int KV, int hd, float scale, int causal, int window,
                      float softcap, cudaStream_t stream) {
   if (hd <= 128)
-    return launch<T, 64, 64, 128>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window,
-                                  softcap, stream);
-  return launch<T, 32, 32, 256>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window,
+    return launch<T, 64, 64, 128>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd, scale, causal,
+                                  window, softcap, stream);
+  return launch<T, 32, 32, 256>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd, scale, causal, window,
                                 softcap, stream);
 }
 
 }  // namespace
 
 // q, out: [B, Sq, H, hd]; k, v: [B, Sk, KV, hd]; all contiguous, of `dtype`
-// (DTypeCode).  window <= 0 means none; softcap <= 0 means none.
-// Returns the cudaError_t of the launch (0 on success).
+// (DTypeCode).  lse: null, or fp32 [B, H, Sq] for each row's log-sum-exp.
+// window <= 0 means none; softcap <= 0 means none.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                   void* out, int B, int Sq, int Sk, int H, int KV, int hd,
-                                   float scale, int causal, int window, float softcap,
+                                   void* out, void* lse, int B, int Sq, int Sk, int H, int KV,
+                                   int hd, float scale, int causal, int window, float softcap,
                                    void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV || hd < 16 || hd > 256 || hd % 16 ||
       H > 65535 || B > 65535)
@@ -244,10 +256,11 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return dispatch<float>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window, softcap, s);
+      return dispatch<float>(q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, H, KV, hd, scale,
+                             causal, window, softcap, s);
     case kBFloat16:
-      return dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, causal, window,
-                                     softcap, s);
+      return dispatch<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, H, KV,
+                                     hd, scale, causal, window, softcap, s);
     default:
       return cudaErrorInvalidValue;
   }

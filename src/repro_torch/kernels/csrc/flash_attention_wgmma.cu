@@ -57,6 +57,14 @@
 // registers; a version that ran warpgroup 1 half a tile behind in a branch
 // of its own needed 254 registers a thread and was slower.
 //
+// When `lse` is not null the launcher picks the instantiation that also
+// writes each row's log-sum-exp in natural units, fp32 [B, H, Sq]: m log 2
+// + log l, where m is the row's running maximum in log2 units, and a row
+// that met only masked keys (m = -1e30, which is -1e30 in either unit)
+// gets -1e30 + log l, as the plain version gives.  The backward
+// (flash_attention_bwd.cu) recomputes P from it.  Serving passes null and
+// runs the instantiation without it.
+//
 // Addresses are computed from [B, S, heads, hd] with S as its own axis, so
 // a tile never reads the next sequence's rows: rows past Sq or Sk are
 // zero-filled (cp.async with a source size of 0).  The wrapper requires
@@ -78,6 +86,7 @@ constexpr int PANEL = 128 * 128;  // bytes of a 64-column panel of a 128-row til
 constexpr int STAGES = 3;          // k/v tiles in the ring, loaded two ahead
 constexpr float NEG = -1e30f;     // the TPU kernel's mask value
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
@@ -242,11 +251,12 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g, long long
   }
 }
 
-template <int HD>
+template <int HD, bool WRITE_LSE>
 __global__ void __launch_bounds__(NT, 1)
     flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int Sk,
-                           int H, int KV, float scale, int causal, int window, float softcap) {
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           float* __restrict__ lse, int Sq, int Sk, int H, int KV, float scale,
+                           int causal, int window, float softcap) {
   constexpr uint32_t TILE = 128 * HD * 2;  // bytes of a 128-row tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -416,6 +426,13 @@ __global__ void __launch_bounds__(NT, 1)
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  if constexpr (WRITE_LSE) {
+    if (lane % 4 == 0) {
+      float* lse_row = lse + ((long long)b * H + h) * Sq;
+      if (qp0 < Sq) lse_row[qp0] = (m0 == NEG ? NEG : m0 * LN2) + logf(l0);
+      if (qp1 < Sq) lse_row[qp1] = (m1 == NEG ? NEG : m1 * LN2) + logf(l1);
+    }
+  }
   const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i) {
@@ -436,18 +453,19 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-                   int H, int KV, float scale, int causal, int window, float softcap,
-                   cudaStream_t stream) {
-  auto kernel = flash_fwd_wgmma_kernel<HD>;
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int Sq, int Sk, int H, int KV, float scale, int causal, int window,
+                   float softcap, cudaStream_t stream) {
+  // Two instantiations, so that serving's (no LSE) is the kernel without it.
+  auto kernel = lse ? flash_fwd_wgmma_kernel<HD, true> : flash_fwd_wgmma_kernel<HD, false>;
   const size_t smem = (1 + 2 * STAGES) * 128 * HD * 2 + 1024;  // q, the k/v ring, alignment
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
   kernel<<<grid, NT, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                     static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk,
-                                     H, KV, scale, causal, window, softcap);
+                                     static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Sq,
+                                     Sk, H, KV, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
@@ -455,13 +473,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 // q, out: [B, Sq, H, hd]; k, v: [B, Sk, KV, hd]; all contiguous, of `dtype`
 // (DTypeCode: bf16 only), with 16-byte aligned base addresses; hd 64 or
-// 128.  window <= 0 means none; softcap <= 0 means none.  The arguments are
-// flash_attention_fwd's.  Returns the cudaError_t of the launch (0 on
-// success).
+// 128.  lse: null, or fp32 [B, H, Sq].  window <= 0 means none; softcap <=
+// 0 means none.  The arguments are flash_attention_fwd's.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_wgmma_fwd(int dtype, const void* q, const void* k, const void* v,
-                                         void* out, int B, int Sq, int Sk, int H, int KV, int hd,
-                                         float scale, int causal, int window, float softcap,
-                                         void* stream) {
+                                         void* out, void* lse, int B, int Sq, int Sk, int H,
+                                         int KV, int hd, float scale, int causal, int window,
+                                         float softcap, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
   if (dtype != kBFloat16 || B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV ||
@@ -470,9 +488,11 @@ extern "C" int flash_attention_wgmma_fwd(int dtype, const void* q, const void* k
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
-      return launch<64>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal, window, softcap, s);
+      return launch<64>(q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, H, KV, scale, causal,
+                        window, softcap, s);
     case 128:
-      return launch<128>(q, k, v, out, B, Sq, Sk, H, KV, scale, causal, window, softcap, s);
+      return launch<128>(q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, H, KV, scale, causal,
+                         window, softcap, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,4 +1,4 @@
-"""Flash attention forward: two CUDA kernels and their plain version.
+"""Flash attention: two CUDA forward kernels, a CUDA backward, and plain versions.
 
 Counterpart of ``repro/kernels/flash_attention.py:99 flash_attention`` (a
 Pallas TPU kernel).  ``flash_attention`` launches a Hopper kernel on CUDA
@@ -21,6 +21,21 @@ P kept in fp32, -1e30 masking, rows with no live key give 0) and is what
 the CPU runs.  Unlike the TPU kernel, none needs the lengths to divide the
 tiles.  The source notes in the ``.cu`` files give each kernel's bound and
 design.
+
+With ``return_lse=True`` each forward also returns every row's
+log-sum-exp, ``m + log l`` in fp32 [B, H, Sq], which the backward needs;
+serving leaves it off, so its kernels write nothing more.
+
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) is the gradient of
+causal attention with no window or softcap, the only attention a ported
+training config has: from q, k, v, the output o, dO and the LSE it returns
+dq, dk and dv in q's dtype, recomputing P from the LSE.  ``bwd_variant``
+names its kernel: ``"mma"`` (bf16 at head dim 64 or 128, tensor cores; it
+rounds P and dS to bf16 where they enter a product, as the wgmma forward
+rounds P) or ``"simt"`` (the rest: fp32, and bf16 at other head dims up to
+128, on the CUDA cores).  It counts in ``flash_attention_bwd.launches`` and
+``.variant_launches``.  ``flash_attention_bwd_plain`` computes the same in
+PyTorch, in fp32.
 """
 
 from __future__ import annotations
@@ -54,12 +69,18 @@ def block_shape(dtype: torch.dtype, hd: int) -> tuple[int, int]:
 
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
-_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
              ctypes.c_float, _P]
+_BWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 ctypes.c_float, _P]
+BWD_MAX_HEAD_DIM = 128
+NOT_PORTED = "is not yet ported, see ROADMAP.md queue A item 10"
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
-    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd] in q's dtype."""
+def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
+                          return_lse=False):
+    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd] in q's dtype, and with
+    ``return_lse`` also each row's m + log l, fp32 [B,H,Sq]."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     scale = scale if scale is not None else hd**-0.5
@@ -68,6 +89,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None, sc
     kf = k.float().repeat_interleave(H // KV, dim=2).transpose(1, 2)  # [B,H,Sk,hd]
     vf = v.float().repeat_interleave(H // KV, dim=2).transpose(1, 2)
     out = torch.empty_like(qf)
+    lse = torch.empty((B, H, Sq), device=q.device)
     for q0 in range(0, Sq, bq):
         q1 = min(q0 + bq, Sq)
         q_pos = torch.arange(q0, q1, device=q.device)[:, None]
@@ -95,7 +117,9 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None, sc
             acc = acc * corr + p @ vf[:, :, k0:k1]
             m = m_new
         out[:, :, q0:q1] = acc / torch.where(l == 0, 1.0, l)
-    return out.transpose(1, 2).to(q.dtype)
+        lse[:, :, q0:q1] = (m + torch.log(l))[..., 0]
+    out = out.transpose(1, 2).to(q.dtype)
+    return (out, lse) if return_lse else out
 
 
 def check_args(q, k, v, window) -> None:
@@ -125,27 +149,130 @@ def check_args(q, k, v, window) -> None:
                          f"{q.device}, {k.device}, {v.device}")
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
+                    return_lse=False):
     """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd], through the CUDA kernel
-    that ``variant(q.dtype, hd)`` names."""
+    that ``variant(q.dtype, hd)`` names; with ``return_lse`` also the rows'
+    log-sum-exp, fp32 [B,H,Sq]."""
     check_args(q, k, v, window)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     scale = scale if scale is not None else hd**-0.5
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), device=q.device) if return_lse else None
     var = variant(q.dtype, hd)
     lib = "flash_attention_wgmma" if var == "wgmma" else "flash_attention"
     fn = _build.function(lib, f"{lib}_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), B, Sq, Sk, H, KV, hd, float(scale), int(causal),
-                 window or 0, float(softcap or 0.0),
+                 out.data_ptr(), None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, hd,
+                 float(scale), int(causal), window or 0, float(softcap or 0.0),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err)
     flash_attention.launches += 1
     flash_attention.variant_launches[var] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.variant_launches = {"wgmma": 0, "simt": 0}
+
+
+# ---------------------------------------------------------------- backward
+def check_bwd_supported(causal, window, softcap) -> None:
+    """Raise NotImplementedError for attention whose gradient is not ported."""
+    if not causal or window is not None or softcap:
+        raise NotImplementedError(
+            f"the gradient of attention with causal={causal}, window={window}, "
+            f"softcap={softcap} {NOT_PORTED}: it is ported for causal attention only")
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True, window=None, softcap=None,
+                              scale=None):
+    """The gradient of causal attention in fp32: q, o, do [B,Sq,H,hd], k/v
+    [B,Sk,KV,hd], lse [B,H,Sq] fp32 -> (dq, dk, dv) in q's dtype.  P is
+    recomputed from the LSE, as the kernel does; D = rowsum(dO * o) uses
+    the forward's output as given."""
+    check_bwd_supported(causal, window, softcap)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else hd**-0.5
+    qf = q.float().transpose(1, 2)                                   # [B,H,Sq,hd]
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)        # [B,H,Sk,hd]
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    live = (torch.arange(Sq, device=q.device)[:, None]
+            >= torch.arange(Sk, device=q.device)[None, :])
+    p = torch.where(live, torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[..., None]), 0.0)
+    delta = (dof * o.float().transpose(1, 2)).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dq = ds @ kf * scale
+    dk = (ds.transpose(-1, -2) @ qf * scale).view(B, KV, G, Sk, hd).sum(2)
+    dv = (p.transpose(-1, -2) @ dof).view(B, KV, G, Sk, hd).sum(2)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(q.dtype),
+            dv.transpose(1, 2).to(q.dtype))
+
+
+def check_bwd_args(q, k, v, o, do, lse) -> None:
+    """Raise ValueError on what the backward kernel does not take."""
+    check_args(q, k, v, None)
+    B, Sq, H, hd = q.shape
+    if hd > BWD_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd: head_dim must be at most {BWD_MAX_HEAD_DIM}, "
+                         f"got {hd}")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous() or \
+                t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be contiguous {q.dtype} "
+                             f"{tuple(q.shape)} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous() or \
+            lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous float32 {(B, H, Sq)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
+def bwd_variant(o, do) -> str:
+    """The kernel ``flash_attention_bwd`` launches: ``"mma"`` for bf16 at head
+    dim 64 or 128 when o and dO start 16-byte aligned (``check_bwd_args``
+    requires q, k and v to, as the forward does there), ``"simt"``
+    otherwise."""
+    aligned = o.data_ptr() % 16 == 0 and do.data_ptr() % 16 == 0
+    return "mma" if variant(o.dtype, o.shape[-1]) == "wgmma" and aligned else "simt"
+
+
+def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float):
+    """Run backward kernel ``var`` on arguments that ``check_bwd_args`` passed;
+    count nothing."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), device=q.device)
+    symbol = "flash_attention_bwd_mma" if var == "mma" else "flash_attention_bwd"
+    fn = _build.function("flash_attention_bwd", symbol, _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd, float(scale),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("flash_attention_bwd", err)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None, softcap=None,
+                        scale=None):
+    """The gradient of causal attention through ``csrc/flash_attention_bwd.cu``,
+    the kernel that ``bwd_variant`` names: -> (dq, dk, dv), each like its input."""
+    check_bwd_supported(causal, window, softcap)
+    check_bwd_args(q, k, v, o, do, lse)
+    scale = scale if scale is not None else q.shape[-1]**-0.5
+    var = bwd_variant(o, do)
+    out = _launch_bwd(var, q, k, v, o, do, lse, scale)
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.variant_launches[var] += 1
+    return out
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.variant_launches = {"mma": 0, "simt": 0}

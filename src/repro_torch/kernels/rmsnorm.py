@@ -14,6 +14,14 @@ Each launch counts in ``rmsnorm.launches`` and in
 ``rmsnorm.variant_launches[variant]``.  ``rmsnorm_plain`` computes the same
 function in PyTorch and is what the CPU runs.  The source note in
 ``csrc/rmsnorm.cu`` gives the kernels' bound and design.
+
+``rmsnorm_bwd`` is the gradient (``csrc/rmsnorm_bwd.cu``): from x, scale
+and dy it returns dx in x's dtype and dscale in fp32, every sum in fp32 and
+dscale reduced without atomics (equal bits from run to run).  It routes by
+the same rule as the forward, ``variant(x, scale)`` with dy's alignment
+too, and counts in ``rmsnorm_bwd.launches`` and
+``rmsnorm_bwd.variant_launches``.  ``rmsnorm_bwd_plain`` computes the same
+in PyTorch.
 """
 
 from __future__ import annotations
@@ -27,6 +35,9 @@ from . import _build
 _ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 _SYMBOLS = {"vector": "rmsnorm_vec_fwd", "scalar": "rmsnorm_scalar_fwd"}
+_BWD_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                 ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 MAX_D = 16 * 1024  # VPT * 1024 threads of the scalar kernel in csrc/rmsnorm.cu
 
 
@@ -89,3 +100,52 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
 
 rmsnorm.launches = 0
 rmsnorm.variant_launches = {"vector": 0, "scalar": 0}
+
+
+# ---------------------------------------------------------------- backward
+def rmsnorm_bwd_plain(x, scale, dy, eps: float = 1e-6):
+    """The gradient of ``rmsnorm_plain``: x, dy [..., D], scale [D] fp32 ->
+    (dx like x, dscale fp32 [D]), with r = rsqrt(mean(x^2) + eps) and
+    g = dy * scale: dx = r g - x r^3 mean(g x), dscale = sum over rows of dy x r."""
+    xf, dyf = x.float(), dy.float()
+    d = x.shape[-1]
+    r = torch.rsqrt((xf * xf).sum(-1, keepdim=True) / d + eps)
+    g = dyf * scale.float()
+    dx = r * g - xf * (r * r * r * (g * xf).sum(-1, keepdim=True) / d)
+    dscale = (dyf * xf * r).reshape(-1, d).sum(0)
+    return dx.to(x.dtype), dscale
+
+
+def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-6):
+    """x, dy [..., D], scale [D] fp32 -> (dx like x, dscale fp32 [D]), through
+    the CUDA kernel of the variant ``variant`` names for x and scale (scalar
+    also when dy is not 16-byte aligned)."""
+    check_args(x, scale)
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous() or \
+            dy.device != x.device:
+        raise ValueError(f"rmsnorm_bwd: dy must be contiguous {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}, got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    d = x.shape[-1]
+    rows = x.numel() // d
+    if rows == 0:
+        return torch.empty_like(x), torch.zeros(d, device=x.device)
+    var = variant(x, scale) if dy.data_ptr() % 16 == 0 else "scalar"
+    vec, code = int(var == "vector"), _build.DTYPE_CODES[x.dtype]
+    parts = _build.function("rmsnorm_bwd", "rmsnorm_bwd_parts",
+                            [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
+                            restype=ctypes.c_longlong)(code, vec, rows, d)
+    dx, dscale = torch.empty_like(x), torch.empty(d, device=x.device)
+    partial = torch.empty((parts, d), device=x.device)
+    fn = _build.function("rmsnorm_bwd", "rmsnorm_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(code, vec, x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                 dscale.data_ptr(), partial.data_ptr(), rows, d, eps,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("rmsnorm_bwd", err)
+    rmsnorm_bwd.launches += 1
+    rmsnorm_bwd.variant_launches[var] += 1
+    return dx, dscale
+
+
+rmsnorm_bwd.launches = 0
+rmsnorm_bwd.variant_launches = {"vector": 0, "scalar": 0}

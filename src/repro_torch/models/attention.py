@@ -1,10 +1,14 @@
 """GQA attention with qk-norm and RoPE; prefill and decode against a KV cache.
 
 Counterpart of ``repro/models/attention.py``, full-attention layers only
-(window, hybrid and cross attention arrive with queue A item 10).  Prefill
-attention runs through ``kernels.ops.flash_mha`` (the Hopper kernel on the
-card), at any prompt length, where the reference picks its jnp dense or
-chunked path by length.  Decode runs the reference's dense ``_sdpa`` step.
+(window, hybrid and cross attention arrive with queue A item 10).  Training
+(``apply_attention``) and prefill attention run through
+``kernels.ops.flash_mha`` (the Hopper kernels on the card, forward and,
+when training, backward), at any length, where the reference picks its jnp
+``mha_dense`` or ``mha_chunked`` by length; those compute the same function
+and are not ported.  Decode runs the reference's dense ``_sdpa`` step.
+Weights are cast to the activations' dtype at each use (a no-op on bf16
+storage; fp32 masters when training).
 
 Keys are cached post-RoPE.  A full cache is a ring of size max_seq, so slot
 == position; ``decode_attention`` writes the new token's k/v into the cache
@@ -36,10 +40,13 @@ def check_spec(spec: LayerSpec) -> None:
 
 
 # ------------------------------------------------------------------- init
-def init_attention(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
+def init_attention(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+                   dtype: torch.dtype | None = None):
+    """Matrices stored as ``dtype`` (``cfg.dtype`` by default); the qk-norm
+    scales fp32."""
     check_spec(spec)
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    dt = dtype_of(cfg)
+    dt = dtype or dtype_of(cfg)
     s = 1.0 / math.sqrt(d)
     p = {
         "wq": normal(generator, (d, H, hd), s, dt),
@@ -83,9 +90,9 @@ def _project(p, x, cfg: ModelConfig, angles):
     """x [B,S,D] -> q [B,S,H,hd], k and v [B,S,KV,hd], contiguous, qk-normed and rotated."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].reshape(D, H * hd)).view(B, S, H, hd)
-    k = (x @ p["wk"].reshape(D, KV * hd)).view(B, S, KV, hd)
-    v = (x @ p["wv"].reshape(D, KV * hd)).view(B, S, KV, hd)
+    q = (x @ p["wq"].reshape(D, H * hd).to(x.dtype)).view(B, S, H, hd)
+    k = (x @ p["wk"].reshape(D, KV * hd).to(x.dtype)).view(B, S, KV, hd)
+    v = (x @ p["wv"].reshape(D, KV * hd).to(x.dtype)).view(B, S, KV, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -97,7 +104,18 @@ def _project(p, x, cfg: ModelConfig, angles):
 
 def _out(p, o, cfg: ModelConfig):
     B, S, H, hd = o.shape
-    return o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, cfg.d_model)
+    return o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, cfg.d_model).to(o.dtype)
+
+
+# ----------------------------------------------------------------- train
+def apply_attention(p, x, cfg: ModelConfig, spec: LayerSpec, angles):
+    """Full-sequence causal attention for training: x [B,S,D] -> [B,S,D].
+    The reference's ``mha_dense``/``mha_chunked`` become the flash kernel at
+    every S, differentiable through ``ops.flash_mha``."""
+    check_spec(spec)
+    q, k, v = _project(p, x, cfg, angles)
+    out = ops.flash_mha(q, k, v, causal=True, softcap=cfg.attn_softcap, scale=_scale(cfg))
+    return _out(p, out, cfg)
 
 
 # ------------------------------------------------------------------ cache

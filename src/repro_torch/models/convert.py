@@ -5,10 +5,11 @@ axis (``repro/models/transformer.py:279 init_program``, built with
 ``jax.vmap``) and scans over it; the port keeps one entry per layer.
 ``unstack_program`` turns the one form into the other for any per-segment
 pytree, the parameters and the KV cache alike; ``params_from_jax`` also
-casts matrices to ``cfg.dtype`` (norm scales stay fp32) and moves them to
-the device.  Parameter names and einsum layouts are the reference's; the KV
-cache's is not (``kv_from_jax``, ``cache_from_jax``), while the Mamba-2
-cache's is.
+casts matrices to ``cfg.dtype`` or a dtype asked for (norm scales stay
+fp32) and moves them to the device, and ``adamw_from_jax`` carries the
+optimizer's state.  Parameter names and einsum layouts are the reference's;
+the KV cache's is not (``kv_from_jax``, ``cache_from_jax``), while the
+Mamba-2 cache's is.
 """
 
 from __future__ import annotations
@@ -17,16 +18,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.tree import map_tree
 from .layers import dtype_of
-
-
-def map_tree(fn, tree):
-    """Apply ``fn`` to every leaf of nested dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(map_tree(fn, v) for v in tree)
-    return fn(tree)
 
 
 def unstack_program(segs, program) -> list:
@@ -40,9 +34,11 @@ def unstack_program(segs, program) -> list:
     return layers
 
 
-def params_from_jax(np_params, cfg: ModelConfig, device):
-    """JAX ``Model.init`` params as numpy -> the port's params on ``device``."""
-    dt = dtype_of(cfg)
+def params_from_jax(np_params, cfg: ModelConfig, device, dtype=None):
+    """JAX ``Model.init`` params as numpy -> the port's params on ``device``,
+    matrices stored as ``dtype`` (``cfg.dtype`` when None; ``torch.float32``
+    keeps the reference's masters for training)."""
+    dt = dtype or dtype_of(cfg)
 
     def leaf(a):
         t = torch.from_numpy(np.array(a, dtype=np.float32))
@@ -53,6 +49,14 @@ def params_from_jax(np_params, cfg: ModelConfig, device):
         "blocks": [map_tree(leaf, p) for p in unstack_program(np_params["blocks"], cfg.program)],
         "final_norm": map_tree(leaf, np_params["final_norm"]),
     }
+
+
+def adamw_from_jax(np_state, cfg: ModelConfig, device) -> AdamWState:
+    """The reference's ``AdamWState`` (leaves as numpy) -> the port's, with
+    fp32 moments on ``device`` and the count as an int."""
+    return AdamWState(m=params_from_jax(np_state.m, cfg, device, torch.float32),
+                      v=params_from_jax(np_state.v, cfg, device, torch.float32),
+                      count=int(np_state.count))
 
 
 def _f32(a, device="cpu"):

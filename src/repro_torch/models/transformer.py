@@ -1,4 +1,5 @@
-"""Decoder-only LM for serving: prefill into a decode cache, then decode steps.
+"""Decoder-only LM: the training loss, and serving (prefill into a decode
+cache, then decode steps).
 
 Counterpart of ``repro/models/transformer.py``, for full-attention and Mamba-2
 mixers, each with a dense FFN or none; other layer kinds raise
@@ -8,8 +9,8 @@ kind as the reference's does: ln1, then the mixer, then the residual, then
 The reference scans stacked segment parameters with ``lax.scan``; here
 ``params["blocks"]`` and the cache hold one entry per layer, in program
 order, and a Python loop runs them (``models/convert.py`` unstacks a JAX
-pytree into this form).  Training (``Model.loss``) arrives with queue A
-items 3-4.
+pytree into this form).  ``Model.loss`` trains attention layers only:
+Mamba-2 training waits for the SSD scan's gradient (ROADMAP queue B item 3).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from . import attention as attn_mod
@@ -26,6 +28,7 @@ from .layers import (
     NOT_PORTED,
     apply_dense_ffn,
     apply_norm,
+    chunked_softmax_xent,
     dtype_of,
     embed_tokens,
     init_dense_ffn,
@@ -34,6 +37,10 @@ from .layers import (
     lm_logits,
 )
 from .rope import rope_angles
+
+
+NOT_TRAINED = ("is not yet ported: it needs the SSD scan's gradient, see ROADMAP.md queue B "
+               "item 3")
 
 
 def _check_spec(spec: LayerSpec) -> None:
@@ -49,17 +56,18 @@ def layer_specs(program: tuple[Segment, ...]) -> list[LayerSpec]:
 
 
 # ---------------------------------------------------------------- layers
-def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec):
+def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+               dtype: torch.dtype):
     _check_spec(spec)
     dev = generator.device
     p: dict[str, Any] = {"ln1": init_norm(cfg, dev)}
     if spec.attn == "mamba":
         p["mamba"] = ssm_mod.init_mamba(generator, cfg)
     else:
-        p["attn"] = attn_mod.init_attention(generator, cfg, spec)
+        p["attn"] = attn_mod.init_attention(generator, cfg, spec, dtype)
     if spec.ffn == "dense":
         p["ln2"] = init_norm(cfg, dev)
-        p["ffn"] = init_dense_ffn(generator, cfg)
+        p["ffn"] = init_dense_ffn(generator, cfg, dtype)
     return p
 
 
@@ -67,6 +75,12 @@ def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
     if spec.ffn == "dense":
         x = x + apply_dense_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
     return x
+
+
+def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles):
+    """Forward one attention layer over the whole sequence, for the loss."""
+    h = attn_mod.apply_attention(p["attn"], apply_norm(p["ln1"], x, cfg), cfg, spec, angles)
+    return _ffn(p, x + h, cfg, spec)
 
 
 def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int):
@@ -113,14 +127,21 @@ class Model:
             _check_spec(spec)
 
     # ---- parameters ----
-    def init(self, generator: torch.Generator):
-        """Random parameters from ``generator``, which must live on ``self.device``."""
+    def init(self, generator: torch.Generator, dtype: torch.dtype | None = None):
+        """Random parameters from ``generator``, which must live on
+        ``self.device``.  Matrices are stored as ``dtype``: ``cfg.dtype``
+        when None (serving), ``torch.float32`` for training's masters."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
         cfg = self.cfg
+        specs = layer_specs(cfg.program)
+        dtype = dtype or dtype_of(cfg)
+        if dtype != dtype_of(cfg) and any(spec.attn == "mamba" for spec in specs):
+            raise NotImplementedError(f"Mamba-2 weights stored apart from cfg.dtype (training) "
+                                      f"{NOT_TRAINED}")
         return {
-            "embed": init_embedding(generator, cfg),
-            "blocks": [init_layer(generator, cfg, spec) for spec in layer_specs(cfg.program)],
+            "embed": init_embedding(generator, cfg, dtype),
+            "blocks": [init_layer(generator, cfg, spec, dtype) for spec in specs],
             "final_norm": init_norm(cfg, self.device),
         }
 
@@ -128,6 +149,36 @@ class Model:
         if self.cfg.num_heads == 0:  # attention-free (mamba2)
             return None
         return rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
+
+    # ---- training ----
+    def loss(self, params, batch, remat: bool = True, remat_policy=None):
+        """Mean next-token CE of ``batch`` {"tokens", "labels"} [B, S] int ->
+        (loss, {"ce", "aux"}).  As the reference's, position i is scored
+        against labels[i + 1], and the data's labels are already the tokens
+        shifted by one, so position i learns token i + 2 (ROADMAP queue C).
+        ``remat`` recomputes each layer in backward
+        (``torch.utils.checkpoint``), so only its input is kept; a
+        ``remat_policy`` (offloading named activations) is queue A item 6."""
+        if remat_policy is not None:
+            raise NotImplementedError("remat_policy (offloading named activations) is not yet "
+                                      "ported, see ROADMAP.md queue A item 6")
+        cfg = self.cfg
+        specs = layer_specs(cfg.program)
+        if any(spec.attn == "mamba" for spec in specs):
+            raise NotImplementedError(f"Mamba-2 training {NOT_TRAINED}")
+        tokens = batch["tokens"]
+        x = embed_tokens(params["embed"], tokens, cfg)
+        B, S = tokens.shape
+        angles = self._angles(torch.arange(S, device=tokens.device).expand(B, S))
+        for p, spec in zip(params["blocks"], specs):
+            if remat:
+                x = checkpoint(train_layer, p, x, cfg, spec, angles, use_reentrant=False)
+            else:
+                x = train_layer(p, x, cfg, spec, angles)
+        x = apply_norm(params["final_norm"], x, cfg)
+        ce = chunked_softmax_xent(x[:, :-1], params["embed"], batch["labels"][:, 1:], cfg)
+        # The dense family has no auxiliary loss: the reference's ce + 0.01 * 0.
+        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
     # ---- serving ----
     def init_cache(self, batch: int, max_seq: int):

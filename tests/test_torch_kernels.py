@@ -182,9 +182,12 @@ def test_cpu_path_launches_no_kernel():
     ops.ssd(torch.randn(1, 70, 2, 8), torch.rand(1, 70, 2), -torch.ones(2),
             torch.randn(1, 70, 1, 4), torch.randn(1, 70, 1, 4))
     assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm/vector": 0, "rmsnorm/scalar": 0,
-                                  "flash_attention": 0, "flash_attention/wgmma": 0,
-                                  "flash_attention/simt": 0, "ssd_scan": 0, "ssd_scan/tc": 0,
-                                  "ssd_scan/simt": 0}
+                                  "rmsnorm_bwd": 0, "rmsnorm_bwd/vector": 0,
+                                  "rmsnorm_bwd/scalar": 0, "flash_attention": 0,
+                                  "flash_attention/wgmma": 0, "flash_attention/simt": 0,
+                                  "flash_attention_bwd": 0, "flash_attention_bwd/mma": 0,
+                                  "flash_attention_bwd/simt": 0,
+                                  "ssd_scan": 0, "ssd_scan/tc": 0, "ssd_scan/simt": 0}
 
 
 def test_import_and_cpu_path_need_no_nvcc():

@@ -409,9 +409,12 @@ def test_cpu_serving_launches_no_kernel():
     assert gen.shape == (2, 4) and gen.dtype == torch.int64
     assert 0 <= int(gen.min()) and int(gen.max()) < get_smoke_config(ARCH).vocab_size
     assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm/vector": 0, "rmsnorm/scalar": 0,
-                                  "flash_attention": 0, "flash_attention/wgmma": 0,
-                                  "flash_attention/simt": 0, "ssd_scan": 0, "ssd_scan/tc": 0,
-                                  "ssd_scan/simt": 0}
+                                  "rmsnorm_bwd": 0, "rmsnorm_bwd/vector": 0,
+                                  "rmsnorm_bwd/scalar": 0, "flash_attention": 0,
+                                  "flash_attention/wgmma": 0, "flash_attention/simt": 0,
+                                  "flash_attention_bwd": 0, "flash_attention_bwd/mma": 0,
+                                  "flash_attention_bwd/simt": 0,
+                                  "ssd_scan": 0, "ssd_scan/tc": 0, "ssd_scan/simt": 0}
 
 
 def test_gated_norm_goes_through_the_rmsnorm_op(monkeypatch):
