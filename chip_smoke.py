@@ -6,12 +6,13 @@ card and nvcc (CUDA_HOME or PATH); it imports the port from ``src/`` and
 nothing of JAX or of the JAX package.  Phases, each fatal on failure:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the seven kernel libraries compiled from
+  2. build    the eight kernel libraries compiled from
               ``src/repro_torch/kernels/csrc``, one nvcc each, in parallel,
-              and the count of tensor-core instructions in the SASS of the
-              two tensor-core libraries, neither of which may be 0: HGMMA
-              (warpgroup MMA) in the wgmma flash library, HMMA or HGMMA in
-              the tc SSD library;
+              with ptxas's register and spill report by kernel, and the
+              count of tensor-core instructions in the SASS of the three
+              tensor-core libraries, none of which may be 0: HGMMA
+              (warpgroup MMA) in the wgmma flash forward and backward
+              libraries, HMMA or HGMMA in the tc SSD library;
   3. kernels  each CUDA kernel against its plain PyTorch version on the card,
               at the main paths' shapes and a few edge cases, timed beside
               its bound and a library call that computes the same function
@@ -27,9 +28,10 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (through each module's ``_launch``, the wrapper's own
               launcher, counting no launch).  The training path's kernels
               too: the RMSNorm backward (dx, and dscale bit-equal across
-              two runs) and the flash backward (dq, dk, dv; ``mma`` for
-              bf16 at head dim 64 or 128, ``simt`` the rest, the simt
-              kernel timed beside each mma case), each beside the library
+              two runs) and the flash backward (dq, dk, dv; ``wgmma`` for
+              bf16 at head dim 64 or 128, bit-equal across two runs, with
+              the ``mma`` kernel it replaced timed beside it; ``simt`` the
+              rest), each beside the library
               call's backward (``torch.autograd.grad`` through
               ``F.rms_norm`` or SDPA, its forward subtracted), and both
               flash forwards with the LSE written;
@@ -370,8 +372,10 @@ def flash_lse_case(B, S, H, KV, hd, dtype, gen):
 def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant):
     """flash_attention_bwd against flash_attention_bwd_plain on the same q, k,
     v, dO and the kernel forward's o and LSE: dq, dk and dv at the dtype's
-    tolerance.  Beside an mma case the simt kernel is timed on the same
-    inputs, as a yardstick."""
+    tolerance.  A wgmma case must also give equal bits in two runs, and the
+    mma kernel (the variant it replaced, through ``_launch_bwd``, counting
+    no launch) is held to the same plain version at the same tolerance and
+    timed beside it on the same inputs, as a yardstick."""
     from repro_torch.kernels.flash_attention import (_launch_bwd, bwd_variant, flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_plain)
@@ -391,10 +395,21 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant):
     torch.cuda.synchronize()
     require(flash_attention_bwd.variant_launches[var] == before + 1,
             f"flash_bwd B{B} S{Sq} hd{hd} {dtype} did not launch the {var} kernel")
+    if var == "wgmma":
+        again = flash_attention_bwd(q, k, v, o, do, lse)
+        require(all(torch.equal(a, g) for a, g in zip(again, got)),
+                f"flash_bwd [wgmma] B{B} S{Sq} hd{hd}: two runs differ")
     tol = TOL[dtype]
     checks = [close(g, w, tol) for g, w in zip(got, want)]
     ok = all(c[0] for c in checks)
     check = "; ".join(f"{n} {c[2]}" for n, c in zip(("dq", "dk", "dv"), checks))
+    mma_check = ""
+    if var == "wgmma":
+        mma = [close(g, w, tol) for g, w in
+               zip(_launch_bwd("mma", q, k, v, o, do, lse, hd**-0.5), want)]
+        mma_check = "; mma max excess " + ", ".join(f"{c[1]:.2e}" for c in mma)
+        require(all(c[0] for c in mma), f"flash_bwd [mma] B{B} S{Sq} hd{hd}: " +
+                "; ".join(f"{n} {c[2]}" for n, c in zip(("dq", "dk", "dv"), mma)))
     errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
     rels = [e / w.float().abs().max().item() for e, w in zip(errs, want)]
     args = (q, k, v, o, do, lse)
@@ -410,12 +425,13 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant):
         return out, (q, k, v), do.transpose(1, 2)
 
     other = None
-    if var == "mma":
-        other = ("simt", time_ms(lambda *a: _launch_bwd("simt", *a, hd**-0.5), sets, 5))
+    if var == "wgmma":
+        other = ("mma", time_ms(lambda *a: _launch_bwd("mma", *a, hd**-0.5), sets, 10))
     return {
         "case": f"flash_bwd [{var}] B{B} S{Sq} H{H} KV{KV} hd{hd} {str(dtype)[6:]} causal "
                 f"(dq, dk, dv abs err {errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e}; relative to "
-                f"max|want| {max(rels):.2e})",
+                f"max|want| {max(rels):.2e}{'; bit-equal across two runs' * (var == 'wgmma')}"
+                f"{mma_check})",
         "variant": var, "max_abs_err": max(errs), "check": check, "ok": ok,
         "ms": time_ms(flash_attention_bwd, sets, 10),
         "plain_ms": time_ms(flash_attention_bwd_plain, sets, 3),
@@ -576,10 +592,10 @@ def phase_kernels():
         flash_lse_case(1, 300, 32, 8, 128, f32, gen),        # simt, ragged tiles
     ]
     flash_bwd = [
-        flash_bwd_case(4, 512, 32, 8, 128, bf16, gen, "mma"),  # qwen3-4b training
-        flash_bwd_case(2, 512, 8, 2, 64, bf16, gen, "mma"),
-        flash_bwd_case(1, 300, 32, 8, 128, bf16, gen, "mma"),  # S not a multiple of the tiles
-        flash_bwd_case(1, 200, 4, 1, 64, bf16, gen, "mma"),    # MQA
+        flash_bwd_case(4, 512, 32, 8, 128, bf16, gen, "wgmma"),  # qwen3-4b training
+        flash_bwd_case(2, 512, 8, 2, 64, bf16, gen, "wgmma"),  # 32 dK/dV blocks on 132 SMs
+        flash_bwd_case(1, 300, 32, 8, 128, bf16, gen, "wgmma"),  # S not a multiple of the tiles
+        flash_bwd_case(1, 200, 4, 1, 64, bf16, gen, "wgmma"),  # MQA
         flash_bwd_case(1, 300, 32, 8, 128, f32, gen, "simt"),  # S not a multiple of the tile
         flash_bwd_case(1, 200, 4, 1, 32, bf16, gen, "simt"),   # MQA, hd 32
     ]
@@ -840,6 +856,7 @@ def phase_train_profile(B: int, S: int):
 # The __global__ functions of csrc/*.cu, as a trace names them.
 PORT_KERNELS = ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel", "rmsnorm_bwd_kernel",
                 "rmsnorm_bwd_reduce_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_kernel",
+                "flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                 "flash_bwd_dot_kernel", "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
                 "ssd_cb_kernel", "ssd_scan_tc_kernel", "ssd_scan_kernel")
@@ -1196,10 +1213,18 @@ def main() -> int:
     print(f"[2] build: {time.perf_counter() - t0:.1f}s "
           f"({', '.join(logs) or 'all cached'}) for sm_90a")
     for name, log in logs.items():
+        kernel = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "wgmma" in line.lower():
-                print(f"  {name}: {line.strip()}")
-    for lib, ops in (("flash_attention_wgmma", ("HGMMA",)), ("ssd_scan_tc", ("HMMA", "HGMMA"))):
+            if "Compiling entry function" in line:
+                kernel = next((f"{k}{'<' + m.group(1) + '>' if m.group(1) else ''}"
+                               for k in PORT_KERNELS
+                               if (m := re.search(rf"{len(k)}{k}(?:ILi(\d+)E)?", line))), "")
+            elif ("registers" in line or "spill" in line or "wgmma" in line.lower()) \
+                    and "Function properties" not in line:
+                print(f"  {name} {kernel}: {line.strip().removeprefix('ptxas info    : ')}")
+    for lib, ops in (("flash_attention_wgmma", ("HGMMA",)),
+                     ("flash_attention_bwd_wgmma", ("HGMMA",)),
+                     ("ssd_scan_tc", ("HMMA", "HGMMA"))):
         count = mma_count(_build, lib, ops)
         print(f"  {'/'.join(ops)} instructions in {_build.lib_path(lib).name}: {count}")
         require(count > 0, f"the {lib} library holds no {'/'.join(ops)} instruction")
@@ -1219,7 +1244,8 @@ def main() -> int:
                 "rmsnorm_bwd": rms_bwd, "rmsnorm_bwd/vector": rms_bwd, "rmsnorm_bwd/scalar": 0,
                 "flash_attention": flash, "flash_attention/wgmma": flash,
                 "flash_attention/simt": 0, "flash_attention_bwd": flash_bwd,
-                "flash_attention_bwd/mma": flash_bwd, "flash_attention_bwd/simt": 0,
+                "flash_attention_bwd/wgmma": flash_bwd, "flash_attention_bwd/mma": 0,
+                "flash_attention_bwd/simt": 0,
                 "ssd_scan": ssd, "ssd_scan/tc": ssd, "ssd_scan/simt": 0}
 
     paths = {
@@ -1240,8 +1266,7 @@ def main() -> int:
     # once: RMSNorm forward 2 * 4 * 36 + 1 (ln1, ln2, q-norm, k-norm), flash
     # forward 2 * 36, and each backward once: RMSNorm 4 * 36 + 1, flash 36.
     # bf16 with 16-byte rows at head dim 128: every RMSNorm launch is
-    # `vector` both ways, every flash forward `wgmma`, every flash backward
-    # `mma`.
+    # `vector` both ways, every flash forward and backward `wgmma`.
     steps = 5
     paths["train qwen3-4b"] = phase_train(
         4, 512, steps, want((2 * 4 * 36 + 1) * steps, 2 * 36 * steps, 0,
@@ -1262,7 +1287,7 @@ def main() -> int:
         launches = sum(by_path.values())
         require(launches > 0, f"{name} was not launched on a main path")
         var = main_case["variant"]
-        source = {"wgmma": "flash_attention_wgmma", "tc": "ssd_scan_tc"}.get(var, name)
+        source = name if var in ("vector", "simt") else f"{name}_{var}"
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}.cu",
             "replaces": srcs[name], "launches": launches,
@@ -1271,6 +1296,8 @@ def main() -> int:
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
             "variant": var, "launches_by_path": by_path, "check": main_case["check"],
         })
+        if main_case.get("other"):  # the earlier variant's ms on the same inputs
+            kernels[-1][f"{main_case['other'][0]}_ms"] = main_case["other"][1]
     # The train path runs the flash forward's LSE instantiation (phase 9:
     # 72 of a step's launches); its case at the same shape stands beside
     # the serving one.

@@ -26,16 +26,19 @@ With ``return_lse=True`` each forward also returns every row's
 log-sum-exp, ``m + log l`` in fp32 [B, H, Sq], which the backward needs;
 serving leaves it off, so its kernels write nothing more.
 
-``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) is the gradient of
-causal attention with no window or softcap, the only attention a ported
-training config has: from q, k, v, the output o, dO and the LSE it returns
-dq, dk and dv in q's dtype, recomputing P from the LSE.  ``bwd_variant``
-names its kernel: ``"mma"`` (bf16 at head dim 64 or 128, tensor cores; it
-rounds P and dS to bf16 where they enter a product, as the wgmma forward
-rounds P) or ``"simt"`` (the rest: fp32, and bf16 at other head dims up to
-128, on the CUDA cores).  It counts in ``flash_attention_bwd.launches`` and
-``.variant_launches``.  ``flash_attention_bwd_plain`` computes the same in
-PyTorch, in fp32.
+``flash_attention_bwd`` is the gradient of causal attention with no window
+or softcap, the only attention a ported training config has: from q, k, v,
+the output o, dO and the LSE it returns dq, dk and dv in q's dtype,
+recomputing P from the LSE.  ``bwd_variant`` names its kernel: ``"wgmma"``
+(``csrc/flash_attention_bwd_wgmma.cu``: bf16 at head dim 64 or 128 with
+16-byte aligned tensors, on Hopper's warpgroup MMA; it rounds P and dS to
+bf16 where they enter a product, as the wgmma forward rounds P) or
+``"simt"`` (``csrc/flash_attention_bwd.cu``: fp32, and bf16 at other head
+dims up to 128, on the CUDA cores).  That file's ``"mma"`` variant
+(``mma.sync``, the same function as ``wgmma``) is routed nowhere and is
+kept as the yardstick that ``_launch_bwd`` runs on request.  It counts in
+``flash_attention_bwd.launches`` and ``.variant_launches``.
+``flash_attention_bwd_plain`` computes the same in PyTorch, in fp32.
 """
 
 from __future__ import annotations
@@ -234,36 +237,38 @@ def check_bwd_args(q, k, v, o, do, lse) -> None:
 
 
 def bwd_variant(o, do) -> str:
-    """The kernel ``flash_attention_bwd`` launches: ``"mma"`` for bf16 at head
-    dim 64 or 128 when o and dO start 16-byte aligned (``check_bwd_args``
+    """The kernel ``flash_attention_bwd`` launches: ``"wgmma"`` for bf16 at
+    head dim 64 or 128 when o and dO start 16-byte aligned (``check_bwd_args``
     requires q, k and v to, as the forward does there), ``"simt"``
     otherwise."""
     aligned = o.data_ptr() % 16 == 0 and do.data_ptr() % 16 == 0
-    return "mma" if variant(o.dtype, o.shape[-1]) == "wgmma" and aligned else "simt"
+    return "wgmma" if variant(o.dtype, o.shape[-1]) == "wgmma" and aligned else "simt"
 
 
 def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float):
-    """Run backward kernel ``var`` on arguments that ``check_bwd_args`` passed;
-    count nothing."""
+    """Run backward kernel ``var`` (``"wgmma"``, ``"mma"`` or ``"simt"``) on
+    arguments that ``check_bwd_args`` passed; count nothing."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), device=q.device)
-    symbol = "flash_attention_bwd_mma" if var == "mma" else "flash_attention_bwd"
-    fn = _build.function("flash_attention_bwd", symbol, _BWD_ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr())
+    lib = "flash_attention_bwd_wgmma" if var == "wgmma" else "flash_attention_bwd"
+    symbol = {"wgmma": lib, "mma": "flash_attention_bwd_mma"}.get(var, "flash_attention_bwd")
+    fn = _build.function(lib, symbol, _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
-        err = fn(_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd, float(scale),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("flash_attention_bwd", err)
+        err = fn(*args, B, Sq, Sk, H, KV, hd, float(scale), stream)
+    _build.check(lib, err)
     return dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None, softcap=None,
                         scale=None):
-    """The gradient of causal attention through ``csrc/flash_attention_bwd.cu``,
-    the kernel that ``bwd_variant`` names: -> (dq, dk, dv), each like its input."""
+    """The gradient of causal attention through the kernel that ``bwd_variant``
+    names: -> (dq, dk, dv), each like its input."""
     check_bwd_supported(causal, window, softcap)
     check_bwd_args(q, k, v, o, do, lse)
     scale = scale if scale is not None else q.shape[-1]**-0.5
@@ -275,4 +280,4 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None, softca
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.variant_launches = {"mma": 0, "simt": 0}
+flash_attention_bwd.variant_launches = {"wgmma": 0, "mma": 0, "simt": 0}

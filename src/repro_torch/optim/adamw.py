@@ -7,8 +7,17 @@ Unlike the reference's pure functions, the port updates in place, one
 tensor at a time: the clip scales each gradient with ``mul_``, and m, v and
 the params are rewritten where they lie.  At qwen3-4b's width the params,
 gradients, m and v are 16 GB each in fp32, so a whole-model temporary
-would not fit beside them on an 80 GB card; the largest temporaries here
-are two of one leaf's size.
+would not fit beside them on an 80 GB card.
+
+Each leaf's update is the reference's ``upd``: m2, v2, the step and the new
+param are computed in fp32 from the stored values, and each stored result
+is rounded to its dtype once.  The temporaries, each of one leaf's size in
+fp32: with fp32 moments, m and v are updated in place and the step takes
+two (m2 / bc1, then sqrt(v2 / bc2) + eps); with bf16 moments, m2 and v2 are
+the two, written back to m and v before they hold the step.  An fp32 param
+is updated in place (``p.float()`` is p itself), so fp32 masters take no
+more; a bf16 param takes one more for its fp32 value, as a bf16 gradient
+does for ``g.float()``.
 """
 
 from __future__ import annotations
@@ -76,10 +85,18 @@ def adamw_step(params, grads, state: AdamWState, lr: float, *, b1: float = 0.9,
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
                           tree_leaves(state.v)):
         gf = g.float()
-        m.mul_(b1).add_(gf, alpha=1 - b1)
-        v.mul_(b2).addcmul_(gf, gf, value=1 - b2)
-        denom = (v / bc2).sqrt_().add_(eps)
-        step = (m / bc1).div_(denom)
-        del denom
-        p.mul_(decay).sub_(step.mul_(lr).to(p.dtype))
+        m2 = m.float().mul_(b1).add_(gf, alpha=1 - b1)
+        v2 = v.float().mul_(b2).addcmul_(gf, gf, value=1 - b2)
+        own_m, own_v = m2 is not m, v2 is not v  # fp32 temporaries of bf16 moments
+        if own_m:
+            m.copy_(m2)
+        if own_v:
+            v.copy_(v2)
+        denom = (v2.div_(bc2) if own_v else v2 / bc2).sqrt_().add_(eps)
+        step = (m2.div_(bc1) if own_m else m2 / bc1).div_(denom)
+        del m2, v2, denom
+        p2 = p.float()
+        p2.mul_(decay).sub_(step.mul_(lr))
+        if p2 is not p:
+            p.copy_(p2)
     return params, AdamWState(state.m, state.v, count), {"grad_norm": gnorm}

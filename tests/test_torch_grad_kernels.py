@@ -140,8 +140,8 @@ def test_flash_bwd_raises_outside_causal():
 
 # ------------------------------------------------------------------ routing
 @pytest.mark.parametrize("dtype,hd,offset,want", [
-    (torch.bfloat16, 128, 0, "mma"),
-    (torch.bfloat16, 64, 0, "mma"),
+    (torch.bfloat16, 128, 0, "wgmma"),
+    (torch.bfloat16, 64, 0, "wgmma"),
     (torch.bfloat16, 32, 0, "simt"),      # head dims the tensor-core tiles do not take
     (torch.float32, 128, 0, "simt"),      # fp32 keeps IEEE products
     (torch.bfloat16, 128, 1, "simt"),     # dO a view one element in: not 16-byte aligned
@@ -180,4 +180,5 @@ def test_autograd_functions_route_to_plain_on_cpu():
         assert ops.fused_rmsnorm(x, s).grad_fn is None
     assert all(n == 0 for n in ops.launch_counts().values())
     assert {"rmsnorm_bwd", "rmsnorm_bwd/vector", "rmsnorm_bwd/scalar", "flash_attention_bwd",
-            "flash_attention_bwd/mma", "flash_attention_bwd/simt"} <= set(ops.launch_counts())
+            "flash_attention_bwd/wgmma", "flash_attention_bwd/mma",
+            "flash_attention_bwd/simt"} <= set(ops.launch_counts())

@@ -412,7 +412,8 @@ def test_cpu_serving_launches_no_kernel():
                                   "rmsnorm_bwd": 0, "rmsnorm_bwd/vector": 0,
                                   "rmsnorm_bwd/scalar": 0, "flash_attention": 0,
                                   "flash_attention/wgmma": 0, "flash_attention/simt": 0,
-                                  "flash_attention_bwd": 0, "flash_attention_bwd/mma": 0,
+                                  "flash_attention_bwd": 0, "flash_attention_bwd/wgmma": 0,
+                                  "flash_attention_bwd/mma": 0,
                                   "flash_attention_bwd/simt": 0,
                                   "ssd_scan": 0, "ssd_scan/tc": 0, "ssd_scan/simt": 0}
 

@@ -166,26 +166,76 @@ def _tree_pair(rng, shapes):
             {f"p{i}": torch.from_numpy(a.copy()) for i, a in enumerate(arrays)})
 
 
-@pytest.mark.parametrize("gscale,max_norm", [(0.01, 1.0), (10.0, 1.0), (10.0, None)])
-def test_adamw_matches_jax(gscale, max_norm):
-    """Three steps, with the clip idle, active, and off; params, m, v, count
-    and grad_norm."""
+BF16 = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _bf16_steps_apart(got, want):
+    """|got - want| in bf16 steps at the leaf's scale: the spacing of bf16
+    numbers at max|want| (8 significant bits)."""
+    top = float(np.abs(want).max())
+    step = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else np.finfo(np.float32).tiny
+    return np.abs(got - want) / step
+
+
+@pytest.mark.parametrize("gscale,max_norm,steps,lr,shapes,pdt,mdt", [
+    pytest.param(0.01, 1.0, 3, 1e-2, [(7, 5), (16,), (3, 4, 2)], "fp32", "fp32", id="0.01-1.0"),
+    pytest.param(10.0, 1.0, 3, 1e-2, [(7, 5), (16,), (3, 4, 2)], "fp32", "fp32", id="10.0-1.0"),
+    pytest.param(10.0, None, 3, 1e-2, [(7, 5), (16,), (3, 4, 2)], "fp32", "fp32", id="10.0-None"),
+    *(pytest.param(0.01, 1.0, 5, 3e-4, [(256, 512), (7, 5), (16,), (3, 4, 2)], pdt, mdt,
+                   id=f"params-{pdt}-moments-{mdt}")
+      for pdt in ("fp32", "bf16") for mdt in ("fp32", "bf16")),
+])
+def test_adamw_matches_jax(gscale, max_norm, steps, lr, shapes, pdt, mdt):
+    """Steps with the clip idle, active, and off, on fp32 leaves; then the
+    four (params, moments) dtype cases on a [256, 512] leaf beside the small
+    ones, where the reference rounds each stored result once.  fp32 leaves
+    hold rtol 1e-5; bf16 params may differ from JAX in at most 0.01% of
+    elements, bf16 moments in at most 1%, each by one bf16 step.  Every
+    array is copied before either package sees it: the port updates in
+    place, and ``torch.from_numpy`` and ``jnp.asarray`` may share a buffer."""
+    (jp_dt, tp_dt), (jm_dt, tm_dt) = BF16[pdt], BF16[mdt]
+
+    def pair(rng, scale=1.0):
+        arrays = [rng.standard_normal(s, dtype=np.float32) * np.float32(scale) for s in shapes]
+        t = {f"p{i}": torch.from_numpy(a.copy()).to(tp_dt) for i, a in enumerate(arrays)}
+        return {k: jnp.asarray(x.float().numpy().copy(), dtype=jp_dt) for k, x in t.items()}, t
+
     rng = np.random.default_rng(0)
-    shapes = [(7, 5), (16,), (3, 4, 2)]
-    jp, tp = _tree_pair(rng, shapes)
-    jstate, tstate = jax_adamw.adamw_init(jp), adamw.adamw_init(tp)
-    for _ in range(3):
-        jg, tg = _tree_pair(rng, shapes)
-        jg = jax.tree.map(lambda g: g * gscale, jg)
-        tg = {k: g * gscale for k, g in tg.items()}
-        jp, jstate, jm = jax_adamw.adamw_step(jp, jg, jstate, 1e-2, max_grad_norm=max_norm)
-        tp, tstate, tm = adamw.adamw_step(tp, tg, tstate, 1e-2, max_grad_norm=max_norm)
+    jp, tp = pair(rng)
+    jstate, tstate = jax_adamw.adamw_init(jp, jm_dt), adamw.adamw_init(tp, tm_dt)
+    for _ in range(steps):
+        jg, tg = pair(rng, gscale)
+        jp, jstate, jm = jax_adamw.adamw_step(jp, jg, jstate, lr, max_grad_norm=max_norm)
+        tp, tstate, tm = adamw.adamw_step(tp, tg, tstate, lr, max_grad_norm=max_norm)
         np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-6)
-    for tree_t, tree_j in ((tp, jp), (tstate.m, jstate.m), (tstate.v, jstate.v)):
-        for k in tree_j:
-            np.testing.assert_allclose(tree_t[k].numpy(), np.asarray(tree_j[k]), rtol=1e-5,
-                                       atol=1e-7)
-    assert tstate.count == int(jstate.count) == 3
+    for name, tree_t, tree_j, dt in (("params", tp, jp, pdt), ("m", tstate.m, jstate.m, mdt),
+                                     ("v", tstate.v, jstate.v, mdt)):
+        got = [tree_t[k].float().numpy() for k in tree_j]
+        want = [np.asarray(tree_j[k], dtype=np.float32) for k in tree_j]
+        if dt == "fp32":
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7)
+            continue
+        apart = np.concatenate([_bf16_steps_apart(g, w).ravel() for g, w in zip(got, want)])
+        share = 1e-4 if name == "params" else 1e-2
+        assert apart.max() <= 1, (name, float(apart.max()))
+        assert np.count_nonzero(apart) <= share * apart.size, (name, np.count_nonzero(apart))
+    assert tstate.count == int(jstate.count) == steps
+
+
+def test_adamw_fp32_updates_in_place():
+    """At fp32 the update allocates no leaf-sized temporary for p, m or v:
+    each is rewritten where it lies."""
+    rng = np.random.default_rng(2)
+    _, tp = _tree_pair(rng, [(64, 32), (16,)])
+    _, tg = _tree_pair(rng, [(64, 32), (16,)])
+    state = adamw.adamw_init(tp)
+    before = [t.data_ptr() for tree in (tp, state.m, state.v) for t in tree.values()]
+    tp, state, _ = adamw.adamw_step(tp, tg, state, 1e-2)
+    after = [t.data_ptr() for tree in (tp, state.m, state.v) for t in tree.values()]
+    assert after == before
+    assert all(t.dtype == torch.float32 for tree in (tp, state.m, state.v) for t in tree.values())
+    assert float(state.m["p0"].abs().max()) > 0
 
 
 def test_clip_by_global_norm_matches_jax_in_place():
