@@ -22,6 +22,18 @@ the same rule as the forward, ``variant(x, scale)`` with dy's alignment
 too, and counts in ``rmsnorm_bwd.launches`` and
 ``rmsnorm_bwd.variant_launches``.  ``rmsnorm_bwd_plain`` computes the same
 in PyTorch.
+
+- ``"vector"`` (``rmsnorm_bwd_vec_kernel``): a team of threads sized to the
+  row (four warps at D = 2560, 16 threads walking four rows at D = 128)
+  holds x and dy in registers, so each is read once, and each thread sums
+  its columns of dscale in registers over all its rows; a block writes one
+  fp32 partial row, and a second launch sums the
+  blocks' rows in a fixed order.  The grid is one wave of blocks, from the
+  kernel's occupancy on the current device.  On an H100 it runs qwen3-4b's
+  train shapes at 56% ([2048, 2560] bf16), 64% ([65536, 128]) and 38%
+  ([16384, 128]) of their bytes bound (``chip_smoke.py`` phase 3;
+  ``PERF.md`` §6).
+- ``"scalar"`` (``rmsnorm_bwd_kernel``): element by element, for the rest.
 """
 
 from __future__ import annotations
@@ -116,6 +128,29 @@ def rmsnorm_bwd_plain(x, scale, dy, eps: float = 1e-6):
     return dx.to(x.dtype), dscale
 
 
+def _launch_bwd(var: str, x, scale, dy, eps: float):
+    """Run backward kernel ``var`` on arguments that ``rmsnorm_bwd`` passed;
+    count nothing."""
+    d = x.shape[-1]
+    rows = x.numel() // d
+    vec, code = int(var == "vector"), _build.DTYPE_CODES[x.dtype]
+    parts_fn = _build.function("rmsnorm_bwd", "rmsnorm_bwd_parts",
+                               [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
+                               restype=ctypes.c_longlong)
+    fn = _build.function("rmsnorm_bwd", "rmsnorm_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):  # the grid follows this device's occupancy
+        parts = parts_fn(code, vec, rows, d)
+        if parts < 1:
+            raise RuntimeError(f"rmsnorm_bwd: the {var} kernel refuses rows {rows}, D {d}")
+        dx, dscale = torch.empty_like(x), torch.empty(d, device=x.device)
+        partial = torch.empty((parts, d), device=x.device)
+        err = fn(code, vec, x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                 dscale.data_ptr(), partial.data_ptr(), rows, d, eps,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("rmsnorm_bwd", err)
+    return dx, dscale
+
+
 def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-6):
     """x, dy [..., D], scale [D] fp32 -> (dx like x, dscale fp32 [D]), through
     the CUDA kernel of the variant ``variant`` names for x and scale (scalar
@@ -125,23 +160,10 @@ def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-6):
             dy.device != x.device:
         raise ValueError(f"rmsnorm_bwd: dy must be contiguous {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}, got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
-    d = x.shape[-1]
-    rows = x.numel() // d
-    if rows == 0:
-        return torch.empty_like(x), torch.zeros(d, device=x.device)
+    if x.numel() == 0:
+        return torch.empty_like(x), torch.zeros(x.shape[-1], device=x.device)
     var = variant(x, scale) if dy.data_ptr() % 16 == 0 else "scalar"
-    vec, code = int(var == "vector"), _build.DTYPE_CODES[x.dtype]
-    parts = _build.function("rmsnorm_bwd", "rmsnorm_bwd_parts",
-                            [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
-                            restype=ctypes.c_longlong)(code, vec, rows, d)
-    dx, dscale = torch.empty_like(x), torch.empty(d, device=x.device)
-    partial = torch.empty((parts, d), device=x.device)
-    fn = _build.function("rmsnorm_bwd", "rmsnorm_bwd", _BWD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(code, vec, x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                 dscale.data_ptr(), partial.data_ptr(), rows, d, eps,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("rmsnorm_bwd", err)
+    dx, dscale = _launch_bwd(var, x, scale, dy, eps)
     rmsnorm_bwd.launches += 1
     rmsnorm_bwd.variant_launches[var] += 1
     return dx, dscale

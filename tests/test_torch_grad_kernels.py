@@ -43,7 +43,8 @@ def _close(got, want, tol):
 
 # ------------------------------------------------------------------ rmsnorm
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(37, 64), (2, 5, 128), (4, 1020)])
+@pytest.mark.parametrize("shape", [(37, 64), (2, 5, 128), (4, 1020),
+                                   (64, 2560), (2, 16, 8, 128)])  # qwen3-4b's train widths
 def test_rmsnorm_bwd_plain_matches_jax_grad(shape, dtype):
     rng = np.random.default_rng(0)
     x, dy = _draw(rng, shape, dtype), _draw(rng, shape, dtype)

@@ -7,7 +7,9 @@ of tests/test_kernels.py.  The CUDA kernels themselves run only on the card
 (``chip_smoke.py`` holds them against these plain versions there).
 """
 
+import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -239,3 +241,20 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         flash_attention(q.transpose(1, 2), kv, kv)
     with pytest.raises(ValueError, match="device"):
         ops.fused_rmsnorm(torch.empty(4, 64, device="meta"), torch.ones(64, device="meta"))
+
+
+def test_every_cuda_kernel_is_named_in_chip_smoke():
+    """Each ``__global__`` function of ``csrc/*.cu`` is in chip_smoke.py's
+    ``PORT_KERNELS`` and each name there is one of them, both read from the
+    files' text: phase 2's register report and phase 10's time by kernel
+    find the port's kernels by these names, and would drop a renamed one
+    without a word."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    defined = [name for path in sorted(csrc.glob("*.cu")) for name in re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", path.read_text())]
+    listed = next(ast.literal_eval(node.value)
+                  for node in ast.parse((ROOT / "chip_smoke.py").read_text()).body
+                  if isinstance(node, ast.Assign)
+                  and any(getattr(t, "id", None) == "PORT_KERNELS" for t in node.targets))
+    assert len(defined) == len(set(defined)) >= 18
+    assert sorted(defined) == sorted(listed)
