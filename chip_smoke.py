@@ -13,8 +13,12 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               tensor-core libraries, none of which may be 0: HGMMA
               (warpgroup MMA) in the wgmma flash forward and backward
               libraries, HMMA or HGMMA in the tc SSD library;
-  3. kernels  each CUDA kernel against its plain PyTorch version on the card,
-              at the main paths' shapes and a few edge cases, timed beside
+  3. kernels  ``torch.library.opcheck`` of the five ``repro_torch``
+              operators on CUDA tensors at a small shape (schema, autograd
+              registration, the fake implementation against the kernel's
+              outputs, AOT dispatch); then each CUDA kernel, called
+              through its operator, against its plain PyTorch version on
+              the card, at the main paths' shapes and a few edge cases, timed beside
               its bound and a library call that computes the same function
               (none computes the SSD scan); each case names the variant
               that ran and checks that it was that one (rmsnorm:
@@ -45,13 +49,14 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               32 tokens, with the kernels' launch counts set to 0 just before
               each run and read just after it, exactly, by variant (every
               flash launch ``wgmma``, every SSD launch ``tc``, every
-              RMSNorm launch ``vector``); the memory that earlier phases
-              hold is dropped first, and what is still held is printed, so
-              the peak is the serve's own;
+              RMSNorm launch ``vector``), and the decode ms a step; the
+              memory that earlier phases hold is dropped first, and what is
+              still held is printed, so the peak is the serve's own;
   6. profile  where the time goes: each served model's prefill and decode
               steps, warm, timed untraced and then traced with torch.profiler
               (the top kernels, and each of the port's own kernels by name:
-              the tc SSD is two, its C B^T prepass and the scan);
+              the tc SSD is two, its C B^T prepass and the scan; the device
+              time by op, the port's ``repro_torch`` operators among them);
   7. planner  the figures the port's ``H100_SXM`` HardwareSpec prices swaps
               with, measured: pinned host<->device copy rates of 256 MiB,
               one direction at a time and both at once on two streams (the
@@ -62,9 +67,15 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (SmartPool, the baseline pools, AutoSwap's four scores at 90,
               70 and 50% of the peak load, OffloadLowering) on a synthetic
               trace of qwen3-4b's layer structure under ``H100_SXM`` and
-              under ``TPU_V5E``; every program must pass the static verifier
-              and round-trip through its artifact byte for byte.  A rate
-              above its data-sheet figure is an impossible reading and fails;
+              under ``TPU_V5E``; then the full qwen3-4b train step (B4
+              S512, fp32 masters) captured by the port's graph tracer on
+              fake tensors, (a) the loss and (b) the loss with its
+              gradient under remat, each planned under ``H100_SXM`` and run
+              for real, its peak beside the trace's peak load w ((a)'s w
+              above its peak fails); every program must pass the static
+              verifier and round-trip through its artifact byte for byte.
+              A rate above its data-sheet figure is an impossible reading
+              and fails;
   8. train parity  one train step of qwen3-4b's widths at depth 2 in fp32
               (B1 S128; ``Model.loss``, its gradients, ``adamw_step``) on
               the card against the CPU from the same masters and batch: the
@@ -197,8 +208,9 @@ def rmsnorm_case(shape, dtype, gen, want_variant, misaligned=False):
     scale = (torch.rand(shape[-1], generator=gen, device="cuda") + 0.5).contiguous()
     var = variant(x, scale)
     require(var == want_variant, f"rmsnorm {list(shape)} routes to {var}, want {want_variant}")
+    op = torch.ops.repro_torch.rmsnorm
     before = rmsnorm.variant_launches[var]
-    got, want = rmsnorm(x, scale), rmsnorm_plain(x, scale)
+    got, want = op(x, scale, 1e-6), rmsnorm_plain(x, scale)
     torch.cuda.synchronize()
     require(rmsnorm.variant_launches[var] == before + 1,
             f"rmsnorm {list(shape)} did not launch the {var} kernel")
@@ -218,7 +230,8 @@ def rmsnorm_case(shape, dtype, gen, want_variant, misaligned=False):
         "case": f"rmsnorm [{var}] {list(shape)} {str(dtype)[6:]}"
                 f"{' (misaligned view)' if misaligned else ''}",
         "variant": var, "max_abs_err": err, "check": check,
-        "ok": ok, "ms": time_ms(rmsnorm, sets, 50), "plain_ms": time_ms(rmsnorm_plain, sets, 20),
+        "ok": ok, "ms": time_ms(lambda a, s: op(a, s, 1e-6), sets, 50),
+        "plain_ms": time_ms(rmsnorm_plain, sets, 20),
         "library_ms": time_ms(lambda a, s: F.rms_norm(a, (shape[-1],), s, 1e-6), lib_sets, 50),
         "bound_ms": b_ms, "bound_by": b_by, "other": ("scalar", time_ms(scalar_kernel, sets, 50)),
     }
@@ -250,12 +263,13 @@ def rmsnorm_bwd_case(shape, dtype, gen, want_variant):
     scale = (torch.rand(shape[-1], generator=gen, device="cuda") + 0.5).contiguous()
     var = variant(x, scale)
     require(var == want_variant, f"rmsnorm_bwd {list(shape)} routes to {var}, want {want_variant}")
+    op = torch.ops.repro_torch.rmsnorm_bwd
     before = rmsnorm_bwd.variant_launches[var]
-    (dx, ds), (dx_want, ds_want) = rmsnorm_bwd(x, scale, dy), rmsnorm_bwd_plain(x, scale, dy)
+    (dx, ds), (dx_want, ds_want) = op(x, scale, dy, 1e-6), rmsnorm_bwd_plain(x, scale, dy)
     torch.cuda.synchronize()
     require(rmsnorm_bwd.variant_launches[var] == before + 1,
             f"rmsnorm_bwd {list(shape)} did not launch the {var} kernel")
-    again = rmsnorm_bwd(x, scale, dy)[1]
+    again = op(x, scale, dy, 1e-6)[1]
     require(torch.equal(again, ds), f"rmsnorm_bwd {list(shape)}: dscale differs between two runs")
     tol = TOL[dtype]
     ds_max = ds_want.abs().max().item()
@@ -279,7 +293,8 @@ def rmsnorm_bwd_case(shape, dtype, gen, want_variant):
         "case": f"rmsnorm_bwd [{var}] {list(shape)} {str(dtype)[6:]} (max_abs_err of dx; "
                 f"max|dscale| {ds_max:.1f}; dscale bit-equal across two runs)",
         "variant": var, "max_abs_err": err, "check": check, "ok": ok,
-        "ms": time_ms(rmsnorm_bwd, sets, 50), "plain_ms": time_ms(rmsnorm_bwd_plain, sets, 10),
+        "ms": time_ms(lambda a, s, g: op(a, s, g, 1e-6), sets, 50),
+        "plain_ms": time_ms(rmsnorm_bwd_plain, sets, 10),
         "library_ms": grad_ms(lib, sets, 20), "bound_ms": b_ms, "bound_by": b_by,
     }
     if var == "vector":
@@ -309,8 +324,12 @@ def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softc
     v = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
     var = variant(dtype, hd)
+
+    def op(q, k, v):
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, window, softcap, None)
+
     before = flash_attention.variant_launches[var]
-    got, want = flash_attention(q, k, v, **kw), flash_attention_plain(q, k, v, **kw)
+    got, want = op(q, k, v), flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     require(flash_attention.variant_launches[var] == before + 1,
             f"flash B{B} Sq{Sq} hd{hd} {dtype} did not launch the {var} kernel")
@@ -335,7 +354,7 @@ def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softc
             f"(error relative to max|want|: {rel:.2e})")
     return {
         "case": name, "variant": var, "max_abs_err": err, "check": check, "ok": ok,
-        "ms": time_ms(lambda *a: flash_attention(*a, **kw), sets, 20),
+        "ms": time_ms(op, sets, 20),
         "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, **kw), sets, 3),
         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
     }
@@ -352,8 +371,12 @@ def flash_lse_case(B, S, H, KV, hd, dtype, gen):
     k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
     var = variant(dtype, hd)
+
+    def op(q, k, v):
+        return torch.ops.repro_torch.flash_attention_lse(q, k, v, True, None, None, None)
+
     before = flash_attention.variant_launches[var]
-    (out, lse), (out_want, lse_want) = (flash_attention(q, k, v, return_lse=True),
+    (out, lse), (out_want, lse_want) = (op(q, k, v),
                                         flash_attention_plain(q, k, v, return_lse=True))
     torch.cuda.synchronize()
     require(flash_attention.variant_launches[var] == before + 1,
@@ -376,7 +399,7 @@ def flash_lse_case(B, S, H, KV, hd, dtype, gen):
                 f"(max_abs_err of the LSE)",
         "variant": var, "max_abs_err": err, "ok": ok,
         "check": f"LSE {lse_check}; output {out_check}",
-        "ms": time_ms(lambda *a: flash_attention(*a, return_lse=True), sets, 20),
+        "ms": time_ms(op, sets, 20),
         "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, return_lse=True), sets, 3),
         "library_ms": time_ms(sdpa, sets, 20), "bound_ms": b_ms, "bound_by": b_by,
     }
@@ -402,14 +425,15 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant):
     var = bwd_variant(o, do)
     require(var == want_variant, f"flash_bwd B{B} S{Sq} hd{hd} {dtype} routes to {var}, "
                                  f"want {want_variant}")
+    op = torch.ops.repro_torch.flash_attention_bwd
     before = flash_attention_bwd.variant_launches[var]
-    got, want = (flash_attention_bwd(q, k, v, o, do, lse),
+    got, want = (op(q, k, v, o, do, lse, None),
                  flash_attention_bwd_plain(q, k, v, o, do, lse))
     torch.cuda.synchronize()
     require(flash_attention_bwd.variant_launches[var] == before + 1,
             f"flash_bwd B{B} S{Sq} hd{hd} {dtype} did not launch the {var} kernel")
     if var == "wgmma":
-        again = flash_attention_bwd(q, k, v, o, do, lse)
+        again = op(q, k, v, o, do, lse, None)
         require(all(torch.equal(a, g) for a, g in zip(again, got)),
                 f"flash_bwd [wgmma] B{B} S{Sq} hd{hd}: two runs differ")
     tol = TOL[dtype]
@@ -446,7 +470,7 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant):
                 f"max|want| {max(rels):.2e}{'; bit-equal across two runs' * (var == 'wgmma')}"
                 f"{mma_check})",
         "variant": var, "max_abs_err": max(errs), "check": check, "ok": ok,
-        "ms": time_ms(flash_attention_bwd, sets, 10),
+        "ms": time_ms(lambda *a: op(*a, None), sets, 10),
         "plain_ms": time_ms(flash_attention_bwd_plain, sets, 3),
         "library_ms": grad_ms(sdpa, sets, 10), "bound_ms": b_ms, "bound_by": b_by,
         "other": other,
@@ -498,8 +522,9 @@ def ssd_case(b, s, h, p, g, n, dtype, gen, want_variant, layout="dense"):
     var = variant(args[0], args[3], args[4])
     require(var == want_variant, f"ssd p{p} n{n} {dtype} {layout} routes to {var}, "
                                  f"want {want_variant}")
+    op = torch.ops.repro_torch.ssd_scan
     before = ssd_scan.variant_launches[var]
-    (y, state), (y_want, state_want) = ssd_scan(*args), ssd_scan_plain(*args)
+    (y, state), (y_want, state_want) = op(*args), ssd_scan_plain(*args)
     torch.cuda.synchronize()
     require(ssd_scan.variant_launches[var] == before + 1,
             f"ssd p{p} n{n} {dtype} did not launch the {var} kernel")
@@ -522,7 +547,7 @@ def ssd_case(b, s, h, p, g, n, dtype, gen, want_variant, layout="dense"):
         "ok": rel_y < tol and rel_state < tol,
         "check": f"max|got-want| / max|want|: y {rel_y:.3e}, state {rel_state:.3e}, "
                  f"each < {tol:g}",
-        "ms": time_ms(ssd_scan, sets, 10), "plain_ms": time_ms(ssd_scan_plain, sets, 3),
+        "ms": time_ms(op, sets, 10), "plain_ms": time_ms(ssd_scan_plain, sets, 3),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "other": other,
     }
 
@@ -541,9 +566,55 @@ def print_case(c) -> None:
           f"kernel at {c['bound_ms'] / c['ms']:.0%} of it)")
 
 
+def opcheck_ops(gen) -> None:
+    """``torch.library.opcheck`` of each of the five operators on CUDA tensors
+    at a small shape: the schema, the autograd registration (rmsnorm and
+    flash_attention_lse take inputs that need a gradient), the fake
+    implementation against the kernel's real outputs (shapes, dtypes,
+    strides), and AOT dispatch with dynamic shapes."""
+    from torch.library import opcheck
+
+    from repro_torch.kernels import ops  # noqa: F401  (defines the operators)
+
+    O = torch.ops.repro_torch
+
+    def randn(*shape, dtype=torch.float32, grad=False):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype).requires_grad_(grad)
+
+    bf16 = torch.bfloat16
+    q, k, v = randn(1, 128, 4, 64, dtype=bf16), randn(1, 128, 2, 64, dtype=bf16), \
+        randn(1, 128, 2, 64, dtype=bf16)
+    o, lse = O.flash_attention_lse(q, k, v, True, None, None, None)
+    cases = {
+        "rmsnorm": (O.rmsnorm, (randn(64, 256, dtype=bf16, grad=True),
+                                randn(256, grad=True), 1e-6)),
+        "rmsnorm_bwd": (O.rmsnorm_bwd, (randn(64, 256, dtype=bf16), randn(256),
+                                        randn(64, 256, dtype=bf16), 1e-6)),
+        "flash_attention": (O.flash_attention, (q, k, v, True, None, None, None)),
+        "flash_attention_lse": (O.flash_attention_lse,
+                                (q.detach().requires_grad_(), k.detach().requires_grad_(),
+                                 v.detach().requires_grad_(), True, None, None, None)),
+        "flash_attention_bwd": (O.flash_attention_bwd,
+                                (q, k, v, o, randn(1, 128, 4, 64, dtype=bf16), lse, None)),
+        "ssd_scan": (O.ssd_scan, (randn(1, 128, 4, 64, dtype=bf16),
+                                  (torch.rand(1, 128, 4, generator=gen, device="cuda") * 0.1
+                                   ).to(bf16),
+                                  -torch.linspace(1.0, 4.0, 4, device="cuda").to(bf16),
+                                  randn(1, 128, 1, 64, dtype=bf16),
+                                  randn(1, 128, 1, 64, dtype=bf16))),
+    }
+    t0 = time.perf_counter()
+    results = {name: opcheck(op, args) for name, (op, args) in cases.items()}
+    print(f"[3] opcheck on CUDA tensors ({time.perf_counter() - t0:.1f}s): " + "; ".join(
+        f"{name} {'ok' if set(r.values()) == {'SUCCESS'} else r}" for name, r in results.items()))
+    for name, r in results.items():
+        require(set(r.values()) == {"SUCCESS"}, f"opcheck of repro_torch::{name}: {r}")
+
+
 def phase_kernels():
     gen = torch.Generator("cuda").manual_seed(0)
-    print("[3] kernels vs plain versions on the card")
+    print("[3] kernels vs plain versions on the card, through the repro_torch operators")
+    opcheck_ops(gen)
     bf16, f32 = torch.bfloat16, torch.float32
     rms = [
         rmsnorm_case((2048, 2560), bf16, gen, "vector"),   # ln1/ln2 at prefill B4 S512
@@ -775,11 +846,13 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     text = out.getvalue()
     prefill_s = float(re.search(r"prefill: \S+ in ([0-9.]+)s", text).group(1))
     decode_tps = float(re.search(r"\(([0-9.]+) tok/s\)", text).group(1))
+    decode_s = float(re.search(r"decode: .* in ([0-9.]+)s", text).group(1))
     print(f"[5] serve {arch} ({cfg.num_layers} layers, bf16) B{B} P{P} gen {G}:")
     for line in text.strip().splitlines():
         print(f"  {line}")
     print(f"  logits finite (serve raises otherwise), "
-          f"prefill {prefill_s * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s, "
+          f"prefill {prefill_s * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s "
+          f"({decode_s / (G - 1) * 1e3:.2f} ms a step), "
           f"peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.3f} GiB of it held before "
           f"the run), launches {counts}, "
           f"main() wall {wall:.1f}s (init included)")
@@ -907,17 +980,31 @@ def device_breakdown(prof, wall_ms: float, top: int = 6) -> str:
 
 
 def op_breakdown(prof, top: int = 6) -> str:
-    """Device time by the PyTorch op that launched it, with its input shapes
-    (the port's own kernels, launched through ctypes, belong to no op)."""
+    """Device time by the PyTorch op that launched it, with its input shapes:
+    aten's ops and the port's own (``repro_torch::rmsnorm`` and the rest,
+    whose CUDA implementations launch the port's kernels; where a gradient
+    is taken, the forward's launches fall under the autograd node that
+    ``register_autograd`` names after the op,
+    ``GeneratedBackwardFor_repro_torch_...``), and the device time of each
+    of the port's ops."""
     rows = [e for e in prof.key_averages(group_by_input_shape=True)
-            if e.key.startswith("aten::") and e.self_device_time_total > 0]
+            if (e.key.startswith("aten::") or "repro_torch" in e.key)
+            and e.self_device_time_total > 0]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows)
     if busy == 0:
         return "no op launched device work"
+    mine: dict[str, list] = {}
+    for e in rows:
+        if "repro_torch" in e.key:
+            mine.setdefault(e.key, [0.0, 0])
+            mine[e.key][0] += e.self_device_time_total / 1e3
+            mine[e.key][1] += e.count
+    own = "; ".join(f"{k} {ms:.2f}ms ({calls} calls)" for k, (ms, calls) in sorted(mine.items()))
     return f"ops' device time {busy / 1e3:.2f} ms; top: " + "; ".join(
         f"{e.key} {str(e.input_shapes)[:70]} {e.self_device_time_total / 1e3:.2f}ms "
-        f"({e.self_device_time_total / busy:.0%})" for e in rows[:top])
+        f"({e.self_device_time_total / busy:.0%})" for e in rows[:top]) + \
+        f"; the port's ops: {own or 'none'}"
 
 
 def phase_profile(arch: str, B: int, P: int, G: int):
@@ -1150,11 +1237,8 @@ def phase_link_and_compute():
 def phase_planner():
     """The port's plan pipeline under H100_SXM and under TPU_V5E, on a
     synthetic training trace of qwen3-4b's layer structure."""
-    from repro_torch.analyze import verify_program
     from repro_torch.core.simulator import H100_SXM, TPU_V5E
-    from repro_torch.plan import (MemoryProgram, OffloadLowering, PassContext, Pipeline, PlanKey,
-                                  PoolPlacement, SwapSelection, TimingAssign, dumps_canonical,
-                                  program_from_json)
+    from repro_torch.plan import PlanKey
     from repro_torch.runtime.workload import synthetic_train_trace
 
     for hw in (H100_SXM, TPU_V5E):
@@ -1166,20 +1250,8 @@ def phase_planner():
             if v.size == ACT_BYTES:
                 v.name = "block_in"
         peak = trace.peak_load()
-        limits = [int(peak * f) for f in LIMIT_FRACS]
-        passes = [TimingAssign(), PoolPlacement(("best_fit", "first_fit", "cnmem", "exact"))]
-        passes += [SwapSelection(limit=lim, scorer=s) for lim in limits for s in SCORERS]
-        passes += [OffloadLowering(limit=lim, scorer=s) for lim in limits for s in SCORERS]
-        t0 = time.perf_counter()
-        prog = Pipeline(passes).run(
-            MemoryProgram.from_trace(trace, PlanKey("qwen3-4b", "train:synthetic", hw.name)),
-            PassContext(hw=hw))
-        solve_s = time.perf_counter() - t0
-        cert = verify_program(prog)
-        require(cert.ok, f"{hw.name}: the verifier failed {cert.failed()}")
-        blob = dumps_canonical(prog)
-        require(dumps_canonical(program_from_json(json.loads(blob))) == blob,
-                f"{hw.name}: the artifact does not round-trip byte for byte")
+        prog, limits, solve_s, checks, nbytes = plan_and_check(
+            trace, PlanKey("qwen3-4b", "train:synthetic", hw.name), hw)
         pools = {m: prog.pool_plans[m].footprint for m in ("best_fit", "first_fit")}
         pools.update({m: prog.baselines[m].footprint for m in ("cnmem", "exact")})
         print(f"[7] plan under {hw.name} (synthetic trace of qwen3-4b's shape: 36 layers, "
@@ -1187,18 +1259,133 @@ def phase_planner():
               f"not a captured trace): iteration {trace.op_times[-1] * 1e3:.3f} ms simulated, "
               f"peak load w {peak:,} B; pools " + ", ".join(
                   f"{m} {b:,} B ({b / peak:.4f} w)" for m, b in pools.items())
-              + f"; solved in {solve_s:.2f}s, verifier ok ({len(cert.checks)} checks), "
-                f"round trip byte-equal ({len(blob):,} B)")
-        for frac, lim in zip(LIMIT_FRACS, limits):
-            cells = []
-            for s in SCORERS:
-                summary = prog.swap_summaries[f"{s}@{lim}"]
-                require(math.isfinite(summary.overhead), f"{hw.name} {s}@{lim}: overhead")
-                cells.append(f"{s} {len(summary.decisions)} vars {summary.selected_bytes:,} B "
-                             f"overhead {summary.overhead:.4f} stalls {summary.stalls}")
-            offload = prog.offload_plans[f"swdoa@{lim}"].offload_names
-            print(f"  limit {frac:.0%} of w ({lim:,} B): " + "; ".join(cells)
-                  + f"; swdoa offloads {offload or 'nothing'}")
+              + f"; solved in {solve_s:.2f}s, verifier ok ({checks} checks), "
+                f"round trip byte-equal ({nbytes:,} B)")
+        print_swaps(prog, limits, hw.name)
+
+
+def plan_and_check(trace, key, hw):
+    """The plan pipeline on ``trace`` under ``hw``: SmartPool and the baseline
+    pools, AutoSwap's four scores at LIMIT_FRACS of the peak load, and
+    OffloadLowering; fatal unless the static verifier passes and the
+    artifact round-trips byte for byte.  -> (program, limits, solve s,
+    verifier checks, artifact bytes)."""
+    from repro_torch.analyze import verify_program
+    from repro_torch.plan import (MemoryProgram, OffloadLowering, PassContext, Pipeline,
+                                  PoolPlacement, SwapSelection, TimingAssign, dumps_canonical,
+                                  program_from_json)
+
+    peak = trace.peak_load()
+    limits = [int(peak * f) for f in LIMIT_FRACS]
+    passes = [TimingAssign(), PoolPlacement(("best_fit", "first_fit", "cnmem", "exact"))]
+    passes += [SwapSelection(limit=lim, scorer=s) for lim in limits for s in SCORERS]
+    passes += [OffloadLowering(limit=lim, scorer=s) for lim in limits for s in SCORERS]
+    t0 = time.perf_counter()
+    prog = Pipeline(passes).run(MemoryProgram.from_trace(trace, key), PassContext(hw=hw))
+    solve_s = time.perf_counter() - t0
+    cert = verify_program(prog)
+    require(cert.ok, f"{key}: the verifier failed {cert.failed()}")
+    blob = dumps_canonical(prog)
+    require(dumps_canonical(program_from_json(json.loads(blob))) == blob,
+            f"{key}: the artifact does not round-trip byte for byte")
+    return prog, limits, solve_s, len(cert.checks), len(blob)
+
+
+def print_swaps(prog, limits, hw_name: str) -> None:
+    for frac, lim in zip(LIMIT_FRACS, limits):
+        cells = []
+        for s in SCORERS:
+            summary = prog.swap_summaries[f"{s}@{lim}"]
+            require(math.isfinite(summary.overhead), f"{hw_name} {s}@{lim}: overhead")
+            cells.append(f"{s} {len(summary.decisions)} vars {summary.selected_bytes:,} B "
+                         f"overhead {summary.overhead:.4f} stalls {summary.stalls}; offloads "
+                         f"{prog.offload_plans[f'{s}@{lim}'].offload_names or 'nothing'}")
+        print(f"  limit {frac:.0%} of w ({lim:,} B): " + "; ".join(cells))
+
+
+def phase_captured_plans(B: int, S: int):
+    """The full qwen3-4b train step captured by the port's graph tracer (on
+    fake CUDA tensors: no memory, no launch) two ways, each planned under
+    H100_SXM: (a) ``model.loss(params, batch)[0]``, the step ``train --plan``
+    plans; (b) the loss and ``torch.autograd.grad`` of it with respect to
+    the params, under per-layer remat.  Then both run for real at the same
+    fp32 masters and batch, which are resident first, and the card's peak
+    stands beside the trace's peak load w.  (a)'s w above its real peak is
+    fatal: the trace frees each variable at its last use, the earliest any
+    run can, so a larger w counts memory that never existed.  (b)'s is
+    printed only: eager autograd accumulates the tied embedding's gradient
+    in place, where the graph adds out of place (up to one fp32 table,
+    151,936 x 2,560 x 4 B)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulator import H100_SXM
+    from repro_torch.core.trace import trace_step_fn
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import build_model
+    from repro_torch.plan import PlanKey
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("qwen3-4b")
+    model = build_model(cfg, "cuda")
+
+    def loss(params, batch):
+        return model.loss(params, batch)[0]
+
+    def loss_and_grad(params, batch):
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        value = model.loss(params, batch)[0]
+        return (value, *torch.autograd.grad(value, leaves))
+
+    shapes = model.init_shapes(torch.float32)
+    probe = {k: torch.empty(B, S, dtype=torch.long, device="meta") for k in ("tokens", "labels")}
+    omega = {}
+    for tag, fn in (("a", loss), ("b", loss_and_grad)):
+        t0 = time.perf_counter()
+        trace = trace_step_fn(fn, shapes, probe, device="cuda")
+        capture_s = time.perf_counter() - t0
+        key = PlanKey("qwen3-4b", f"train:b{B}s{S}:{'loss' if tag == 'a' else 'grad'}",
+                      H100_SXM.name)
+        prog, limits, solve_s, checks, nbytes = plan_and_check(trace, key, H100_SXM)
+        peak = trace.peak_load()
+        omega[tag] = peak
+        labels = {n: sum(v.name == n for v in trace.variables)
+                  for n in ("block_in", "attn_out", "ffn_out")}
+        print(f"[7] captured ({tag}) {'loss' if tag == 'a' else 'loss + grad (remat)'} qwen3-4b "
+              f"B{B} S{S} fp32 masters under {H100_SXM.name}: capture {capture_s:.2f}s, "
+              f"{len(trace.variables)} variables (labels {labels}), iteration "
+              f"{trace.op_times[-1] * 1e3:.3f} ms simulated, peak load w {peak:,} B; "
+              f"SmartPool chi/w {prog.pool_plans['best_fit'].footprint / peak:.4f} "
+              f"(first_fit {prog.pool_plans['first_fit'].footprint / peak:.4f}), CnMem "
+              f"{prog.baselines['cnmem'].footprint / peak:.4f}, exact "
+              f"{prog.baselines['exact'].footprint / peak:.4f}; solved in {solve_s:.2f}s, "
+              f"verifier ok ({checks} checks), round trip byte-equal ({nbytes:,} B)")
+        print_swaps(prog, limits, H100_SXM.name)
+
+    held = release_memory("7")
+    params = model.init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
+    batch = make_batch_fn(cfg, B, S, 0, "cuda")(0)
+    for tag, fn in (("a", loss), ("b", loss_and_grad)):
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(params, batch)
+        torch.cuda.synchronize()
+        real = torch.cuda.max_memory_allocated() - held
+        value = float((out if tag == "a" else out[0]).detach())
+        del out
+        for t in tree_leaves(params):
+            t.requires_grad_(False)
+        print(f"[7] captured ({tag}) run for real: loss {value:.4f}, peak "
+              f"{real:,} B on the card ({resident - held:,} B of params and batch resident "
+              f"first) beside the trace's w {omega[tag]:,} B (w / peak "
+              f"{omega[tag] / real:.4f})")
+        require(math.isfinite(value), f"captured ({tag}): non-finite loss")
+        if tag == "a":
+            require(omega[tag] <= real, f"captured (a): w {omega[tag]} B exceeds the real peak "
+                                        f"{real} B")
+    del params, batch
 
 
 def mma_count(build, lib: str, ops: tuple[str, ...]) -> int:
@@ -1286,6 +1473,7 @@ def main() -> int:
     t7 = time.perf_counter()
     phase_link_and_compute()
     phase_planner()
+    phase_captured_plans(4, 512)
     print(f"[7] planner phase took {time.perf_counter() - t7:.1f}s")
 
     phase_train_parity(128)

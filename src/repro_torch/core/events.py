@@ -86,7 +86,7 @@ class IterationTrace:
     # is the *start* time of op i; entry num_indices is the iteration end.
     op_times: list[float] | None = None
     # Optional op index -> (flops, bytes_touched): compute-cost estimates from
-    # the jaxpr tracer, consumed by core/simulator.py to build op_times.
+    # the graph tracer, consumed by core/simulator.py to build op_times.
     op_costs: dict[int, tuple[float, float]] | None = None
     # Optional op index -> seconds of wall time the roofline model cannot
     # derive from (flops, bytes) — collective communication durations tagged

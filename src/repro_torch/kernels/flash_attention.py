@@ -39,6 +39,16 @@ dims up to 128, on the CUDA cores).  That file's ``"mma"`` variant
 kept as the yardstick that ``_launch_bwd`` runs on request.  It counts in
 ``flash_attention_bwd.launches`` and ``.variant_launches``.
 ``flash_attention_bwd_plain`` computes the same in PyTorch, in fp32.
+
+Three ``torch.library`` operators carry them: ``repro_torch.flash_attention``
+(the output alone: serving's instantiation, which writes no LSE),
+``repro_torch.flash_attention_lse`` (the output and the LSE: training's)
+and ``repro_torch.flash_attention_bwd`` (causal only).  The dispatcher
+sends a CUDA tensor to the wrappers above (the kernel, or a raise), a CPU
+tensor to the plain versions, and a fake or meta tensor to a fake
+implementation that returns the real outputs' shapes, dtypes and strides
+and reads no address (``variant`` and ``bwd_variant`` read addresses, so
+they run only in the wrappers).
 """
 
 from __future__ import annotations
@@ -281,3 +291,50 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None, softca
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.variant_launches = {"wgmma": 0, "mma": 0, "simt": 0}
+
+
+# ---------------------------------------------------------------- operators
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_ATTN_ARGS = "Tensor q, Tensor k, Tensor v, bool causal, int? window, float? softcap, float? scale"
+_LIB.define(f"flash_attention({_ATTN_ARGS}) -> Tensor")
+_LIB.define(f"flash_attention_lse({_ATTN_ARGS}) -> (Tensor, Tensor)")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, Tensor lse, "
+            "float? scale) -> (Tensor, Tensor, Tensor)")
+
+
+def _forward(fn, return_lse: bool):
+    """An operator's implementation by ``fn``: the kernel's output is
+    contiguous, the plain version's made so (the fake's strides)."""
+    def impl(q, k, v, causal, window, softcap, scale):
+        out = fn(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
+                 return_lse=return_lse)
+        return (out[0].contiguous(), out[1]) if return_lse else out.contiguous()
+    return impl
+
+
+for _name, _lse in (("flash_attention", False), ("flash_attention_lse", True)):
+    _LIB.impl(_name, _forward(flash_attention, _lse), "CUDA")
+    _LIB.impl(_name, _forward(flash_attention_plain, _lse), "CPU")
+_LIB.impl("flash_attention_bwd",
+          lambda q, k, v, o, do, lse, scale: flash_attention_bwd(q, k, v, o, do, lse, scale=scale),
+          "CUDA")
+_LIB.impl("flash_attention_bwd",
+          lambda q, k, v, o, do, lse, scale: tuple(
+              t.contiguous() for t in flash_attention_bwd_plain(q, k, v, o, do, lse, scale=scale)),
+          "CPU")
+
+
+@torch.library.register_fake("repro_torch::flash_attention")
+def _flash_fake(q, k, v, causal, window, softcap, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_lse")
+def _flash_lse_fake(q, k, v, causal, window, softcap, scale):
+    B, Sq, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_bwd")
+def _flash_bwd_fake(q, k, v, o, do, lse, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)

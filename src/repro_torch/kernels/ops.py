@@ -1,70 +1,95 @@
-"""Public kernel entry points: the tensor's device picks the implementation.
+"""Public kernel entry points: ``torch.library`` operators, one per kernel.
 
 Counterpart of ``repro/kernels/ops.py`` (``flash_mha`` :30, ``ssd`` :45,
-``fused_rmsnorm`` :52).  A CPU tensor goes to the kernel's plain PyTorch
-version; a CUDA tensor goes to the Hopper kernel, which launches or raises.
-Nothing falls back from the card to the plain version or an oracle: the
-kernels mask ragged tiles and chunks, so the JAX package's length-based
-fallbacks are not needed.
+``fused_rmsnorm`` :52).  Each entry point calls an operator of the
+``repro_torch`` namespace (``kernels/rmsnorm.py``, ``flash_attention.py``,
+``ssd_scan.py`` define them), and the dispatcher picks the implementation
+by the tensor's device: a CPU tensor goes to the kernel's plain PyTorch
+version, a CUDA tensor to the Hopper kernel, which launches or raises, a
+fake or meta tensor to the fake implementation (shapes only), so a graph
+traced by ``core.trace`` holds one node per kernel, as a jaxpr holds one
+``pallas_call``.  Nothing falls back from the card to the plain version or
+an oracle: the kernels mask ragged tiles and chunks, so the JAX package's
+length-based fallbacks are not needed.
 
-``fused_rmsnorm`` and ``flash_mha`` are differentiable: when an input needs
-a gradient they run through a ``torch.autograd.Function`` whose forward is
-the device-routed forward (flash also returning the LSE) and whose backward
-is the device-routed backward (``rmsnorm_bwd``, ``flash_attention_bwd``;
-their plain versions on the CPU).  The JAX kernels have no backward; the
-reference differentiates its jnp paths, which compute the same functions.
-Without a gradient to take, the forward runs alone, as serving does.
+``fused_rmsnorm`` and ``flash_mha`` are differentiable: the gradients of
+``repro_torch::rmsnorm`` and ``repro_torch::flash_attention_lse`` are
+registered on the operators and call ``repro_torch::rmsnorm_bwd`` and
+``repro_torch::flash_attention_bwd`` (the backward kernels on the card,
+their plain versions on the CPU).  Attention whose inputs need a gradient
+runs the LSE operator, which the backward reads; otherwise it runs the one
+without, as serving does, so the kernel writes no LSE.  The JAX kernels
+have no backward; the reference differentiates its jnp paths, which
+compute the same functions.
+
+``label`` is the counterpart of ``jax.ad_checkpoint.checkpoint_name``: it
+names an activation for the planner (``core.offload.KNOWN_NAMES``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-from .flash_attention import (check_bwd_supported, flash_attention, flash_attention_bwd,
-                              flash_attention_bwd_plain, flash_attention_plain)
-from .rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_bwd_plain, rmsnorm_plain
-from .ssd_scan import ssd_scan, ssd_scan_plain
+from . import flash_attention as _flash
+from . import rmsnorm as _rms
+from . import ssd_scan as _ssd
+from .flash_attention import check_bwd_supported
 
 # The CUDA wrappers, each counting its launches in ``.launches``.
-KERNELS = (rmsnorm, rmsnorm_bwd, flash_attention, flash_attention_bwd, ssd_scan)
-
-
-def _on_cpu(x) -> bool:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel or plain version for device {x.device}")
-    return x.device.type == "cpu"
+KERNELS = (_rms.rmsnorm, _rms.rmsnorm_bwd, _flash.flash_attention, _flash.flash_attention_bwd,
+           _ssd.ssd_scan)
+_OPS = torch.ops.repro_torch
 
 
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-class _FlashMHA(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        fn = flash_attention_plain if _on_cpu(q) else flash_attention
-        out, lse = fn(q, k, v, causal=True, scale=scale, return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        fn = flash_attention_bwd_plain if _on_cpu(q) else flash_attention_bwd
-        dq, dk, dv = fn(q, k, v, out, dout.contiguous(), lse, scale=ctx.scale)
-        return dq, dk, dv, None
+# ---------------------------------------------------------------- gradients
+def _rmsnorm_setup(ctx, inputs, output):
+    x, scale, eps = inputs
+    ctx.save_for_backward(x, scale)
+    ctx.eps = eps
 
 
+def _rmsnorm_backward(ctx, dy):
+    x, scale = ctx.saved_tensors
+    dx, dscale = _OPS.rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps)
+    return dx, dscale, None
+
+
+torch.library.register_autograd("repro_torch::rmsnorm", _rmsnorm_backward,
+                                setup_context=_rmsnorm_setup)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal, window, softcap, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.scale = scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _OPS.flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, ctx.scale)
+    return dq, dk, dv, None, None, None, None
+
+
+torch.library.register_autograd("repro_torch::flash_attention_lse", _flash_backward,
+                                setup_context=_flash_setup)
+
+
+# ------------------------------------------------------------- entry points
 def flash_mha(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
     """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd] (blockwise attention).
     Differentiable for causal attention without window or softcap; taking
     the gradient of any other raises NotImplementedError."""
     if _needs_grad(q, k, v):
         check_bwd_supported(causal, window, softcap)
-        return _FlashMHA.apply(q, k, v, scale)
-    fn = flash_attention_plain if _on_cpu(q) else flash_attention
-    return fn(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+        return _OPS.flash_attention_lse(q, k, v, causal, window, softcap, scale)[0]
+    return _OPS.flash_attention(q, k, v, causal, window, softcap, scale)
 
 
 def ssd(x, dt, A, Bm, Cm):
@@ -75,35 +100,41 @@ def ssd(x, dt, A, Bm, Cm):
     16-byte copies, ``simt`` for fp32 and the other bf16 inputs;
     ``ssd_scan.variant``) chunk by their own 64 steps, which does not change
     the function.  Forward only: its gradient waits for mamba2 training."""
-    fn = ssd_scan_plain if _on_cpu(x) else ssd_scan
-    return fn(x, dt, A, Bm, Cm)
-
-
-class _RMSNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, scale, eps):
-        ctx.save_for_backward(x, scale)
-        ctx.eps = eps
-        return rmsnorm_plain(x, scale, eps) if _on_cpu(x) else rmsnorm(x, scale, eps=eps)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, scale = ctx.saved_tensors
-        dy = dy.contiguous()
-        if _on_cpu(x):
-            dx, dscale = rmsnorm_bwd_plain(x, scale, dy, ctx.eps)
-        else:
-            dx, dscale = rmsnorm_bwd(x, scale, dy, eps=ctx.eps)
-        return dx, dscale, None
+    return _OPS.ssd_scan(x, dt, A, Bm, Cm)
 
 
 def fused_rmsnorm(x, scale, *, eps=1e-6):
     """x [..., D], scale [D] fp32 -> like x; differentiable in x and scale."""
-    if _needs_grad(x, scale):
-        return _RMSNorm.apply(x, scale, eps)
-    if _on_cpu(x):
-        return rmsnorm_plain(x, scale, eps)
-    return rmsnorm(x, scale, eps=eps)
+    return _OPS.rmsnorm(x, scale, eps)
+
+
+# ------------------------------------------------------------------- labels
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+# An alias of x by its schema: the tracer reads the name, and the storage is x's.
+_LIB.define("label(Tensor(a) x, str name) -> Tensor(a)")
+_LIB.impl("label", lambda x, name: x.view(x.shape), "CompositeExplicitAutograd")
+torch.library.register_fake("repro_torch::label")(lambda x, name: x.view(x.shape))
+
+
+class _Label(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, name):
+        return _OPS.label(x, name)
+
+    @staticmethod
+    def backward(ctx, dx):
+        return dx, None
+
+
+def label(x, name: str):
+    """Name activation ``x`` ``name`` for the planner, as the reference's
+    ``checkpoint_name`` does.  On a real tensor it returns ``x`` itself: no
+    copy, no launch, no dispatch.  On a fake tensor (``core.trace`` tracing
+    a step) it records the operator ``repro_torch::label``, a view of ``x``
+    whose node the tracer reads as the start of a variable of that name."""
+    if isinstance(x, FakeTensor):
+        return _Label.apply(x, name)
+    return x
 
 
 def launch_counts() -> dict[str, int]:

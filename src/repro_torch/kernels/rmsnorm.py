@@ -34,6 +34,13 @@ in PyTorch.
   ([16384, 128]) of their bytes bound (``chip_smoke.py`` phase 3;
   ``PERF.md`` §6).
 - ``"scalar"`` (``rmsnorm_bwd_kernel``): element by element, for the rest.
+
+Both are ``torch.library`` operators, ``torch.ops.repro_torch.rmsnorm`` and
+``torch.ops.repro_torch.rmsnorm_bwd``: the dispatcher sends a CUDA tensor
+to the wrapper above (the kernel, or a raise), a CPU tensor to the plain
+version, and a fake or meta tensor to a fake implementation that returns
+the real outputs' shapes, dtypes and strides and reads no address, so a
+graph tracer sees one node per kernel.
 """
 
 from __future__ import annotations
@@ -171,3 +178,30 @@ def rmsnorm_bwd(x, scale, dy, *, eps: float = 1e-6):
 
 rmsnorm_bwd.launches = 0
 rmsnorm_bwd.variant_launches = {"vector": 0, "scalar": 0}
+
+
+# ---------------------------------------------------------------- operators
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("rmsnorm(Tensor x, Tensor scale, float eps) -> Tensor")
+_LIB.define("rmsnorm_bwd(Tensor x, Tensor scale, Tensor dy, float eps) -> (Tensor, Tensor)")
+_LIB.impl("rmsnorm", lambda x, scale, eps: rmsnorm(x, scale, eps=eps), "CUDA")
+_LIB.impl("rmsnorm", lambda x, scale, eps: rmsnorm_plain(x, scale, eps).contiguous(), "CPU")
+_LIB.impl("rmsnorm_bwd", lambda x, scale, dy, eps: rmsnorm_bwd(x, scale, dy, eps=eps), "CUDA")
+
+
+def _rmsnorm_bwd_cpu(x, scale, dy, eps):
+    dx, dscale = rmsnorm_bwd_plain(x, scale, dy, eps)
+    return dx.contiguous(), dscale
+
+
+_LIB.impl("rmsnorm_bwd", _rmsnorm_bwd_cpu, "CPU")
+
+
+@torch.library.register_fake("repro_torch::rmsnorm")
+def _rmsnorm_fake(x, scale, eps):
+    return x.new_empty(x.shape)
+
+
+@torch.library.register_fake("repro_torch::rmsnorm_bwd")
+def _rmsnorm_bwd_fake(x, scale, dy, eps):
+    return x.new_empty(x.shape), x.new_empty(x.shape[-1], dtype=torch.float32)

@@ -25,6 +25,13 @@ return the final state beside y, which the Pallas kernel keeps in scratch
 and drops: the decode cache starts from it.  None needs the length to
 divide the chunk, and the chunk does not change the function.  The source
 notes in the ``.cu`` files give each kernel's bound and design.
+
+The ``torch.library`` operator ``repro_torch.ssd_scan`` carries it: the
+dispatcher sends a CUDA tensor to ``ssd_scan`` (the kernel, or a raise), a
+CPU tensor to the plain version, and a fake or meta tensor to a fake
+implementation that returns the real outputs' shapes, dtypes and strides
+(``variant`` reads addresses, so it runs only in the wrapper).  It has no
+gradient yet (ROADMAP queue B item 3).
 """
 from __future__ import annotations
 
@@ -146,3 +153,24 @@ def ssd_scan(x, dt, A, Bm, Cm):
 
 ssd_scan.launches = 0
 ssd_scan.variant_launches = {"tc": 0, "simt": 0}
+
+
+# ---------------------------------------------------------------- operator
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm) -> (Tensor, Tensor)")
+_LIB.impl("ssd_scan", ssd_scan, "CUDA")
+
+
+def _ssd_scan_cpu(x, dt, A, Bm, Cm):
+    y, state = ssd_scan_plain(x, dt, A, Bm, Cm)
+    return y.contiguous(), state
+
+
+_LIB.impl("ssd_scan", _ssd_scan_cpu, "CPU")
+
+
+@torch.library.register_fake("repro_torch::ssd_scan")
+def _ssd_scan_fake(x, dt, A, Bm, Cm):
+    b, s, h, p = x.shape
+    return (x.new_empty((b, s, h, p)),
+            x.new_empty((b, h, p, Bm.shape[3]), dtype=torch.float32))

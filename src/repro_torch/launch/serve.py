@@ -12,7 +12,7 @@ stay in full fp32 for fp32 models (TF32 off).
 
 The planner flags of the reference (``--plan``, ``--plan-cache``,
 ``--colocate``) and its observability flags wait for ROADMAP queue A items
-5, 6 and 9.
+8 (with the prefill and decode step builders) and 9.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\

@@ -12,14 +12,26 @@ card, RMSNorm and attention run through the port's Hopper kernels forward
 and backward; matrix products stay in full fp32 for fp32 models (TF32 off).
 
 Kept from the reference: the per-step and ``done:`` lines, the injected
-failure (``--fail-at``) and the straggler watchdog (``--step-timeout``).
-Left out, each waiting for its ROADMAP queue A item: the planner flags
-``--plan``, ``--plan-cache`` and ``--hbm-limit-gb`` (item 6),
-checkpointing ``--ckpt-dir``/``--ckpt-every`` (item 11), ``--dist-plan``
-(item 12) and the observability flags (item 9).
+failure (``--fail-at``), the straggler watchdog (``--step-timeout``) and
+the paper's memory planner:
+
+  * ``--plan``       print the SmartPool report of the step the reference
+                     plans, ``model.loss(params, batch)[0]``, traced on fake
+                     tensors at the params ``main`` trains (fp32 masters,
+                     cast to ``cfg.dtype`` at each use) under ``H100_SXM``;
+  * ``--plan-cache`` directory of solved plan artifacts, keyed by (arch,
+                     step signature, hardware): a second run restores the
+                     plan and does not trace.
+
+Left out, each waiting for its ROADMAP queue A item: ``--hbm-limit-gb``,
+whose whole effect is executing the offload plan (item 6), checkpointing
+``--ckpt-dir``/``--ckpt-every`` (item 11), ``--dist-plan`` (item 12) and
+the observability flags (item 9).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 2 \
+      --batch 2 --seq 32 --plan --plan-cache /tmp/plans
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --batch 4 --seq 512 \\
       --steps 5 --log-every 1
 """
@@ -50,6 +62,32 @@ def make_batch_fn(cfg, batch: int, seq: int, seed: int, device):
     return at
 
 
+def plan_report(model, args) -> None:
+    """Plan the loss step at this run's shapes (or restore its plan from
+    ``--plan-cache``) and print the reference's ``[plan]`` line."""
+    from repro_torch.core.planner import MemoryPlanner
+    from repro_torch.core.simulator import H100_SXM
+    from repro_torch.plan import PlanCache, PlanKey
+
+    probe = {k: torch.empty(args.batch, args.seq, dtype=torch.long, device="meta")
+             for k in ("tokens", "labels")}
+    pshapes = model.init_shapes(torch.float32)
+
+    def step_probe(params, batch):
+        return model.loss(params, batch)[0]
+
+    plan_cache = PlanCache(args.plan_cache) if args.plan_cache else None
+    smoke = ":smoke" if args.smoke else ""
+    key = PlanKey(args.arch, f"train:b{args.batch}s{args.seq}{smoke}", H100_SXM.name)
+    planner = MemoryPlanner(step_probe, pshapes, probe, hw=H100_SXM, cache=plan_cache, key=key)
+    rep = planner.report()
+    src = " (restored from cache)" if planner.from_cache else ""
+    print(
+        f"[plan] vars={rep.num_variables} peak={rep.peak_load/2**20:.1f}MiB "
+        f"smartpool x{rep.smartpool_ratio:.4f} cnmem x{rep.cnmem_ratio:.4f}{src}"
+    )
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list_archs(), default="qwen3-4b")
@@ -61,6 +99,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fail-at", type=int, default=-1, help="inject a crash at step N (tests)")
     ap.add_argument("--step-timeout", type=float, default=10.0, help="straggler factor vs median")
+    ap.add_argument("--plan", action="store_true", help="print the SmartPool report")
+    ap.add_argument("--plan-cache", default=None,
+                    help="directory of solved plan artifacts (reused across runs)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -73,6 +114,8 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, device)
     batch_fn = make_batch_fn(cfg, args.batch, args.seq, args.seed, device)
+    if args.plan or args.plan_cache:
+        plan_report(model, args)
     train_step = build_train_step(model, cfg, lr=args.lr)
     params = model.init(torch.Generator(device).manual_seed(args.seed), dtype=torch.float32)
     opt = adamw_init(params)

@@ -29,8 +29,18 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+class ShapeOnly:
+    """Stands in for a ``torch.Generator`` where only shapes are wanted: the
+    ``init_*`` functions then build meta tensors and draw nothing."""
+
+    device = torch.device("meta")
+
+
 def normal(generator: torch.Generator, shape, std: float, dtype: torch.dtype):
-    """N(0, std^2) drawn in fp32 from ``generator`` on its device, stored as ``dtype``."""
+    """N(0, std^2) drawn in fp32 from ``generator`` on its device, stored as
+    ``dtype``; an empty meta tensor for a ``ShapeOnly`` generator."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
     return (x * std).to(dtype)
 
@@ -118,7 +128,8 @@ def chunked_softmax_xent(x, params, labels, cfg: ModelConfig, chunk: int = 256,
                          ignore_index: int = -1):
     """CE without materialising [B, S, V] logits: chunks of ``chunk`` positions,
     each's fp32 logits reduced to a summed CE and recomputed in backward
-    (``torch.utils.checkpoint``), so live logits are [B, chunk, V].  The
+    (``torch.utils.checkpoint``; nothing here draws random numbers, so no
+    RNG state is saved), so live logits are [B, chunk, V].  The
     table is cast to x's dtype once, outside the loop.  The sequence is
     padded to a multiple of the chunk with ``ignore_index`` labels.  x is
     the final-normed hidden state aligned so that position i predicts
@@ -133,5 +144,6 @@ def chunked_softmax_xent(x, params, labels, cfg: ModelConfig, chunk: int = 256,
     total = torch.zeros((), device=x.device)
     for i in range(0, S + pad, c):
         total = total + checkpoint(_xent_sum, x[:, i:i + c], table, labels[:, i:i + c],
-                                   cfg.final_softcap, ignore_index, use_reentrant=False)
+                                   cfg.final_softcap, ignore_index, use_reentrant=False,
+                                   preserve_rng_state=False)
     return total / (labels != ignore_index).sum().clamp(min=1)

@@ -22,10 +22,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
+from repro_torch.kernels.ops import label
 from . import attention as attn_mod
 from . import ssm as ssm_mod
 from .layers import (
     NOT_PORTED,
+    ShapeOnly,
     apply_dense_ffn,
     apply_norm,
     chunked_softmax_xent,
@@ -73,14 +75,19 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
 
 def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
     if spec.ffn == "dense":
-        x = x + apply_dense_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
+        h = apply_dense_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
+        x = x + label(h, "ffn_out")
     return x
 
 
 def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles):
-    """Forward one attention layer over the whole sequence, for the loss."""
+    """Forward one attention layer over the whole sequence, for the loss,
+    with the reference's activation labels (``block_in``, ``attn_out``,
+    ``ffn_out``: ``repro/models/transformer.py:106,118,319``), which name
+    variables for the planner and cost nothing on real tensors."""
+    x = label(x, "block_in")
     h = attn_mod.apply_attention(p["attn"], apply_norm(p["ln1"], x, cfg), cfg, spec, angles)
-    return _ffn(p, x + h, cfg, spec)
+    return _ffn(p, x + label(h, "attn_out"), cfg, spec)
 
 
 def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int):
@@ -131,7 +138,7 @@ class Model:
         """Random parameters from ``generator``, which must live on
         ``self.device``.  Matrices are stored as ``dtype``: ``cfg.dtype``
         when None (serving), ``torch.float32`` for training's masters."""
-        if generator.device.type != self.device.type:
+        if generator.device.type not in (self.device.type, "meta"):
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
         cfg = self.cfg
         specs = layer_specs(cfg.program)
@@ -142,8 +149,14 @@ class Model:
         return {
             "embed": init_embedding(generator, cfg, dtype),
             "blocks": [init_layer(generator, cfg, spec, dtype) for spec in specs],
-            "final_norm": init_norm(cfg, self.device),
+            "final_norm": init_norm(cfg, generator.device),
         }
+
+    def init_shapes(self, dtype: torch.dtype | None = None):
+        """``init``'s parameters as meta tensors: shapes and dtypes, no memory
+        and no random draw (the counterpart of the reference's
+        ``jax.eval_shape(self.init, ...)``), for tracing a step."""
+        return self.init(ShapeOnly(), dtype)
 
     def _angles(self, positions):
         if self.cfg.num_heads == 0:  # attention-free (mamba2)
@@ -171,8 +184,9 @@ class Model:
         B, S = tokens.shape
         angles = self._angles(torch.arange(S, device=tokens.device).expand(B, S))
         for p, spec in zip(params["blocks"], specs):
-            if remat:
-                x = checkpoint(train_layer, p, x, cfg, spec, angles, use_reentrant=False)
+            if remat:  # no layer draws random numbers, so no RNG state is saved
+                x = checkpoint(train_layer, p, x, cfg, spec, angles, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = train_layer(p, x, cfg, spec, angles)
         x = apply_norm(params["final_norm"], x, cfg)

@@ -2,10 +2,10 @@
 
 Counterpart of ``repro/plan/passes.py``, whose code this is, with
 its imports pointed into ``repro_torch``; ``tests/test_torch_plan.py``
-holds the two equal.  Two changes: ``PassContext.hw`` defaults to the
-port's card, ``H100_SXM``, and ``TraceCapture`` given a ``step_fn`` (and no
-cached artifact) raises ``NotImplementedError``: the torch graph tracer is
-ROADMAP queue A5.  Its ``events=`` and cache paths are the reference's.
+holds the two equal.  One change: ``PassContext.hw`` defaults to the
+port's card, ``H100_SXM``.  ``TraceCapture`` traces a ``step_fn`` with the
+port's graph tracer (``core.trace.trace_step_fn``: a torch step on fake
+tensors) where the reference traces a jaxpr.
 
 Canonical order (each pass is idempotent and skips work already present):
 
@@ -85,7 +85,7 @@ class Pipeline:
 # ----------------------------------------------------------------- front-ends
 @dataclass
 class TraceCapture:
-    """Front-end: cached artifact > raw device events (> a step_fn trace, A5).
+    """Front-end: cached artifact > raw device events > a step_fn trace.
 
     Exactly one source is used per run.  When ``ctx.cache`` holds an artifact
     for ``ctx.key`` the program is restored as-is and *nothing* is re-traced —
@@ -97,7 +97,8 @@ class TraceCapture:
     arg_names: Sequence[str] | None = None
     # Must match MemoryPlanner's default: programs cached under the same
     # PlanKey have to come from identical tracer settings (anything that
-    # changes the trace belongs in the key's step_signature).
+    # changes the trace belongs in the key's step_signature).  The port's
+    # steps have no scans, so it has no effect; it is kept so callers match.
     max_scan_unroll: int = 16
     events: Sequence[Event] | None = None
     name: str = "TraceCapture"
@@ -116,18 +117,24 @@ class TraceCapture:
             raise PlanCacheMiss(
                 f"no step_fn given and no cached plan for key {ctx.key!r}"
             )
-        raise NotImplementedError(
-            "TraceCapture(step_fn=...): tracing a torch step function is "
-            "ROADMAP queue A5, not ported yet; pass events= (RecordingDevice) "
-            "or restore a cached artifact"
+        from ..core.trace import trace_step_fn
+
+        trace = trace_step_fn(
+            self.step_fn,
+            *self.example_args,
+            arg_names=self.arg_names,
+            max_scan_unroll=self.max_scan_unroll,
         )
+        prog = MemoryProgram(trace=trace, key=ctx.key)
+        prog.dirty = True
+        return prog
 
 
 @dataclass
 class IterationDetect:
     """Fold raw device events into the canonical one-iteration trace (§V).
 
-    No-op for jaxpr-captured programs: under XLA one jaxpr IS the iteration.
+    No-op for graph-captured programs: one traced step IS the iteration.
     """
 
     min_period: int = 4

@@ -297,9 +297,19 @@ def test_h100_spec_has_its_own_name_and_cache_names():
 
 
 def test_trace_capture_of_a_step_fn_names_queue_a5(tmp_path):
+    """Queue A5 (trace capture) is done: a torch step function is traced (on
+    fake tensors) into a dirty program, with no cache entry read; with
+    neither a step function nor a cached plan, the capture still misses."""
+    import torch
+
     ctx = P_plan.PassContext(cache=P_plan.PlanCache(tmp_path), key=P_plan.PlanKey("a", "b", "c"))
-    with pytest.raises(NotImplementedError, match="A5"):
-        P_plan.TraceCapture(step_fn=lambda x: x, example_args=(np.zeros(2),)).run(None, ctx)
+    prog = P_plan.TraceCapture(step_fn=lambda w, x: torch.tanh(x @ w).sum(),
+                               example_args=(torch.zeros(8, 4), torch.zeros(2, 8)),
+                               arg_names=["w", "x"]).run(None, ctx)
+    assert prog.dirty and not prog.from_cache and prog.key == ctx.key
+    trace = prog.require_trace()
+    assert [v.name for v in trace.variables][:2] == ["w", "x"]
+    assert trace.peak_load() == (8 * 4 + 2 * 8) * 4
     with pytest.raises(P_plan.PlanCacheMiss):
         P_plan.TraceCapture().run(None, ctx)
 
@@ -311,7 +321,8 @@ def test_registry_and_surface_match_the_reference():
     import repro.core as R_core
     import repro_torch.core as P_core
 
-    assert set(P_core.__all__) == set(R_core.__all__) - {"trace_jaxpr", "trace_step_fn"} | {"H100_SXM"}
+    assert set(P_core.__all__) == set(R_core.__all__) - {"trace_jaxpr"} | {
+        "H100_SXM", "trace_graph", "MemoryPlanner", "PoolReport", "SwapReport"}
 
 
 # ------------------------------------------------------------ no JAX in the port
@@ -321,6 +332,9 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch.core, repro_torch.plan, repro_torch.analyze, repro_torch.runtime\n"
+        "import repro_torch.core.trace, repro_torch.core.costmodel, repro_torch.core.planner\n"
+        "import repro_torch.configs.specs, repro_torch.kernels.ops, repro_torch.launch.train\n"
+        "from repro_torch.core import MemoryPlanner\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
         "             and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))))\n"
         "assert not bad, bad\n"

@@ -147,8 +147,10 @@ def test_ssd_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm, Cm)
     with pytest.raises(ValueError, match="want x"):
         ssd_scan(x, dt, A, Bm, Cm[..., :4])
-    with pytest.raises(ValueError, match="device"):
-        ops.ssd(*(t.to("meta") for t in T))
+    # Meta tensors reach the operator's fake implementation: shapes only.
+    y, state = ops.ssd(*(t.to("meta") for t in T))
+    assert (y.device.type, tuple(y.shape), tuple(state.shape)) == ("meta", (1, 8, 4, 16),
+                                                                   (1, 4, 16, 8))
     # bf16 inputs of both variants pass the layout checks and stop at the
     # device check: dense ones (tc), and a view that starts one element into
     # its storage, which the tc kernel's 16-byte rows rule out (simt).
