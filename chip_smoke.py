@@ -72,8 +72,11 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               fake tensors, (a) the loss and (b) the loss with its
               gradient under remat, each planned under ``H100_SXM`` and run
               for real, its peak beside the trace's peak load w ((a)'s w
-              above its peak fails); every program must pass the static
-              verifier and round-trip through its artifact byte for byte.
+              above its peak fails), with the graph's 0-byte nodes (which
+              the tracer gives no variable) listed by target and (a)'s
+              variables and selections beside the CPU run's; every program
+              must pass the static verifier and round-trip through its
+              artifact byte for byte.
               A rate above its data-sheet figure is an impossible reading
               and fails;
   8. train parity  one train step of qwen3-4b's widths at depth 2 in fp32
@@ -93,11 +96,25 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               tokens/s, the peak beside the 64.36 GB of fp32 state and
               under the card's memory, and exact launch counts by variant;
  10. profile  a warm train step timed, then traced (top kernels, the port's
-              kernels by name, the device's idle share).
+              kernels by name, the device's idle share);
+ 11. offload  AutoSwap's plan executed: the loss step of phase 9's shape
+              traced and planned under ``H100_SXM`` at half its peak load w
+              (rounded down to 0.01 GiB), where ``OffloadLowering`` must
+              name block_in; then ``train.main`` with ``--hbm-limit-gb`` at
+              that limit (the plan restored from its cache) for phase 9's
+              steps, seed and batches: losses within 1e-6 relative of phase
+              9's, launch counts by variant equal to phase 9's, and the bytes
+              moved each way a step exactly 36 x (names offloaded) x one
+              activation; device memory between the forward and the backward
+              with the plan and without, at the same resident params and
+              batch (the drop must be at least 90% of the 36 layer inputs);
+              and a warm step traced with the plan, beside phase 10's: the
+              copies' time each way and how much of it lies beside compute.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the main paths, the serve and train runs,
-with each path's own count in ``launches_by_path``), the nvidia-smi line,
+the plain one and the one with the plan, with each path's own count in
+``launches_by_path``), the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -113,6 +130,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -867,28 +885,30 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
 TRAIN_STATE_BYTES = 16 * 4_022_468_096
 
 
-def phase_train(B: int, S: int, steps: int, want: dict[str, int]):
+def phase_train(B: int, S: int, steps: int, want: dict[str, int], extra=(), phase="9",
+                what="remat"):
     """Train the full qwen3-4b through ``train.main`` (fp32 masters, bf16
-    compute, per-layer remat, chunked loss, AdamW) for ``steps`` steps; each
-    kernel must have been launched ``want[name]`` times."""
+    compute, per-layer remat, chunked loss, AdamW) for ``steps`` steps, with
+    ``extra`` arguments; each kernel must have been launched ``want[name]``
+    times.  -> (launch counts, losses, peak bytes, host ms a step, output)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
-    held = release_memory("9")
+    held = release_memory(phase)
     out = io.StringIO()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         losses = train.main(["--arch", "qwen3-4b", "--batch", str(B), "--seq", str(S),
-                             "--steps", str(steps), "--log-every", "1"])
+                             "--steps", str(steps), "--log-every", "1", *extra])
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     card = torch.cuda.get_device_properties(0).total_memory
     text = out.getvalue()
     step_ms = [float(m) for m in re.findall(r"loss +\S+ +([0-9.]+) ms", text)]
-    print(f"[9] train qwen3-4b (36 layers, fp32 masters, bf16 compute, remat) B{B} S{S}, "
-          f"{steps} steps:")
+    print(f"[{phase}] train qwen3-4b (36 layers, fp32 masters, bf16 compute, {what}) B{B} "
+          f"S{S}, {steps} steps:")
     for line in text.strip().splitlines():
         print(f"  {line}")
     warm = step_ms[1:]
@@ -902,12 +922,13 @@ def phase_train(B: int, S: int, steps: int, want: dict[str, int]):
             f"train: losses {losses}")
     require(peak < card, f"train: peak {peak} B exceeds the card's {card} B")
     require(counts == want, f"train: launch counts {counts}, want {want}")
-    return counts
+    return counts, losses, peak, step_ms, text
 
 
-def phase_train_profile(B: int, S: int):
+def phase_train_profile(B: int, S: int, policy=None, phase="10"):
     """Where a warm training step's time goes: one step timed untraced, then
-    one traced with torch.profiler."""
+    one traced with torch.profiler; with ``policy``, under that offload
+    policy.  -> the traced step's device figures (``copy_overlap``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -916,12 +937,12 @@ def phase_train_profile(B: int, S: int):
     from repro_torch.models import build_model
     from repro_torch.optim import adamw_init
 
-    release_memory("10")
+    release_memory(phase)
     cfg = get_config("qwen3-4b")
     model = build_model(cfg, "cuda")
     params = model.init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
     opt = adamw_init(params)
-    step_fn = build_train_step(model, cfg)
+    step_fn = build_train_step(model, cfg, remat_policy=policy)
     batch_fn = make_batch_fn(cfg, B, S, 0, "cuda")
 
     def step(i):
@@ -934,14 +955,138 @@ def phase_train_profile(B: int, S: int):
 
     step(0)  # warm
     loss, ms = step(1)
-    print(f"[10] profile train qwen3-4b B{B} S{S}, warm, untraced: {ms:.1f} ms a step "
-          f"({B * S / ms * 1e3:.0f} tokens/s), loss {loss:.4f}")
+    what = "" if policy is None else f" offloading {sorted(policy.offload_names)}"
+    print(f"[{phase}] profile train qwen3-4b B{B} S{S}{what}, warm, untraced: {ms:.1f} ms a "
+          f"step ({B * S / ms * 1e3:.0f} tokens/s), loss {loss:.4f}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         loss, wall = step(2)
+    figures = copy_overlap(prof)
     print(f"  train step traced: {device_breakdown(prof, wall, top=8)}")
     print(f"  train step by op: {op_breakdown(prof, top=8)}")
+    print(f"  copies: {figures['copy_ms']:.3f} ms in all (device to host "
+          f"{figures['d2h_ms']:.3f}, host to device {figures['h2d_ms']:.3f}), "
+          f"{figures['overlap_ms']:.3f} ms of it beside compute; compute (kernels and "
+          f"memsets) busy {figures['compute_ms']:.2f} ms of {wall:.2f} ms wall")
     require(math.isfinite(loss), "train profile: non-finite loss")
+    return dict(figures, untraced_ms=ms, wall_ms=wall)
+
+
+def _union(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def copy_overlap(prof) -> dict[str, float]:
+    """From a traced step's device events: the time of the copies
+    (``Memcpy ...``) each way, of the rest (kernels, memsets: compute) as a
+    union of intervals, and how much of the copies' time lies within it."""
+    copies: dict[str, list] = {"d2h": [], "h2d": [], "other": []}
+    compute = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if e.name.startswith("Memcpy"):
+            kind = "d2h" if "DtoH" in e.name else "h2d" if "HtoD" in e.name else "other"
+            copies[kind].append(span)
+        else:
+            compute.append(span)
+    busy = _union(compute)
+    overlap = sum(max(0.0, min(b, d) - max(a, c))
+                  for spans in copies.values() for a, b in spans for c, d in busy)
+    ms = {k: sum(b - a for a, b in v) / 1e3 for k, v in copies.items()}
+    return {"d2h_ms": ms["d2h"], "h2d_ms": ms["h2d"], "copy_ms": sum(ms.values()),
+            "overlap_ms": overlap / 1e3, "compute_ms": sum(b - a for a, b in busy) / 1e3}
+
+
+# Phase 11: AutoSwap's plan executed.  Solved plans land here, inside the checkout.
+PLAN_DIR = Path(__file__).resolve().parent / "build" / "plans"
+
+
+def phase_offload_plan(B: int, S: int):
+    """Trace and plan the loss step ``train --hbm-limit-gb`` plans (the
+    same key, so ``train.main`` restores it from PLAN_DIR) at half its peak
+    load w, rounded down to 0.01 GiB; block_in must be named there.  ->
+    (the limit in GiB, the OffloadPlan)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    shutil.rmtree(PLAN_DIR, ignore_errors=True)
+    model = build_model(get_config("qwen3-4b"), "cuda")
+    t0 = time.perf_counter()
+    planner = train.step_planner(model, "qwen3-4b", B, S, False, str(PLAN_DIR))
+    omega = planner.report().peak_load
+    gb = math.floor(omega / 2 / 2**30 * 100) / 100
+    limit = int(gb * 2**30)
+    plan = planner.offload_plan(limit)
+    sw = planner.swap_report(limit)
+    print(f"[11] plan: loss step of qwen3-4b B{B} S{S} (fp32 masters) traced and planned "
+          f"under H100_SXM in {time.perf_counter() - t0:.1f}s: w {omega:,} B, limit "
+          f"{gb} GiB ({limit:,} B, {limit / omega:.4f} w): offload_names {plan.offload_names}, "
+          f"save_names {plan.save_names}, predicted_savings {plan.predicted_savings:,} B, "
+          f"transfer_bytes {plan.transfer_bytes:,} B; swdoa selects {sw.num_selected} "
+          f"variables, {sw.selected_bytes:,} B (by name {sw.per_name_bytes}), simulated "
+          f"overhead {sw.overhead * 100:.2f}%, stalls {sw.stalls}")
+    require("block_in" in plan.offload_names, f"the plan at {gb} GiB names no block_in")
+    return gb, plan
+
+
+def phase_offload_memory(B: int, S: int, names):
+    """Device memory between the forward and the backward of the full
+    qwen3-4b loss, at the same resident fp32 masters and batch, under plain
+    remat and under the policy offloading ``names``: offloading block_in
+    keeps no layer input on the device, so the drop must be at least 90% of
+    36 of them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload import remat_policy_for
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    release_memory("11")
+    cfg = get_config("qwen3-4b")
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
+    batch = make_batch_fn(cfg, B, S, 0, "cuda")(0)
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    between, losses, moved = {}, {}, {}
+    # A first run allocates what stays (cuBLAS's 32 MiB workspace), so that
+    # the two measured runs start from the same memory.
+    for tag, policy in (("warm", None), ("plain", None),
+                        ("offload", remat_policy_for(names).policy())):
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        loss, _ = model.loss(params, batch, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.empty(1, device="cuda")  # the allocator takes back blocks whose copies ended
+        between[tag] = torch.cuda.memory_allocated() - resident
+        grads = torch.autograd.grad(loss, leaves)
+        losses[tag] = float(loss.detach())
+        moved[tag] = (policy.bytes_d2h, policy.bytes_h2d) if policy else (0, 0)
+        del grads, loss
+    drop = between["plain"] - between["offload"]
+    want = cfg.num_layers * ACT_BYTES
+    print(f"[11] memory between forward and backward (params and batch resident): plain "
+          f"remat {between['plain']:,} B (the run before it {between['warm']:,} B), "
+          f"offloading {names} {between['offload']:,} B: drop {drop:,} B = "
+          f"{drop / want:.4f} of the 36 block_in ({want:,} B); losses {losses}, bytes to "
+          f"host and back {moved['offload']}")
+    require(drop >= 0.9 * want, f"offload: device memory dropped {drop} B, want >= 0.9 x {want}")
+    require(len(set(losses.values())) == 1, f"offload: loss {losses}")
+    for t in leaves:
+        t.requires_grad_(False)
 
 
 # The __global__ functions of csrc/*.cu, as a trace names them.
@@ -1318,7 +1463,7 @@ def phase_captured_plans(B: int, S: int):
     151,936 x 2,560 x 4 B)."""
     from repro_torch.configs import get_config
     from repro_torch.core.simulator import H100_SXM
-    from repro_torch.core.trace import trace_step_fn
+    from repro_torch.core.trace import _leaf_paths, capture_graph, trace_graph
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.models import build_model
     from repro_torch.plan import PlanKey
@@ -1342,8 +1487,10 @@ def phase_captured_plans(B: int, S: int):
     omega = {}
     for tag, fn in (("a", loss), ("b", loss_and_grad)):
         t0 = time.perf_counter()
-        trace = trace_step_fn(fn, shapes, probe, device="cuda")
+        gm = capture_graph(fn, shapes, probe, device="cuda")
+        trace = trace_graph(gm, arg_names=_leaf_paths((shapes, probe)))
         capture_s = time.perf_counter() - t0
+        zero = zero_byte_nodes(gm)
         key = PlanKey("qwen3-4b", f"train:b{B}s{S}:{'loss' if tag == 'a' else 'grad'}",
                       H100_SXM.name)
         prog, limits, solve_s, checks, nbytes = plan_and_check(trace, key, H100_SXM)
@@ -1361,6 +1508,15 @@ def phase_captured_plans(B: int, S: int):
               f"{prog.baselines['exact'].footprint / peak:.4f}; solved in {solve_s:.2f}s, "
               f"verifier ok ({checks} checks), round trip byte-equal ({nbytes:,} B)")
         print_swaps(prog, limits, H100_SXM.name)
+        print(f"  0-byte nodes of the graph (no variable, no event): "
+              f"{sum(zero.values())} {dict(zero)}")
+        if tag == "a":
+            got = (len(trace.variables),
+                   tuple(round(prog.swap_summaries[f"swdoa@{lim}"].selected_bytes / 1e9, 2)
+                         for lim in limits))
+            print(f"  C1: variables and swdoa's GB at {LIMIT_FRACS} of w {got}; the CPU run "
+                  f"of the same code under torch 2.13 {CPU_CAPTURE_A}: "
+                  f"{'equal' if got == CPU_CAPTURE_A else 'NOT equal'}")
 
     held = release_memory("7")
     params = model.init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
@@ -1386,6 +1542,24 @@ def phase_captured_plans(B: int, S: int):
             require(omega[tag] <= real, f"captured (a): w {omega[tag]} B exceeds the real peak "
                                         f"{real} B")
     del params, batch
+
+
+# Capture (a) on fake CPU tensors under torch 2.13: variables and the GB
+# swdoa selects at LIMIT_FRACS of w (PERF.md §6).
+CPU_CAPTURE_A = (2424, (3.68, 7.93, 12.18))
+
+
+def zero_byte_nodes(gm) -> Counter:
+    """The graph's nodes whose tensor outputs hold 0 bytes, by target: what
+    the tracer gives no variable (ROADMAP C1)."""
+    out: Counter = Counter()
+    for node in gm.graph.nodes:
+        val = node.meta.get("val")
+        vals = [v for v in (val if isinstance(val, (list, tuple)) else [val])
+                if isinstance(v, torch.Tensor)]
+        if vals and all(v.numel() == 0 for v in vals):
+            out[f"{node.op}:{node.target}"] += 1
+    return out
 
 
 def mma_count(build, lib: str, ops: tuple[str, ...]) -> int:
@@ -1484,10 +1658,39 @@ def main() -> int:
     # bf16 with 16-byte rows at head dim 128: every RMSNorm launch is
     # `vector` both ways, every flash forward and backward `wgmma`.
     steps = 5
-    paths["train qwen3-4b"] = phase_train(
-        4, 512, steps, want((2 * 4 * 36 + 1) * steps, 2 * 36 * steps, 0,
-                            (4 * 36 + 1) * steps, 36 * steps))
-    phase_train_profile(4, 512)
+    train_want = want((2 * 4 * 36 + 1) * steps, 2 * 36 * steps, 0, (4 * 36 + 1) * steps,
+                      36 * steps)
+    paths["train qwen3-4b"], plain_losses, plain_peak, plain_ms, _ = phase_train(
+        4, 512, steps, train_want)
+    plain_prof = phase_train_profile(4, 512)
+
+    # Phase 11: the same training under AutoSwap's offload plan at half the
+    # traced loss's w, which must launch every kernel as often as plain remat
+    # does, give the same losses, and move each offloaded label of each of
+    # the 36 layers once each way a step.
+    gb, plan = phase_offload_plan(4, 512)
+    counts, losses, peak, step_ms, text = phase_train(
+        4, 512, steps, train_want, extra=("--hbm-limit-gb", str(gb), "--plan-cache",
+                                          str(PLAN_DIR)),
+        phase="11", what=f"remat, offloading {plan.offload_names}")
+    paths["train qwen3-4b (offload)"] = counts
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    per_step = 36 * len(plan.offload_names) * ACT_BYTES
+    d2h, h2d = (json.loads(m) for m in re.search(
+        r"\[offload\] bytes a step to host (\[[0-9, ]*\]), back (\[[0-9, ]*\])", text).groups())
+    print(f"[11] offload against phase 9: largest relative loss difference {rel:.3e} "
+          f"({'equal bits' if losses == plain_losses else 'not equal bits'}); bytes a step to "
+          f"host {d2h}, back {h2d} (want {per_step:,} each); peak {peak / 1e9:.2f} GB against "
+          f"{plain_peak / 1e9:.2f} GB; host ms a step {step_ms} against {plain_ms}")
+    require("(restored from cache)" in text, "offload: train.main did not restore the plan")
+    require(rel <= 1e-6, f"offload: losses {losses} against {plain_losses}")
+    require(d2h == h2d == [per_step] * steps, f"offload: bytes {d2h}, {h2d}; want {per_step}")
+    phase_offload_memory(4, 512, plan.offload_names)
+    prof = phase_train_profile(4, 512, plan.policy(), phase="11")
+    print(f"[11] traced step with the plan against phase 10's: untraced {prof['untraced_ms']:.1f} "
+          f"against {plain_prof['untraced_ms']:.1f} ms, compute busy {prof['compute_ms']:.2f} "
+          f"against {plain_prof['compute_ms']:.2f} ms, copies {prof['copy_ms']:.3f} ms "
+          f"({prof['overlap_ms']:.3f} beside compute) against {plain_prof['copy_ms']:.3f} ms")
 
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA

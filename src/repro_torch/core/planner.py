@@ -5,9 +5,9 @@ imports pointed into the port; two changes: ``hw`` defaults to the port's
 card, ``H100_SXM``, and the step function is a torch one, traced on fake
 tensors by ``core.trace.trace_step_fn`` (``max_scan_unroll`` has no effect:
 the port's steps have no scans).  ``offload_plan`` returns the
-``OffloadPlan`` data; executing it (``OffloadPlan.policy``) is ROADMAP queue
-A6.  ``tests/test_torch_planner.py`` holds the reports equal to the
-reference's on one cached program.
+``OffloadPlan``, which ``OffloadPlan.policy()`` executes in the train
+step (``core/offload_exec.py``).  ``tests/test_torch_planner.py`` holds
+the reports equal to the reference's on one cached program.
 
     step_fn --TraceCapture--> MemoryProgram --PoolPlacement--> allocation plan
                                            \\--SwapSelection--> swap schedule

@@ -33,7 +33,10 @@ the base's, so they extend its lifetime.  An in-place or ``out=`` op
 starts a variable of the label's name over the same storage, which every
 later use of that storage reads; like the reference's ``name`` eqn, it
 never adds to the load, since the variable it ends is freed before the
-one it starts is MALLOCed.
+one it starts is MALLOCed.  A tensor of 0 bytes is no variable: it gets
+no event, and a node whose outputs are all such tensors is skipped, so
+the trace of a step does not depend on how many of them the torch
+version's ``checkpoint`` makes.
 
 What the graph cannot see: memory a kernel allocates inside its wrapper
 (the RMSNorm backward's fp32 ``partial`` rows, one wave of blocks × D × 4 B,
@@ -249,6 +252,16 @@ def _alias_map(node) -> dict[int, tuple[Any, bool]]:
     return out
 
 
+def _holds_bytes(val) -> bool:
+    """Whether ``val`` is a tensor with at least one element.  A 0-byte
+    tensor gets no variable and no event: it holds no memory, and torch
+    versions differ in how many they make (``torch.utils.checkpoint``
+    makes two 0-element ``empty`` tensors a call in some versions, none in
+    others), which would otherwise shift every later event's index and so
+    the plan."""
+    return _is_tensor(val) and _tensor_bytes(val) > 0
+
+
 class _GraphEventEmitter:
     """Walks an fx graph of aten ops and emits the event stream: the
     counterpart of the reference's ``_JaxprEventEmitter``."""
@@ -287,13 +300,13 @@ class _GraphEventEmitter:
         placeholders = [n for n in nodes if n.op == "placeholder"]
         for i, node in enumerate(placeholders):
             val = node.meta.get("val")
-            if not _is_tensor(val):
+            if not _holds_bytes(val):
                 continue
             name = arg_names[i] if i < len(arg_names) else f"arg{i}"
             env[node] = self._fresh(_tensor_bytes(val), name)
             self._emit(EventKind.MALLOC, env[node])
         for node in nodes:  # constants the graph holds (``get_attr``)
-            if node.op == "get_attr" and _is_tensor(node.meta.get("val")):
+            if node.op == "get_attr" and _holds_bytes(node.meta.get("val")):
                 env[node] = self._fresh(_tensor_bytes(node.meta["val"]), "const")
                 self._emit(EventKind.MALLOC, env[node])
         for node in nodes:
@@ -315,7 +328,7 @@ class _GraphEventEmitter:
             return
         val = node.meta.get("val")
         outs = list(val) if isinstance(val, (list, tuple)) else [val]
-        if not any(_is_tensor(v) for v in outs):
+        if not any(_holds_bytes(v) for v in outs):
             return
         qual = _qualified(node)
         inputs = [self._var(env, a) for a in _tensor_args(node)]
@@ -330,7 +343,7 @@ class _GraphEventEmitter:
             self._emit(EventKind.WRITE, vid)
             env[node] = vid
             return
-        tensor_outs = [j for j, out in enumerate(outs) if _is_tensor(out)]
+        tensor_outs = [j for j, out in enumerate(outs) if _holds_bytes(out)]
         if all(j in aliases and not aliases[j][1] for j in tensor_outs):
             # A view of its input: no work, no new storage.
             ids = [env.get(aliases[j][0]) if j in aliases else None for j in range(len(outs))]
@@ -342,7 +355,7 @@ class _GraphEventEmitter:
         cost_index = self._index  # charged to the first output (or write)
         ids: list = []
         for j, out in enumerate(outs):
-            if not _is_tensor(out):
+            if not _holds_bytes(out):
                 ids.append(None)
                 continue
             if j in aliases:

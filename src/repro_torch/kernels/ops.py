@@ -23,10 +23,14 @@ have no backward; the reference differentiates its jnp paths, which
 compute the same functions.
 
 ``label`` is the counterpart of ``jax.ad_checkpoint.checkpoint_name``: it
-names an activation for the planner (``core.offload.KNOWN_NAMES``).
+names an activation for the planner (``core.offload.KNOWN_NAMES``), and
+hands it to an offload policy while one runs a layer (``label_hook``).
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
@@ -126,15 +130,36 @@ class _Label(torch.autograd.Function):
         return dx, None
 
 
+# The hook ``label`` hands real tensors to on this thread (``label_hook``).
+_HOOK = threading.local()
+
+
+@contextlib.contextmanager
+def label_hook(hook):
+    """While active on the current thread, ``label(x, name)`` on a real
+    tensor returns ``hook(x, name)``: how an offload policy
+    (``core/offload_exec.py``) sees the labelled activations of the layer it
+    runs.  A plain attribute on a thread-local, so ``label`` costs no
+    dispatch with a hook or without one."""
+    prev = getattr(_HOOK, "fn", None)
+    _HOOK.fn = hook
+    try:
+        yield
+    finally:
+        _HOOK.fn = prev
+
+
 def label(x, name: str):
     """Name activation ``x`` ``name`` for the planner, as the reference's
-    ``checkpoint_name`` does.  On a real tensor it returns ``x`` itself: no
-    copy, no launch, no dispatch.  On a fake tensor (``core.trace`` tracing
-    a step) it records the operator ``repro_torch::label``, a view of ``x``
-    whose node the tracer reads as the start of a variable of that name."""
+    ``checkpoint_name`` does.  On a real tensor it returns ``x`` itself (no
+    copy, no launch, no dispatch), or what the ``label_hook`` active on this
+    thread returns for it.  On a fake tensor (``core.trace`` tracing a step)
+    it records the operator ``repro_torch::label``, a view of ``x`` whose
+    node the tracer reads as the start of a variable of that name."""
     if isinstance(x, FakeTensor):
         return _Label.apply(x, name)
-    return x
+    hook = getattr(_HOOK, "fn", None)
+    return x if hook is None else hook(x, name)
 
 
 def launch_counts() -> dict[str, int]:

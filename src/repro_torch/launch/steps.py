@@ -23,6 +23,8 @@ def build_train_step(model, cfg: ModelConfig, *, lr: float = 3e-4, remat: bool =
 
     ``batch`` holds [B, S] int tensors; with ``accum_steps`` > 1 it is cut
     into that many micro-batches along B, as the reference's reshape does.
+    ``remat_policy`` (``OffloadPlan.policy()``, or None for plain remat)
+    goes to ``Model.loss``, which applies it per layer under ``remat``.
     metrics: the last micro-batch's model metrics, the mean ``loss`` and
     the ``grad_norm`` before clipping."""
 

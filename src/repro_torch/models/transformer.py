@@ -16,6 +16,7 @@ Mamba-2 training waits for the SSD scan's gradient (ROADMAP queue B item 3).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any
 
 import torch
@@ -23,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from repro_torch.kernels.ops import label
+from repro_torch.tree import tree_leaves
 from . import attention as attn_mod
 from . import ssm as ssm_mod
 from .layers import (
@@ -84,7 +86,9 @@ def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles):
     """Forward one attention layer over the whole sequence, for the loss,
     with the reference's activation labels (``block_in``, ``attn_out``,
     ``ffn_out``: ``repro/models/transformer.py:106,118,319``), which name
-    variables for the planner and cost nothing on real tensors."""
+    variables for the planner and, under an offload policy, the
+    activations it offloads or saves; otherwise they cost nothing on real
+    tensors."""
     x = label(x, "block_in")
     h = attn_mod.apply_attention(p["attn"], apply_norm(p["ln1"], x, cfg), cfg, spec, angles)
     return _ffn(p, x + label(h, "attn_out"), cfg, spec)
@@ -170,11 +174,11 @@ class Model:
         against labels[i + 1], and the data's labels are already the tokens
         shifted by one, so position i learns token i + 2 (ROADMAP queue C).
         ``remat`` recomputes each layer in backward
-        (``torch.utils.checkpoint``), so only its input is kept; a
-        ``remat_policy`` (offloading named activations) is queue A item 6."""
-        if remat_policy is not None:
-            raise NotImplementedError("remat_policy (offloading named activations) is not yet "
-                                      "ported, see ROADMAP.md queue A item 6")
+        (``torch.utils.checkpoint``), so only its input is kept.  With
+        ``remat``, a ``remat_policy`` (``OffloadPlan.policy()``, an
+        ``OffloadPolicy``) runs each layer instead, offloading and saving
+        the labelled activations it names; without ``remat`` it is ignored,
+        as the reference's is."""
         cfg = self.cfg
         specs = layer_specs(cfg.program)
         if any(spec.attn == "mamba" for spec in specs):
@@ -184,7 +188,10 @@ class Model:
         B, S = tokens.shape
         angles = self._angles(torch.arange(S, device=tokens.device).expand(B, S))
         for p, spec in zip(params["blocks"], specs):
-            if remat:  # no layer draws random numbers, so no RNG state is saved
+            if remat and remat_policy is not None:
+                x = remat_policy.run_layer(partial(train_layer, p, cfg=cfg, spec=spec,
+                                                   angles=angles), x, tree_leaves(p))
+            elif remat:  # no layer draws random numbers, so no RNG state is saved
                 x = checkpoint(train_layer, p, x, cfg, spec, angles, use_reentrant=False,
                                preserve_rng_state=False)
             else:

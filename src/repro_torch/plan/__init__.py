@@ -10,7 +10,8 @@ the reference's format (``PLAN_FORMAT_VERSION`` 1), read and written by both.
   registry  — pool methods and swap scorers addressable by name
   artifact  — canonical JSON persistence + on-disk PlanCache
 
-The reference's MemoryPlanner facade over this package is ROADMAP queue A6.
+The reference's MemoryPlanner facade over this package is
+``repro_torch.core.planner``.
 """
 
 from .artifact import PLAN_FORMAT_VERSION, PlanCache, dumps_canonical, program_from_json, program_to_json

@@ -334,6 +334,7 @@ def test_port_imports_without_jax():
         "import repro_torch.core, repro_torch.plan, repro_torch.analyze, repro_torch.runtime\n"
         "import repro_torch.core.trace, repro_torch.core.costmodel, repro_torch.core.planner\n"
         "import repro_torch.configs.specs, repro_torch.kernels.ops, repro_torch.launch.train\n"
+        "import repro_torch.core.offload_exec\n"
         "from repro_torch.core import MemoryPlanner\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
         "             and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))))\n"

@@ -267,6 +267,74 @@ def test_graph_gemm_flops_match_the_reference():
     assert whole["dynamic_loops"] == 0 and whole["bytes"] >= whole["bytes_fused"] > 0
 
 
+def _with_empty_nodes(gm):
+    """``gm`` with 0-byte nodes inserted: a 0-element placeholder after the
+    last input, and before each ``block_in`` label (one a checkpointed
+    layer) two 0-element ``empty`` nodes, as ``torch.utils.checkpoint``
+    makes in some torch versions, and a 0-element ``new_empty`` of the
+    labelled tensor, a node that reads a real tensor and makes nothing."""
+    graph = gm.graph
+    nodes = list(graph.nodes)
+    val = next(n.meta["val"] for n in nodes if P._is_tensor(n.meta.get("val")))
+    with val.fake_mode:
+        empty = torch.empty(0, device=val.device)
+    first = next(n for n in nodes if n.op != "placeholder")
+    with graph.inserting_before(first):
+        graph.placeholder("zero_bytes").meta["val"] = empty
+    labels = [n for n in nodes if P._qualified(n) == P.LABEL_OP and n.args[1] == "block_in"]
+    for node in labels:
+        with graph.inserting_before(node):
+            for _ in range(2):
+                graph.call_function(torch.ops.aten.empty.memory_format, ([0],),
+                                    {"device": val.device}).meta["val"] = empty
+            graph.call_function(torch.ops.aten.new_empty.default,
+                                (node.args[0], [0])).meta["val"] = empty
+    return gm, len(labels)
+
+
+def test_zero_byte_nodes_change_no_event_and_no_plan():
+    """Queue C1: the card's torch 2.11 traced two 0-byte nodes a checkpoint
+    call (76 on qwen3-4b's loss) that torch 2.13 does not, which shifted
+    the event indices and so AutoSwap's selections.  The emitter gives 0-byte
+    tensors no variable and no event: the same graph with such nodes
+    inserted has the same events, sizes, names, costs and plan, byte for
+    byte."""
+    from repro_torch.plan import (MemoryProgram, OffloadLowering, PassContext, Pipeline,
+                                  PlanKey, PoolPlacement, SwapSelection, TimingAssign,
+                                  dumps_canonical)
+
+    _, tcfg, B, S = _configs("smoke")
+    model = build_model(tcfg, "cpu")
+    args = (model.init_shapes(), {k: _meta(B, S, dtype=torch.long) for k in ("tokens", "labels")})
+    names = P._leaf_paths(args)
+
+    def loss(p, b):
+        return model.loss(p, b)[0]
+
+    plain = P.capture_graph(loss, *args)
+    padded, n_layers = _with_empty_nodes(P.capture_graph(loss, *args))
+    assert n_layers == tcfg.num_layers
+    assert len(padded.graph.nodes) == len(plain.graph.nodes) + 1 + 3 * n_layers
+    ems = []
+    for gm, arg_names in ((plain, names), (padded, names + ["zero_bytes"])):
+        em = P._GraphEventEmitter()
+        em.run(gm, arg_names)
+        ems.append(em)
+    assert ems[0].events == ems[1].events
+    assert (ems[0].sizes, ems[0].names, ems[0].op_costs) == \
+        (ems[1].sizes, ems[1].names, ems[1].op_costs)
+    traces = [P.trace_graph(plain, names), P.trace_graph(padded, names + ["zero_bytes"])]
+    key = PlanKey("qwen3-4b", "train:smoke", "H100_SXM")
+    limits = [int(traces[0].peak_load() * f) for f in (0.9, 0.7, 0.5)]
+    passes = [TimingAssign(), PoolPlacement(("best_fit", "cnmem", "exact"))]
+    passes += [SwapSelection(limit=lim, scorer="swdoa") for lim in limits]
+    passes += [OffloadLowering(limit=lim, scorer="swdoa") for lim in limits]
+    dumps = [dumps_canonical(Pipeline(passes).run(MemoryProgram.from_trace(t, key),
+                                                  PassContext()))
+             for t in traces]
+    assert dumps[0] == dumps[1]
+
+
 _NO_FAKE = torch.library.Library("repro_torch_test", "FRAGMENT")
 _NO_FAKE.define("no_fake(Tensor x) -> Tensor")
 _NO_FAKE.impl("no_fake", lambda x: x * 2, "CPU")

@@ -110,18 +110,29 @@ def test_loss_and_grads_match_jax(which, dtype, loss_tol, grad_tol):
 
 
 def test_remat_changes_no_number_and_policy_raises():
+    """Remat, and remat under an offload policy (``OffloadPlan.policy()``),
+    change no number; without remat the policy is ignored, as the
+    reference's is, and moves nothing.  A policy naming an activation the
+    model does not label raises."""
+    from repro_torch.core.offload import remat_policy_for
+
     _, _, tmodel, tparams, tcfg, B, S = _setup("smoke", "float32")
     batch = _tb(_batches(tcfg, B, S, 1)[0])
     leaves = tree_leaves(tparams)
     for t in leaves:
         t.requires_grad_(True)
     out = []
-    for remat in (True, False):
-        loss, _ = tmodel.loss(tparams, batch, remat=remat)
+    policies = [remat_policy_for(["block_in"]).policy() for _ in range(2)]
+    for remat, policy in ((True, None), (False, None), (True, policies[0]),
+                          (False, policies[1])):
+        loss, _ = tmodel.loss(tparams, batch, remat=remat, remat_policy=policy)
         out.append([loss.detach(), *torch.autograd.grad(loss, leaves)])
-    assert all(torch.equal(a, b) for a, b in zip(*out))
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        tmodel.loss(tparams, batch, remat_policy=object())
+    assert all(torch.equal(a, b) for run in out[1:] for a, b in zip(out[0], run))
+    act = B * S * tcfg.d_model * 4
+    assert policies[0].bytes_d2h == policies[0].bytes_h2d == tcfg.num_layers * act
+    assert policies[1].bytes_d2h == policies[1].bytes_h2d == 0
+    with pytest.raises(ValueError, match="unlabelled"):
+        remat_policy_for(["not_a_label"])
 
 
 def test_model_init_stores_masters_when_asked():
