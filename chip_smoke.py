@@ -109,12 +109,23 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               with the plan and without, at the same resident params and
               batch (the drop must be at least 90% of the 36 layer inputs);
               and a warm step traced with the plan, beside phase 10's: the
-              copies' time each way and how much of it lies beside compute.
+              copies' time each way and how much of it lies beside compute;
+ 12. serve plans  ``serve.main --plan --plan-cache`` on phase 5's two cells:
+              launch counts by variant and greedy tokens equal to phase 5's
+              (planning launches nothing; decode takes 0-d device positions),
+              each step's vars, w, chi/w and AutoSwap@80%; w against the
+              card's real peak around one warm call with the params resident
+              (w above it fails), the traced decode step's events at two
+              positions (equal), the verifier and the artifact's round trip,
+              and a second run that restores both plans; then
+              ``launch.colocate`` with prefill, decode@2.0 and train tenants
+              of qwen3-4b, every plan restored (train's from phase 11),
+              with its per-tenant report and ``--verify`` certificates.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
-numbers (``launches`` summed over the main paths, the serve and train runs,
-the plain one and the one with the plan, with each path's own count in
-``launches_by_path``), the nvidia-smi line,
+numbers (``launches`` summed over the main paths, the serve runs, plain
+and planned, and the train runs, plain and with the offload plan, with each
+path's own count in ``launches_by_path``), the nvidia-smi line,
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -845,7 +856,8 @@ def release_memory(phase: str = "5") -> int:
 
 def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     """Serve the full model through ``serve.main`` (a prefill and G - 1 decode
-    steps); each kernel must have been launched ``want[name]`` times."""
+    steps); each kernel must have been launched ``want[name]`` times.  ->
+    (launch counts, the greedy tokens, decode ms a step)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -877,7 +889,7 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     require(counts == want, f"{arch}: launch counts {counts}, want {want}")
     require(tuple(gen.shape) == (B, G), f"generated shape {tuple(gen.shape)}")
     require(int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size, "token out of range")
-    return counts
+    return counts, gen, decode_s / (G - 1) * 1e3
 
 
 # qwen3-4b in fp32 (4,022,468,096 parameters): masters, gradients, and AdamW's
@@ -1097,6 +1109,165 @@ PORT_KERNELS = ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel", "rmsnorm_bwd_vec_
                 "flash_bwd_dot_kernel", "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
                 "ssd_cb_kernel", "ssd_scan_tc_kernel", "ssd_scan_kernel")
+
+
+# Phase 12: the serving steps planned (serve --plan --plan-cache PLAN_DIR),
+# restored, measured against the card, and co-located with phase 11's train
+# step.
+def _plan_lines(text: str) -> dict[str, tuple[str, str]]:
+    """role -> (its ``[plan] role: ...`` report line, its AutoSwap@80% line)."""
+    out = {}
+    for role in ("prefill", "decode"):
+        lines = [ln for ln in text.splitlines() if ln.startswith(f"[plan] {role}: ")]
+        require(len(lines) == 2, f"serve printed {lines} for {role}")
+        out[role] = (lines[0], lines[1])
+    return out
+
+
+def phase_serve_plans(arch: str, B: int, P: int, G: int, want: dict[str, int], phase5_gen,
+                      phase5_ms: float):
+    """``serve.main --plan --plan-cache PLAN_DIR`` on the full model: the
+    launch counts by variant must be phase 5's and the greedy tokens phase
+    5's bit for bit (planning traces fake tensors and launches nothing; the
+    decode loop passes 0-d device positions).  Then, for each step: its
+    peak load w beside the card's real peak around one warm call with the
+    params resident (w above the peak fails, as in phase 7 (a)), the
+    traced decode step's events at two positions (must be equal), the
+    static verifier and the artifact's byte-for-byte round trip; and a
+    second ``serve.main`` that must restore both plans.  -> launch counts."""
+    from repro_torch.analyze import verify_program
+    from repro_torch.configs import get_config
+    from repro_torch.core.trace import trace_step_fn
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.transformer import init_program_cache
+    from repro_torch.plan import dumps_canonical, program_from_json
+
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(P), "--gen", str(G),
+            "--plan", "--plan-cache", str(PLAN_DIR)]
+    held = release_memory("12")
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        gen = serve.main(argv)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    text = out.getvalue()
+    decode_ms = float(re.search(r"decode: .* in ([0-9.]+)s", text).group(1)) / (G - 1) * 1e3
+    print(f"[12] serve {arch} --plan --plan-cache (B{B} P{P} gen {G}), main() wall "
+          f"{wall:.1f}s (init and planning included):")
+    for line in text.strip().splitlines():
+        print(f"  {line}")
+    require(counts == want, f"{arch} planned: launch counts {counts}, want phase 5's {want}")
+    require(torch.equal(gen, phase5_gen), f"{arch} planned: greedy tokens differ from phase 5's")
+    require(all(ln[0].split(": ", 1)[1].startswith("solved")
+                for ln in _plan_lines(text).values()), f"{arch}: the first run did not solve")
+    print(f"  launches equal to phase 5's by variant, greedy tokens equal bit for bit; decode "
+          f"{decode_ms:.2f} ms a step (0-d device positions), phase 5's run {phase5_ms:.2f}")
+
+    # w beside the card's peak for one warm call of each step.
+    model = build_model(cfg, "cuda")
+    planners = {role: serve.serve_step_planner(model, arch, role, B, P, P + G, False,
+                                               str(PLAN_DIR)) for role in ("prefill", "decode")}
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, P)))
+    tokens = tokens.cuda()
+    positions = torch.arange(P, P + G, device="cuda")
+
+    def prefill():
+        logits, cache = model.prefill(params, {"tokens": tokens}, max_seq=P + G)
+        return logits[:, -1].argmax(-1, keepdim=True), cache
+
+    def real_peak(fn, *args):
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        return result, torch.cuda.max_memory_allocated() - held, resident - held
+
+    tok, cache = prefill()  # warm
+    del tok, cache
+    peaks, resident = {}, {}
+    (tok, cache), peaks["prefill"], resident["prefill"] = real_peak(prefill)
+    model.decode_step(params, cache, tok, positions[0])  # warm
+    _, peaks["decode"], resident["decode"] = real_peak(model.decode_step, params, cache, tok,
+                                                       positions[1])
+    del tok, cache, params
+    for role, planner in planners.items():
+        rep = planner.report()
+        sw = planner.swap_report(int(rep.peak_load * 0.8))
+        omega = planner.trace.peak_load()
+        cert = verify_program(planner.program)
+        blob = dumps_canonical(planner.program)
+        require(planner.from_cache, f"{arch} {role}: not restored from {PLAN_DIR}")
+        require(cert.ok, f"{arch} {role}: the verifier failed {cert.failed()}")
+        require(dumps_canonical(program_from_json(json.loads(blob))) == blob,
+                f"{arch} {role}: the artifact does not round-trip byte for byte")
+        print(f"[12] {arch} {role} (restored): vars {rep.num_variables}, w {omega:,} B, "
+              f"SmartPool chi/w {rep.smartpool_ratio:.4f}, CnMem {rep.cnmem_ratio:.4f}; "
+              f"AutoSwap@80% selects {sw.num_selected} vars, {sw.selected_bytes:,} B (by name "
+              f"{sw.per_name_bytes}), simulated overhead {sw.overhead * 100:.2f}%, stalls "
+              f"{sw.stalls}; verifier ok ({len(cert.checks)} checks), round trip byte-equal "
+              f"({len(blob):,} B); real peak {peaks[role]:,} B ({resident[role]:,} B resident "
+              f"first), w / peak {omega / peaks[role]:.4f}")
+        require(omega <= peaks[role], f"{arch} {role}: w {omega} B exceeds the real peak "
+                                      f"{peaks[role]} B")
+
+    # The decode step traced at two positions (0-d CUDA tensors).
+    kv = init_program_cache(cfg, cfg.program, B, P + G, dtype_of(cfg), "meta")
+    tok_meta = torch.empty((B, 1), dtype=torch.long, device="meta")
+    traced = []
+    for pos in (P, P + G - 2):
+        t0 = time.perf_counter()
+        tr = trace_step_fn(build_serve_step(model, cfg), model.init_shapes(), kv, tok_meta,
+                           torch.tensor(pos, device="cuda"))
+        traced.append((pos, tr.num_indices, len(tr.variables), tr.peak_load(),
+                       time.perf_counter() - t0))
+    print(f"[12] {arch} decode traced at two positions: " + "; ".join(
+        f"pos {p}: {n} events, {v} variables, w {w:,} B ({s:.1f}s)" for p, n, v, w, s in traced))
+    require(len({t[1:4] for t in traced}) == 1, f"{arch}: the decode trace depends on pos")
+
+    # Warm start: a second serving process restores both plans.
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(argv)
+    lines = _plan_lines(out.getvalue())
+    for role, (report, swap) in lines.items():
+        print(f"[12] second run: {report}")
+        require(report.split(": ", 1)[1].startswith("restored from cache"),
+                f"{arch} {role}: the second run did not restore its plan")
+    return counts
+
+
+def phase_colocate(B: int, P: int, G: int, S: int):
+    """``repro_torch.launch.colocate`` with prefill, decode@2.0 and train
+    tenants of qwen3-4b at the serve and train cells' shapes, every plan
+    from PLAN_DIR: the two serving steps of phase 12 and, under the same
+    key ``train --plan-cache`` used, phase 11's train step; ``--verify``."""
+    from repro_torch.launch import colocate
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        colocate.main(["--arch", "qwen3-4b", "--tenants", "prefill,decode@2.0,train",
+                       "--batch", str(B), "--prompt-len", str(P), "--gen", str(G), "--seq",
+                       str(S), "--plan-cache", str(PLAN_DIR), "--verify"])
+    text = out.getvalue()
+    print(f"[12] colocate qwen3-4b prefill + decode@2.0 + train (B{B} P{P} gen {G}, train "
+          f"S{S}) under H100_SXM in {time.perf_counter() - t0:.1f}s:")
+    for line in text.strip().splitlines():
+        print(f"  {line}")
+    for role in ("prefill", "decode", "train"):
+        require(f"[plan] qwen3-4b:{role}: restored from cache" in text,
+                f"colocate: the {role} tenant's plan was not restored from {PLAN_DIR}")
+    require("[verify] schedule: ok" in text, "colocate: the schedule did not verify")
 
 
 def device_breakdown(prof, wall_ms: float, top: int = 6) -> str:
@@ -1637,11 +1808,11 @@ def main() -> int:
                 "flash_attention_bwd/simt": 0,
                 "ssd_scan": ssd, "ssd_scan/tc": ssd, "ssd_scan/simt": 0}
 
-    paths = {
-        "serve qwen3-4b": phase_serve("qwen3-4b", 4, 512, 32, want((4 * 36 + 1) * 32, 36, 0)),
-        "serve mamba2-370m": phase_serve("mamba2-370m", 4, 2048, 32,
-                                         want((2 * 48 + 1) * 32, 0, 48)),
-    }
+    serve_want = {"qwen3-4b": (512, want((4 * 36 + 1) * 32, 36, 0)),
+                  "mamba2-370m": (2048, want((2 * 48 + 1) * 32, 0, 48))}
+    paths, served = {}, {}
+    for arch, (P, counts) in serve_want.items():
+        paths[f"serve {arch}"], *served[arch] = phase_serve(arch, 4, P, 32, counts)
     phase_profile("qwen3-4b", 4, 512, 32)
     phase_profile("mamba2-370m", 4, 2048, 32)
     t7 = time.perf_counter()
@@ -1691,6 +1862,16 @@ def main() -> int:
           f"against {plain_prof['untraced_ms']:.1f} ms, compute busy {prof['compute_ms']:.2f} "
           f"against {plain_prof['compute_ms']:.2f} ms, copies {prof['copy_ms']:.3f} ms "
           f"({prof['overlap_ms']:.3f} beside compute) against {plain_prof['copy_ms']:.3f} ms")
+
+    # Phase 12: the serving steps planned, restored and co-located with the
+    # train step of phase 11's plan cache; serving with planning launches
+    # every kernel as phase 5 does and gives its tokens.
+    t12 = time.perf_counter()
+    for arch, (P, counts) in serve_want.items():
+        paths[f"serve {arch} (planned)"] = phase_serve_plans(arch, 4, P, 32, counts,
+                                                             *served[arch])
+    phase_colocate(4, 512, 32, 512)
+    print(f"[12] serve plans phase took {time.perf_counter() - t12:.1f}s")
 
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA

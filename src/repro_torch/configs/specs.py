@@ -33,8 +33,8 @@ def supports_shape(cfg: ModelConfig, shape: str) -> bool:
 
 def input_specs(cfg: ModelConfig, shape: str) -> dict:
     """{"batch": {"tokens"[, "labels"]}} for train and prefill cells;
-    {"tokens", "pos"} for decode, where ``pos`` is the int the port's
-    ``decode_step`` takes: the cache's last position."""
+    {"tokens", "pos"} for decode, where ``pos`` is the 0-d integer tensor
+    the port's ``decode_step`` takes (the reference's int32 scalar)."""
     sp: ShapeSpec = SHAPES[shape]
     B, S = sp.global_batch, sp.seq_len
     if cfg.is_encoder_decoder or cfg.frontend is not None:
@@ -45,7 +45,7 @@ def input_specs(cfg: ModelConfig, shape: str) -> dict:
         if sp.kind == "train":
             batch["labels"] = _meta((B, S), torch.long)
         return {"batch": batch}
-    return {"tokens": _meta((B, 1), torch.long), "pos": S - 1}
+    return {"tokens": _meta((B, 1), torch.long), "pos": _meta((), torch.long)}
 
 
 def cache_specs(model, cfg: ModelConfig, shape: str):

@@ -1,11 +1,16 @@
-"""Step builders (counterpart of ``repro/launch/steps.py``): the train step.
+"""Step builders (counterpart of ``repro/launch/steps.py``): the train,
+prefill and serve steps.
 
 ``build_train_step`` is the reference's (``steps.py:174``) unsharded:
 ``(params, opt_state, batch, step) -> (params, opt_state, metrics)``, with
 ``accum_steps`` micro-batches whose fp32 gradients add up in the params'
-``.grad`` before one division.  Params are updated in place.  The
-reference's PartitionSpec rules (``param_specs`` and the rest) wait for
-ROADMAP queue A item 12; its prefill and serve step builders for item 8.
+``.grad`` before one division.  Params are updated in place.
+``build_prefill_step`` and ``build_serve_step`` are the reference's
+(``steps.py:217,224``): ``(params, batch) -> (logits, cache)`` and
+``(params, cache, tokens, pos) -> (logits, cache)``, where ``pos`` is a
+0-d integer tensor on the model's device and the cache is updated in
+place.  The reference's PartitionSpec rules (``param_specs`` and the rest)
+wait for ROADMAP queue A item 12.
 """
 
 from __future__ import annotations
@@ -55,3 +60,17 @@ def build_train_step(model, cfg: ModelConfig, *, lr: float = 3e-4, remat: bool =
         return params, opt_state, dict(metrics, loss=loss_sum / accum_steps, **om)
 
     return train_step
+
+
+def build_prefill_step(model, cfg: ModelConfig):
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill_step
+
+
+def build_serve_step(model, cfg: ModelConfig):
+    def serve_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+
+    return serve_step

@@ -82,13 +82,16 @@ def make_batch_fn(cfg, batch: int, seq: int, seed: int, device):
     return at
 
 
-def step_planner(model, arch: str, batch: int, seq: int, smoke: bool, plan_cache=None):
+def step_planner(model, arch: str, batch: int, seq: int, smoke: bool, plan_cache=None,
+                 size_threshold: int = 1 << 20):
     """The ``MemoryPlanner`` of the loss step at these shapes, under
     ``H100_SXM``, keyed as the reference keys it: traced on fake tensors,
-    or restored from ``plan_cache`` (a directory) without tracing."""
+    or restored from ``plan_cache`` (a directory or a ``PlanCache``)
+    without tracing.  The colocate launcher's train tenant is this planner
+    at its own ``size_threshold``."""
     from repro_torch.core.planner import MemoryPlanner
     from repro_torch.core.simulator import H100_SXM
-    from repro_torch.plan import PlanCache, PlanKey
+    from repro_torch.plan import PlanKey
 
     probe = {k: torch.empty(batch, seq, dtype=torch.long, device="meta")
              for k in ("tokens", "labels")}
@@ -97,9 +100,9 @@ def step_planner(model, arch: str, batch: int, seq: int, smoke: bool, plan_cache
     def step_probe(params, batch):
         return model.loss(params, batch)[0]
 
-    cache = PlanCache(plan_cache) if plan_cache else None
     key = PlanKey(arch, f"train:b{batch}s{seq}{':smoke' if smoke else ''}", H100_SXM.name)
-    return MemoryPlanner(step_probe, pshapes, probe, hw=H100_SXM, cache=cache, key=key)
+    return MemoryPlanner(step_probe, pshapes, probe, hw=H100_SXM, cache=plan_cache or None,
+                         key=key, size_threshold=size_threshold)
 
 
 def plan_report(model, args):

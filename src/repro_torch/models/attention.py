@@ -13,7 +13,9 @@ storage; fp32 masters when training).
 Keys are cached post-RoPE.  A full cache is a ring of size max_seq, so slot
 == position; ``decode_attention`` writes the new token's k/v into the cache
 in place (the reference returns a new cache; in place saves a copy of the
-whole cache every step) and returns it.
+whole cache every step) and returns it.  Its position is a 0-d integer
+tensor on the device, as the reference's is an int32 scalar: no decode
+step reads it on the host.
 
 The cache is head-major, [B, KV, W, hd], where the reference's is
 [B, W, KV, hd] (``models/convert.py:kv_from_jax`` maps one to the other).
@@ -150,17 +152,23 @@ def init_kv_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_seq: int, d
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attention(p, x, cache, pos: int, cfg: ModelConfig, spec: LayerSpec, angles):
-    """One-token decode. x [B,1,D]; writes this position into ``cache`` in place
-    and returns (out, cache)."""
+def decode_attention(p, x, cache, pos: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
+                     angles):
+    """One-token decode. x [B,1,D], pos a 0-d integer tensor on x's device
+    (``Model.decode_step`` makes it one); writes this position into ``cache``
+    in place and returns (out, cache).  The slot is written with
+    ``index_copy_`` at a 1-element index, never by Python indexing with
+    ``pos``, which would read it back to the host (a sync on the card, a
+    data-dependent error under a fake-tensor trace)."""
     check_spec(spec)
     q, k, v = _project(p, x, cfg, angles)
     W = cache["k"].shape[2]
-    cache["k"][:, :, pos % W] = k[:, 0]
-    cache["v"][:, :, pos % W] = v[:, 0]
+    slot = torch.remainder(pos, W).reshape(1)
+    cache["k"].index_copy_(2, slot, k.transpose(1, 2))
+    cache["v"].index_copy_(2, slot, v.transpose(1, 2))
 
-    idx = torch.arange(W, device=x.device)
-    written_at = pos - torch.remainder(pos - idx, W)  # last write position of slot idx
-    mask = written_at >= 0
+    # Slot idx was last written at pos - (pos - idx) mod W, which is >= 0
+    # exactly when idx <= pos (every slot once pos >= W - 1).
+    mask = torch.arange(W, device=x.device) <= pos
     out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
     return _out(p, out, cfg), cache

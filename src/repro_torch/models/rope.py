@@ -8,6 +8,16 @@ from __future__ import annotations
 import torch
 
 
+def position_tensor(pos, device) -> torch.Tensor:
+    """A decode position as a 0-d int64 tensor on ``device``: a tensor as it
+    is (moved or widened if it lies elsewhere or is narrower, as an int32
+    position is), an int filled there by a kernel, with no copy from the
+    host."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.long)
+    return torch.full((), pos, dtype=torch.long, device=device)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """[head_dim/2] inverse frequencies (fp32)."""
     half = head_dim // 2

@@ -40,7 +40,7 @@ from .layers import (
     init_norm,
     lm_logits,
 )
-from .rope import rope_angles
+from .rope import position_tensor, rope_angles
 
 
 NOT_TRAINED = ("is not yet ported: it needs the SSD scan's gradient, see ROADMAP.md queue B "
@@ -105,8 +105,9 @@ def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int)
     return _ffn(p, x + h, cfg, spec), cache
 
 
-def decode_layer(p, x, cache, pos: int, cfg: ModelConfig, spec: LayerSpec, angles):
-    """One token through one layer; updates ``cache`` in place and returns it."""
+def decode_layer(p, x, cache, pos: torch.Tensor, cfg: ModelConfig, spec: LayerSpec, angles):
+    """One token through one layer; updates ``cache`` in place and returns it.
+    ``pos`` is a 0-d integer tensor on x's device."""
     h = apply_norm(p["ln1"], x, cfg)
     if spec.attn == "mamba":
         h, cache["ssm"] = ssm_mod.decode_mamba(p["mamba"], h, cache["ssm"], cfg)
@@ -225,12 +226,15 @@ class Model:
         x = apply_norm(params["final_norm"], x[:, -1:].contiguous(), cfg)
         return lm_logits(params["embed"], x, cfg), cache
 
-    def decode_step(self, params, cache, tokens, pos: int):
-        """tokens [B,1] int, pos int -> (logits [B,1,V], cache updated in place)."""
+    def decode_step(self, params, cache, tokens, pos):
+        """tokens [B,1] int, pos a 0-d integer tensor (or an int, made one on
+        tokens' device) -> (logits [B,1,V], cache updated in place).  Nothing
+        reads ``pos`` on the host, so a step costs no sync and traces once
+        for every position, as the reference's does with an int32 scalar."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg)
-        positions = torch.full(tokens.shape, pos, device=tokens.device)
-        angles = self._angles(positions)
+        pos = position_tensor(pos, tokens.device)
+        angles = self._angles(pos.expand(tokens.shape))
         for p, c, spec in zip(params["blocks"], cache, layer_specs(cfg.program)):
             x, _ = decode_layer(p, x, c, pos, cfg, spec, angles)
         x = apply_norm(params["final_norm"], x, cfg)

@@ -1,7 +1,6 @@
 """repro_torch.runtime: the execution layer on top of the repro_torch.plan IR.
 
-Counterpart of ``repro/runtime`` without ``tenants`` (the plan-pipeline
-warm start of tenants, ROADMAP queue A9):
+Counterpart of ``repro/runtime``:
 
   engine   — ChannelPool (K DMA channels), PoolAccountant (shared budget),
              HostLink (shared host-interconnect bandwidth pool with
@@ -11,9 +10,13 @@ warm start of tenants, ROADMAP queue A9):
              simulate_program (the paper's simulator as a 1-tenant run)
   workload — seeded Poisson / trace-driven workload generation for churn
              experiments, and a synthetic forward/backward training trace
+  tenants  — tenant_from_program / colocate_programs: plan-pipeline +
+             PlanCache warm-start into the runtime; pipeline_replanner is
+             the online re-solve hook renegotiation uses
 
 ``core.simulator.simulate_swap_schedule`` is a thin 1-tenant/2-channel call
-into this engine.
+into this engine; ``python -m repro_torch.launch.colocate`` drives it from
+the command line.
 """
 
 from .engine import (
@@ -30,6 +33,13 @@ from .engine import (
     simulate_program,
     simulated_report_dict,
 )
+from .tenants import (
+    ColocationResult,
+    colocate_programs,
+    pipeline_replanner,
+    proportional_shares,
+    tenant_from_program,
+)
 from .workload import WorkloadItem, parse_arrivals, poisson_workload, synthetic_train_trace
 
 __all__ = [
@@ -45,6 +55,11 @@ __all__ = [
     "planned_peak",
     "simulate_program",
     "simulated_report_dict",
+    "ColocationResult",
+    "colocate_programs",
+    "pipeline_replanner",
+    "proportional_shares",
+    "tenant_from_program",
     "WorkloadItem",
     "parse_arrivals",
     "poisson_workload",

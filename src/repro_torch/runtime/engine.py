@@ -2,10 +2,7 @@
 
 Counterpart of ``repro/runtime/engine.py``, whose code this is, with
 its imports pointed into ``repro_torch``; ``tests/test_torch_solvers.py``
-holds the two equal.  One change: renegotiation's default replanner lives
-in the reference's ``runtime/tenants.py``, which is not ported yet (ROADMAP
-queue A9), so ``renegotiate=True`` without a ``replanner`` raises
-``NotImplementedError`` where the reference would import it.
+holds the two equal.
 
 This is the execution layer on top of the ``repro.plan`` IR.  The paper's
 simulator (formerly the event loop inside ``core/simulator.py``) replayed ONE
@@ -1101,8 +1098,8 @@ class MemoryRuntime:
     preemptive floor renegotiation of a running victim (see ``Tenant``):
     ``replanner(tenant, new_limit)`` re-solves the victim's swap schedule,
     and the shrunken plan takes effect at the victim's next iteration
-    barrier.  ``replanner`` must be given (the reference's default, the plan
-    pipeline's SwapSelection pass in ``runtime/tenants.py``, is queue A9).
+    barrier.  ``replanner`` defaults to the plan pipeline's SwapSelection
+    pass (``repro_torch.runtime.tenants.pipeline_replanner``).
 
     ``record_events=False`` turns off per-transfer event logging (the
     ``in_events``/``out_events`` tuples grow unbounded across iterations) —
@@ -1340,10 +1337,11 @@ class MemoryRuntime:
     # --------------------------------------------------------- renegotiation
     def _replan(self, tenant: Tenant, new_limit: int) -> tuple[list[SwapDecision], float]:
         if self.replanner is None:
-            raise NotImplementedError(
-                "renegotiate=True needs replanner=...: the default, the plan "
-                "pipeline's pipeline_replanner in runtime/tenants.py, is "
-                "ROADMAP queue A9, not ported yet"
+            from .tenants import pipeline_replanner  # deferred: tenants imports engine
+
+            self.replanner = pipeline_replanner(
+                self.hw, scorer=self.replan_scorer,
+                size_threshold=self.replan_size_threshold,
             )
         return self.replanner(tenant, new_limit)
 

@@ -113,7 +113,7 @@ def test_attention_matches_jax(dtype, tol, max_seq):
         jp, jnp.asarray(x1, jcfg.dtype), jcache, jnp.int32(S), jcfg, spec,
         jax_rope.rope_angles(jnp.asarray(a1), jcfg.head_dim, jcfg.rope_theta))
     tout, tcache = attention.decode_attention(
-        tp, torch.from_numpy(x1).to(layers.dtype_of(tcfg)), tcache, S, tcfg, spec,
+        tp, torch.from_numpy(x1).to(layers.dtype_of(tcfg)), tcache, torch.tensor(S), tcfg, spec,
         rope.rope_angles(torch.from_numpy(a1), tcfg.head_dim, tcfg.rope_theta))
     assert _rel(tout, jout) < tol
     for name in ("k", "v"):
@@ -143,7 +143,7 @@ def test_decode_attention_does_not_copy_the_cache():
             return out
 
     with Allocations():
-        attention.decode_attention(p, x, cache, pos, cfg, spec, angles)
+        attention.decode_attention(p, x, cache, torch.tensor(pos), cfg, spec, angles)
     assert fresh and max(n for _, n in fresh) < cache["k"].numel(), fresh
 
 
@@ -261,8 +261,33 @@ def test_port_imports_with_jax_poisoned():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'repro_torch.launch.serve' in names and 'repro_torch.kernels.ops' in names\n"
+        f"assert set({NEW_MODULES!r}) <= set(names), set({NEW_MODULES!r}) - set(names)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
+    # The framework-free ports (the runtime with its tenants, the tuners,
+    # observability, the verifiers, the plan IR) import no torch either.
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'repro', 'torch'):\n"
+        "    sys.modules[m] = None\n"
+        f"for n in {FRAMEWORK_FREE!r}:\n"
+        "    importlib.import_module(n)\n"
+        "assert not any(m.startswith('repro_torch.models') for m in sys.modules)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+NEW_MODULES = ("repro_torch.launch.colocate", "repro_torch.runtime.tenants", "repro_torch.tune",
+               "repro_torch.tune.budget", "repro_torch.tune.lanes", "repro_torch.tune.objective",
+               "repro_torch.tune.victim", "repro_torch.obs", "repro_torch.obs.cli",
+               "repro_torch.obs.metrics", "repro_torch.obs.monitor", "repro_torch.obs.recorder",
+               "repro_torch.obs.sketch", "repro_torch.obs.trace_export",
+               "repro_torch.obs.windows", "repro_torch.analyze.schedule_check",
+               "repro_torch.analyze.driver")
+FRAMEWORK_FREE = ("repro_torch.runtime", "repro_torch.runtime.tenants", "repro_torch.tune",
+                  "repro_torch.obs", "repro_torch.analyze", "repro_torch.plan")

@@ -38,6 +38,7 @@ from repro_torch.core import smartpool as P_smartpool
 from repro_torch.core.trace import RecordingDevice as P_RecordingDevice
 from repro_torch.runtime import engine as P_engine
 from repro_torch.runtime import workload as P_workload
+from repro_torch.runtime.tenants import pipeline_replanner as P_pipeline_replanner
 from tests.test_solvetime import HW as R_HW_TEST
 from tests.test_solvetime import make_trace, synth_trace
 
@@ -209,23 +210,6 @@ def test_simulate_program_equal(channels, prefetch):
     assert sim_fields(got) == sim_fields(want)
 
 
-def port_replanner(hw, size_threshold: int):
-    """The reference's ``runtime/tenants.py`` ``pipeline_replanner`` on the
-    port's plan pipeline (the port's tenants module is not ported yet)."""
-    from repro_torch.plan import MemoryProgram, PassContext, Pipeline, SwapSelection, TimingAssign
-    from repro_torch.plan.program import swap_key
-
-    progs = {}
-
-    def replan(tenant, new_limit):
-        program = progs.setdefault(tenant.name, MemoryProgram.from_trace(tenant.trace))
-        ctx = PassContext(hw=hw, size_threshold=size_threshold)
-        program = Pipeline([TimingAssign(), SwapSelection(limit=new_limit)]).run(program, ctx)
-        return list(program.swap_summaries[swap_key("swdoa", new_limit)].decisions), 0.0
-
-    return replan
-
-
 def churn_run(E, W, A, hw, renegotiate: bool, replanner=None):
     """A seeded Poisson churn of tenants beside a long-running base tenant,
     under a budget that fits the base's floor and half of a newcomer's
@@ -258,15 +242,24 @@ def test_multi_tenant_runtime_equal(renegotiate):
     want = churn_run(R_engine, R_workload, R_autoswap, r_hw, renegotiate,
                      R_pipeline_replanner(r_hw, size_threshold=THRESHOLD) if renegotiate else None)
     got = churn_run(P_engine, P_workload, P_autoswap, p_hw, renegotiate,
-                    port_replanner(p_hw, THRESHOLD) if renegotiate else None)
+                    P_pipeline_replanner(p_hw, size_threshold=THRESHOLD) if renegotiate else None)
     assert json.dumps(P_engine.simulated_report_dict(got), sort_keys=True) == \
         json.dumps(R_engine.simulated_report_dict(want), sort_keys=True)
     assert (got.renegotiations > 0) == renegotiate
 
 
 def test_renegotiation_without_replanner_names_its_queue():
-    with pytest.raises(NotImplementedError, match="A9"):
-        churn_run(P_engine, P_workload, P_autoswap, P_sim.GTX_1080TI, renegotiate=True)
+    """Without ``replanner=``, renegotiation re-solves through the default,
+    the plan pipeline's ``pipeline_replanner`` (``runtime/tenants.py``), as
+    the reference's does.  Until the tenants module was ported this test
+    checked that the engine raised an error naming ROADMAP queue A item 9;
+    it keeps that name."""
+    r_hw, p_hw = SPECS["gtx1080ti"]
+    want = churn_run(R_engine, R_workload, R_autoswap, r_hw, renegotiate=True)
+    got = churn_run(P_engine, P_workload, P_autoswap, p_hw, renegotiate=True)
+    assert json.dumps(P_engine.simulated_report_dict(got), sort_keys=True) == \
+        json.dumps(R_engine.simulated_report_dict(want), sort_keys=True)
+    assert got.renegotiations > 0
 
 
 @pytest.mark.parametrize("n_layers", [4, 8])
