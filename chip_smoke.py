@@ -120,13 +120,32 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               and a second run that restores both plans; then
               ``launch.colocate`` with prefill, decode@2.0 and train tenants
               of qwen3-4b, every plan restored (train's from phase 11),
-              with its per-tenant report and ``--verify`` certificates.
+              with its per-tenant report and ``--verify`` certificates;
+ 13. cnn      the paper's own networks (§VI) at CIFAR-10's 32x32 in fp32,
+              after the memory of earlier phases is dropped: vgg11,
+              resnet18 and resnet50 at batch 2 on the card against the CPU
+              (fp32 logits and loss, remat's gradient against the plain
+              one on the card; fp64 gradients and one ``train_step``'s
+              params and momentum; each under PARITY_TOL); then vgg16 and
+              resnet50 at batch 100 (Tables I and II) and 200 (Fig. 10's
+              largest): each SGD step traced by ``cnn_trace``, plain and
+              with memonger's segmented remat, and planned under
+              ``H100_SXM`` (variables, w, SmartPool chi/w, CnMem/w, the
+              zero-overhead reduction of Table II, the memonger row; the
+              verifier and the round trip fatal); then 3 ``train_step``s
+              on the card at lr 1e-5 (finite losses, ms a step), and around
+              one warm step of each kind the real peak beside w (w above it
+              fails), the largest blocks live at that peak, and the caching
+              allocator's reserved peak beside SmartPool's and CnMem's
+              footprints.  The phase launches none of the
+              port's kernels (cuDNN and cuBLAS run the CNNs), which the
+              counters must show.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the main paths, the serve runs, plain
-and planned, and the train runs, plain and with the offload plan, with each
-path's own count in ``launches_by_path``), the nvidia-smi line,
-and ``{"ok": true, "device": {...}}``.
+and planned, the train runs, plain and with the offload plan, and the CNN
+phase, with each path's own count in ``launches_by_path``), the nvidia-smi
+line, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1270,6 +1289,236 @@ def phase_colocate(B: int, P: int, G: int, S: int):
     require("[verify] schedule: ok" in text, "colocate: the schedule did not verify")
 
 
+# Phase 13: the paper's CNNs (§VI) at CIFAR-10's 32x32 in fp32: Tables I and
+# II at batch 100, Fig. 10's largest batch 200.
+CNN_CELLS = (("vgg16", 100), ("vgg16", 200), ("resnet50", 100), ("resnet50", 200))
+# Parity models: plain VGG, basic blocks, bottleneck blocks with their
+# projections and stride-2 pads.
+CNN_PARITY = ("vgg11", "resnet18", "resnet50")
+
+
+def _tree_to(tree, device, dtype):
+    from repro_torch.tree import map_tree
+
+    return map_tree(lambda t: None if t is None else t.to(device, dtype), tree)
+
+
+def _tree_rel(got, want) -> float:
+    """The largest leaf difference relative to the leaf's max|want|."""
+    from repro_torch.tree import tree_leaves
+
+    return max(((g.detach().cpu().double() - w.detach().cpu().double()).abs().max()
+                / w.detach().double().abs().max().clamp_min(1e-300)).item()
+               for g, w in zip(tree_leaves(got), tree_leaves(want)) if w is not None)
+
+
+def phase_cnn_parity():
+    """Each CNN_PARITY model at batch 2 on the card against the CPU, from the
+    same weights and batch.  In fp32 (TF32 off): the logits and the loss
+    under PARITY_TOL, and on the card ``loss_remat``'s gradient against
+    ``loss``'s.  Gradients across devices are compared in fp64: a ReLU or
+    max-pool input within fp32 rounding of 0 takes the other branch on one
+    device and moves fp32 gradients by up to about 3e-3 of their largest
+    entry (tests/test_torch_cnn.py), which PARITY_TOL cannot tell from a
+    fault; the fp32 gradients' difference is printed beside them.  In
+    fp64: every gradient, and the params and momentum after one
+    ``train_step`` from zero momentum, under PARITY_TOL."""
+    from repro_torch.models import CNN
+
+    for name in CNN_PARITY:
+        t0 = time.perf_counter()
+        cnn = CNN(name)
+        gen = torch.Generator("cpu").manual_seed(0)
+        params = cnn.init(gen)
+        x = torch.randn(2, 3, 32, 32, generator=gen)
+        y = torch.randint(0, 10, (2,), generator=gen)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p, xd, yd = _tree_to(params, dev, torch.float32), x.to(dev), y.to(dev)
+            out[dev] = (cnn.apply(p, xd).detach(), cnn.loss(p, xd, yd).detach(),
+                        cnn.grads(p, xd, yd))
+            if dev == "cuda":
+                remat = cnn.grads(p, xd, yd, remat=True)
+        logit_err = _tree_rel(out["cuda"][0], out["cpu"][0])
+        loss_err = _tree_rel(out["cuda"][1], out["cpu"][1])
+        grad32_err = _tree_rel(out["cuda"][2], out["cpu"][2])
+        remat_err = _tree_rel(remat, out["cuda"][2])
+        step = {}
+        for dev in ("cpu", "cuda"):
+            p = _tree_to(params, dev, torch.float64)
+            xd, yd = x.to(dev, torch.float64), y.to(dev)
+            step[dev] = (cnn.grads(p, xd, yd), *cnn.train_step(p, cnn.zero_momentum(p), xd, yd))
+        grad_err, param_err, mom_err = (_tree_rel(a, b) for a, b in zip(step["cuda"],
+                                                                         step["cpu"]))
+        print(f"[13] cnn parity {name} B2 32x32, card against CPU: fp32 logits {logit_err:.3e}, "
+              f"loss {float(out['cuda'][1]):.6f} ({loss_err:.3e}), remat's gradient against "
+              f"loss's on the card {remat_err:.3e}; fp64 gradients {grad_err:.3e}, params "
+              f"{param_err:.3e} and momentum {mom_err:.3e} after one train_step (tol "
+              f"{PARITY_TOL:g} each); for information, fp32 gradients {grad32_err:.3e}; "
+              f"{time.perf_counter() - t0:.1f}s")
+        for what, err in (("logits", logit_err), ("loss", loss_err), ("remat gradient", remat_err),
+                          ("fp64 gradient", grad_err), ("fp64 params", param_err),
+                          ("fp64 momentum", mom_err)):
+            require(err < PARITY_TOL, f"cnn parity {name}: {what} differs by {err:.3e}")
+
+
+def _zero_overhead(trace, hw) -> tuple[float, str, float]:
+    """Table II: the largest zero-overhead load reduction over the four
+    scores at grid 24, as ``benchmarks/bench_autoswap.py`` computes it ->
+    (reduction, score, overhead)."""
+    from repro_torch.core.autoswap import AutoSwapPlanner
+
+    pl = AutoSwapPlanner(trace, hw)
+    best_limit, best, best_m = pl.peak_load, 0.0, "none"
+    for m in SCORERS:
+        limit, ov = pl.max_zero_overhead_reduction(method=m, grid=24)
+        if limit < best_limit:
+            best_limit, best, best_m = limit, ov, m
+    return 1 - best_limit / pl.peak_load, best_m, best
+
+
+def phase_cnn_plans() -> dict:
+    """Each CNN_CELLS step traced by ``cnn_trace`` (plain and memonger's
+    remat), then on copies priced under H100_SXM: the plan pipeline (the
+    verifier and the byte-for-byte round trip fatal), Table I's SmartPool
+    chi/w and CnMem/w, Table II's zero-overhead reduction (and under the
+    paper's GTX_1080TI beside it), and the memonger row (the remat trace's
+    w reduction and simulated time against the plain one's, as
+    ``benchmarks/bench_baseline_policies.py`` computes them).  -> per cell
+    and step, w and the two pools' footprints."""
+    import copy
+
+    from repro_torch.core.simulator import GTX_1080TI, H100_SXM, assign_times
+    from repro_torch.models.cnn import cnn_trace
+    from repro_torch.plan import PlanKey
+
+    rows = {}
+    for name, B in CNN_CELLS:
+        t0 = time.perf_counter()
+        traces = {"plain": cnn_trace(name, B), "remat": cnn_trace(name, B, remat=True)}
+        capture_s = time.perf_counter() - t0
+        priced = {}
+        for tag, tr in traces.items():
+            h = assign_times(copy.deepcopy(tr), H100_SXM)
+            prog, _, solve_s, checks, nbytes = plan_and_check(
+                h, PlanKey(name, f"train:b{B}:{tag}", H100_SXM.name), H100_SXM)
+            omega = tr.peak_load()
+            pools = (prog.pool_plans["best_fit"].footprint, prog.baselines["cnmem"].footprint)
+            priced[tag] = h
+            rows[(name, B, tag)] = (omega, *pools)
+            red, m, ov = _zero_overhead(h, H100_SXM)
+            red_gtx, m_gtx, ov_gtx = _zero_overhead(tr, GTX_1080TI)
+            print(f"[13] {name} B{B} {tag} step: {len(tr.variables)} variables, w {omega:,} B; "
+                  f"Table I: SmartPool chi/w {pools[0] / omega:.4f}, CnMem {pools[1] / omega:.4f}; "
+                  f"Table II under {H100_SXM.name}: zero-overhead reduction {red:.1%} ({m}, "
+                  f"overhead {ov:.2%}; under {GTX_1080TI.name} {red_gtx:.1%} ({m_gtx})), "
+                  f"iteration {h.op_times[-1] * 1e3:.3f} ms simulated; solved in {solve_s:.2f}s, "
+                  f"verifier ok ({checks} checks), round trip byte-equal ({nbytes:,} B)")
+        red = 1 - traces["remat"].peak_load() / traces["plain"].peak_load()
+        ov = priced["remat"].op_times[-1] / priced["plain"].op_times[-1] - 1
+        print(f"[13] {name} B{B} memonger (segmented remat) under {H100_SXM.name}: w reduction "
+              f"{red:.1%}, simulated overhead {ov:.1%}; traced in {capture_s:.2f}s")
+    return rows
+
+
+# The learning rate of phase 13's runs.  The reference's BN-free resnet50 at
+# He init has logits in the hundreds (loss 173 at B100), and its default lr
+# 0.01 overflows in two steps (printed beside each cell); the lr is a
+# constant of the update, so the traced step is the same at any.
+CNN_LR = 1e-5
+
+
+def _live_at_peak(snapshot, base: int, top: int = 4) -> str:
+    """The largest blocks live at the peak of a recorded allocation history,
+    each with the line of ``models/cnn.py`` that allocated it (none for the
+    autograd engine's backward, which runs no Python)."""
+    live, cur, best = {}, base, (base, {})
+    for e in snapshot["device_traces"][0]:
+        if e["action"] == "alloc":
+            where = next((f"cnn.py:{f['line']} {f['name']}" for f in e.get("frames", [])
+                          if f.get("filename", "").endswith("models/cnn.py")), "backward")
+            live[e["addr"]] = (e["size"], where)
+            cur += e["size"]
+            if cur > best[0]:
+                best = (cur, dict(live))
+        elif e["action"] == "free_completed" and e["addr"] in live:
+            cur -= live.pop(e["addr"])[0]
+    blocks = sorted(best[1].values(), reverse=True)[:top]
+    return ", ".join(f"{size:,} B ({where})" for size, where in blocks)
+
+
+def phase_cnn_run(rows: dict, held: int, held_reserved: int):
+    """Each CNN_CELLS cell run on the card from seeded weights: 3
+    ``train_step``s at CNN_LR on seeded random CIFAR-shaped batches (losses,
+    each taken by a forward before its step, must be finite; ms a step;
+    and, printed only, the loss after one step at the reference's lr 0.01),
+    then around one warm step of each kind, with params, momentum and
+    batch resident and the allocator's cache and cuBLAS workspaces
+    emptied first: the real peak beside the trace's w (w above it fails,
+    as in phase 7 (a)), the largest blocks live at the plain step's peak, and the
+    caching allocator's reserved peak beside SmartPool's and CnMem's
+    footprints (printed only)."""
+    from repro_torch.models import CNN
+
+    for name, B in CNN_CELLS:
+        cnn = CNN(name)
+        gen = torch.Generator("cuda").manual_seed(0)
+        params = cnn.init(gen)
+        mom = cnn.zero_momentum(params)
+        batches = [(torch.randn(B, 3, 32, 32, generator=gen, device="cuda"),
+                    torch.randint(0, 10, (B,), generator=gen, device="cuda")) for _ in range(3)]
+        with torch.no_grad():
+            at_default = float(cnn.loss(cnn.train_step(params, mom, *batches[0])[0],
+                                        *batches[1]))
+        losses, ms = [], []
+        for x, y in batches:
+            with torch.no_grad():
+                losses.append(float(cnn.loss(params, x, y)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, mom = cnn.train_step(params, mom, x, y, lr=CNN_LR)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[13] {name} B{B} trained 3 steps at lr {CNN_LR:g}: losses "
+              f"{[round(v, 4) for v in losses]}, ms a step {[round(v, 2) for v in ms]} (the "
+              f"first cold), {B / ms[-1] * 1e3:,.0f} images/s warm; one step at the "
+              f"reference's lr 0.01 gives loss {at_default:.4g}")
+        require(all(math.isfinite(v) for v in losses), f"{name} B{B}: non-finite loss")
+        x, y = batches[-1]
+        for tag, step in (("plain", cnn.train_step), ("remat", cnn.train_step_remat)):
+            omega, smartpool, cnmem = rows[(name, B, tag)]
+            step(params, mom, x, y)  # warm
+            gc.collect()
+            torch.cuda.synchronize()
+            torch._C._cuda_clearCublasWorkspaces()
+            torch.cuda.empty_cache()
+            resident = torch.cuda.memory_allocated() - held
+            torch.cuda.reset_peak_memory_stats()
+            # Python stacks recorded while the autograd engine recomputes a
+            # checkpointed segment crash it (torch 2.11), so only the plain
+            # step's history is recorded.
+            if tag == "plain":
+                torch.cuda.memory._record_memory_history(max_entries=200_000, stacks="python")
+            out = step(params, mom, x, y)
+            torch.cuda.synchronize()
+            blocks = ""
+            if tag == "plain":
+                blocks = (f"; largest blocks live at the peak: "
+                          f"{_live_at_peak(torch.cuda.memory._snapshot(), resident + held)}")
+                torch.cuda.memory._record_memory_history(enabled=None)
+            peak = torch.cuda.max_memory_allocated() - held
+            reserved = torch.cuda.max_memory_reserved() - held_reserved
+            del out
+            print(f"[13] {name} B{B} {tag} step, warm: real peak {peak:,} B ({resident:,} B of "
+                  f"params, momentum and batch resident first) beside the trace's w {omega:,} B "
+                  f"(w / peak {omega / peak:.4f}){blocks}; the caching allocator's reserved peak "
+                  f"{reserved:,} B beside SmartPool's {smartpool:,} B "
+                  f"({smartpool / reserved:.4f}) and CnMem's {cnmem:,} B ({cnmem / reserved:.4f})")
+            require(omega <= peak, f"{name} B{B} {tag}: w {omega} B exceeds the real peak "
+                                   f"{peak} B")
+        del params, mom, batches, x, y
+
+
 def device_breakdown(prof, wall_ms: float, top: int = 6) -> str:
     """Device busy time by kernel name from a torch.profiler trace, the idle
     share, and the time and calls of each of the port's own kernels."""
@@ -1872,6 +2121,21 @@ def main() -> int:
                                                              *served[arch])
     phase_colocate(4, 512, 32, 512)
     print(f"[12] serve plans phase took {time.perf_counter() - t12:.1f}s")
+
+    # Phase 13: the paper's CNN training step, traced, planned and run; it
+    # runs no kernel of the port (cuDNN convolutions, cuBLAS head).
+    from repro_torch.kernels import ops
+
+    t13 = time.perf_counter()
+    held = release_memory("13")
+    held_reserved = torch.cuda.memory_reserved()
+    ops.reset_launch_counts()
+    phase_cnn_parity()
+    phase_cnn_run(phase_cnn_plans(), held, held_reserved)
+    paths["cnn"] = ops.launch_counts()
+    require(not any(paths["cnn"].values()), f"cnn: the port's kernels ran {paths['cnn']}")
+    print(f"[13] cnn phase took {time.perf_counter() - t13:.1f}s; launches of the port's "
+          f"kernels: 0")
 
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA

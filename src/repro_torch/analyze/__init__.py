@@ -15,9 +15,8 @@ pointed into ``repro_torch``:
     accountant monotonicity, reservation isolation, ledger closure.
   * ``driver`` — ``verify_launch``, the launchers' ``--verify``.
 
-The reference's ``launch/analyze.py`` front end is still to be ported
-(ROADMAP queue A9).  Everything here is stdlib only; the checked objects
-come in duck-typed.
+``python -m repro_torch.launch.analyze`` is the offline front end.
+Everything here is stdlib only; the checked objects come in duck-typed.
 """
 
 from .certificate import Certificate, Violation

@@ -37,8 +37,7 @@ swept by ``check_view``:
                          ledger is the per-key sum of the tenant ledgers
 
 Everything is stdlib-only and duck-typed, so the sweep runs without
-torch (the reference package's ``launch/analyze.py`` front end is still
-to be ported, ROADMAP queue A9).
+torch (``python -m repro_torch.launch.analyze``).
 """
 
 from __future__ import annotations

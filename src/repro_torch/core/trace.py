@@ -48,12 +48,16 @@ effect), and it writes no per-trip copies of scanned weights.
 
 ``op_costs`` holds (FLOPs, bytes) of each node, charged at its first
 output's MALLOC (or its in-place WRITE): ``mm``/``addmm``/``bmm``/
-``baddbmm`` 2·out·K; the flash operators 4·B·H·hd (forward) or 10·B·H·hd
-(backward) for each live (query, key) pair, as ``chip_smoke.py`` counts
-them; reductions their input's elements; any other op its output's
-elements, as the reference's ``_eqn_cost``.  Bytes are the node's tensor
-inputs and outputs.  The timing model prices swaps with them; they are no
-measurement.
+``baddbmm`` 2·out·K; ``convolution`` 2·out·(cin·kh·kw);
+``convolution_backward`` the two products the reference's jaxpr spells as
+two ``conv_general_dilated`` eqns, 2·|x|·(kh·kw·cout) for grad_input and
+2·|w|·(B·H'·W') for grad_weight, plus dy's elements for grad_bias, each
+only where ``output_mask`` asks for it; the flash operators 4·B·H·hd
+(forward) or 10·B·H·hd (backward) for each live (query, key) pair, as
+``chip_smoke.py`` counts them; reductions their input's elements; any
+other op its output's elements, as the reference's ``_eqn_cost``.  Bytes
+are the node's tensor inputs and outputs.  The timing model prices swaps
+with them; they are no measurement.
 """
 
 from __future__ import annotations
@@ -203,12 +207,34 @@ def _product_flops(node, qual: str, out_elems: float) -> float | None:
         return 2.0 * out_elems * float(node.args[_MATMULS[qual]].meta["val"].shape[-1])
     if qual == "aten::convolution":
         return 2.0 * out_elems * float(math.prod(node.args[1].meta["val"].shape[1:]))
+    if qual == "aten::convolution_backward":
+        return _conv_backward_flops(node)
     if qual in _FLASH:
         q, k = node.args[0].meta["val"], node.args[1].meta["val"]
         B, sq, H, hd = q.shape
         causal, window = (True, None) if qual.endswith("_bwd") else (node.args[3], node.args[4])
         return float(_FLASH[qual] * B * H * hd * _live_pairs(sq, k.shape[1], causal, window))
     return None
+
+
+def _conv_backward_flops(node) -> float:
+    """A convolution's backward, priced as the products that the
+    reference's jaxpr spells as ``conv_general_dilated`` eqns: grad_input,
+    the transposed convolution, 2 · |x| · (kh·kw·cout/groups); grad_weight,
+    a convolution of x with dy, 2 · |w| · (B·H'·W'); grad_bias a reduction
+    of dy.  ``output_mask`` says which of the three the node computes (the
+    first layer's computes no grad_input).  The reference's ``_eqn_cost``
+    reads grad_input's eqn as kh·kw·cin (ROADMAP queue C)."""
+    dy, x, w = (node.args[i].meta["val"] for i in range(3))
+    groups, mask = node.args[9], node.args[10]
+    flops = 0.0
+    if mask[0]:
+        flops += 2.0 * x.numel() * math.prod(w.shape[2:]) * (w.shape[0] // groups)
+    if mask[1]:
+        flops += 2.0 * w.numel() * dy.shape[0] * math.prod(dy.shape[2:])
+    if mask[2]:
+        flops += float(dy.numel())
+    return flops
 
 
 def _node_cost(node) -> tuple[float, float]:

@@ -43,8 +43,8 @@ the paper's memory planner:
                        step's bytes moved each way are printed.
 
 Left out, each waiting for its ROADMAP queue A item: checkpointing
-``--ckpt-dir``/``--ckpt-every`` (item 11), ``--dist-plan`` (item 12) and
-the observability flags (item 9).
+``--ckpt-dir``/``--ckpt-every`` (item 11), and ``--dist-plan`` with the
+observability flags that watch its mesh run (item 12).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 5

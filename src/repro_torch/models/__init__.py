@@ -1,9 +1,10 @@
-"""Model zoo of the port: the dense decoder and Mamba-2 so far."""
+"""Model zoo of the port: the dense decoder, Mamba-2, and the paper's CNNs."""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 
+from .cnn import CNN  # noqa: F401
 from .layers import NOT_PORTED
 from .transformer import Model
 

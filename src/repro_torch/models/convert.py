@@ -9,7 +9,8 @@ casts matrices to ``cfg.dtype`` or a dtype asked for (norm scales stay
 fp32) and moves them to the device, and ``adamw_from_jax`` carries the
 optimizer's state.  Parameter names and einsum layouts are the reference's;
 the KV cache's is not (``kv_from_jax``, ``cache_from_jax``), while the
-Mamba-2 cache's is.
+Mamba-2 cache's is.  ``cnn_params_from_jax`` carries a JAX ``CNN.init``
+tree into the port's CNN layout (``models/cnn.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +58,25 @@ def adamw_from_jax(np_state, cfg: ModelConfig, device) -> AdamWState:
     return AdamWState(m=params_from_jax(np_state.m, cfg, device, torch.float32),
                       v=params_from_jax(np_state.v, cfg, device, torch.float32),
                       count=int(np_state.count))
+
+
+def cnn_params_from_jax(np_params, device, dtype=torch.float32):
+    """JAX ``CNN.init`` params (or any tree of their shapes) as numpy -> the
+    port's CNN params on ``device`` as ``dtype``: HWIO convolution weights
+    become OIHW, the head ``[cin, classes]`` and the biases stay as they
+    are, and ``None`` (VGG's pools) stays ``None``.  ``CNN.zero_momentum``
+    gives SGD's momentum for them."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+
+    def leaf(a):
+        if a is None:
+            return None
+        a = np.array(a, dtype=np_dtype)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return map_tree(leaf, np_params)
 
 
 def _f32(a, device="cpu"):

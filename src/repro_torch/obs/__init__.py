@@ -1,10 +1,8 @@
 """repro_torch.obs: runtime observability for the memory engine.
 
 Counterpart of ``repro/obs``, whose code this is, with its imports pointed
-into ``repro_torch``; ``tests/test_torch_obs.py`` holds the two equal.
-Left out: ``diffing`` (``load_run``/``diff_runs``/``format_diff``/``RunView``),
-which waits with the reference's ``launch/obsdiff.py`` and
-``launch/analyze.py`` for ROADMAP queue A9.
+into ``repro_torch``; ``tests/test_torch_obs.py`` and
+``tests/test_torch_obsdiff.py`` hold the two equal.
 
 Pieces, all pure observers of ``runtime.MemoryRuntime``:
 
@@ -27,6 +25,10 @@ Pieces, all pure observers of ``runtime.MemoryRuntime``:
                  per-direction link-wait, HBM-headroom streams) plus
                  declarative SLOs (``parse_slo``) emitting typed ``Alert``
                  events.
+  diffing      — ``load_run``/``diff_runs``: differential analysis of two
+                 run artifacts (reports, traces, metric JSONL, committed
+                 ``BENCH_*.json`` revisions); the ``repro_torch.launch.obsdiff``
+                 CLI front-ends it.
   trace_export — ``chrome_trace``/``write_trace``: render a recorder into a
                  Chrome-trace-event JSON object that loads directly in
                  Perfetto (https://ui.perfetto.dev) with per-tenant op
@@ -43,6 +45,7 @@ other non-reference fields.
 """
 
 from .cli import add_obs_args, export_monitor, export_trace, recorder_for
+from .diffing import RunView, diff_runs, format_diff, load_run
 from .metrics import Counter, Gauge, MetricsRegistry
 from .monitor import (
     Alert,
@@ -68,6 +71,7 @@ __all__ = [
     "MonitoredRecorder",
     "ObsRecorder",
     "QuantileSketch",
+    "RunView",
     "SLOMonitor",
     "SLOSpec",
     "SlidingWindow",
@@ -75,8 +79,11 @@ __all__ = [
     "TumblingWindow",
     "add_obs_args",
     "chrome_trace",
+    "diff_runs",
     "export_monitor",
     "export_trace",
+    "format_diff",
+    "load_run",
     "parse_slo",
     "priority_class",
     "recorder_for",

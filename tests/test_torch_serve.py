@@ -288,6 +288,9 @@ NEW_MODULES = ("repro_torch.launch.colocate", "repro_torch.runtime.tenants", "re
                "repro_torch.obs.metrics", "repro_torch.obs.monitor", "repro_torch.obs.recorder",
                "repro_torch.obs.sketch", "repro_torch.obs.trace_export",
                "repro_torch.obs.windows", "repro_torch.analyze.schedule_check",
-               "repro_torch.analyze.driver")
+               "repro_torch.analyze.driver", "repro_torch.models.cnn", "repro_torch.obs.diffing",
+               "repro_torch.launch.obsdiff", "repro_torch.launch.analyze")
 FRAMEWORK_FREE = ("repro_torch.runtime", "repro_torch.runtime.tenants", "repro_torch.tune",
-                  "repro_torch.obs", "repro_torch.analyze", "repro_torch.plan")
+                  "repro_torch.obs", "repro_torch.analyze", "repro_torch.plan",
+                  "repro_torch.obs.diffing", "repro_torch.launch.obsdiff",
+                  "repro_torch.launch.analyze")
