@@ -40,23 +40,34 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               call's backward (``torch.autograd.grad`` through
               ``F.rms_norm`` or SDPA, its forward subtracted), and both
               flash forwards with the LSE written;
-  4. parity   qwen3-4b's and mamba2-370m's widths at depth 2 in fp32: prefill
-              + 4 decode steps through the kernels on the card against the
-              plain path on the CPU, logits and every layer's cache;
+  4. parity   qwen3-4b's, mamba2-370m's and deepseek-v2-lite-16b's widths
+              at depth 2 in fp32 (one layer of each program segment, or the
+              one segment's unit twice: deepseek's dense layer, then an MoE
+              layer): prefill + 4 decode steps through the kernels on the
+              card against the plain path on the CPU, logits and every
+              layer's cache, and at each MoE call the routing equal (expert
+              ids and ranks), its smallest top-k margin above NEAR_TIE
+              times the card's and the CPU's largest router probability
+              difference (the tokens within 1e-4 counted);
   5. serve    ``repro_torch.launch.serve.main`` on the full qwen3-4b (36
               layers, bf16, random weights) at batch 4, prompt 512, 32 tokens,
-              and on the full mamba2-370m (48 layers) at batch 4, prompt 2048,
-              32 tokens, with the kernels' launch counts set to 0 just before
-              each run and read just after it, exactly, by variant (every
-              flash launch ``wgmma``, every SSD launch ``tc``, every
-              RMSNorm launch ``vector``), and the decode ms a step; the
-              memory that earlier phases hold is dropped first, and what is
-              still held is printed, so the peak is the serve's own;
+              on the full mamba2-370m (48 layers) at batch 4, prompt 2048,
+              32 tokens, and on the full deepseek-v2-lite-16b (27 layers: MLA,
+              one dense FFN, 26 MoE FFNs of 64 experts top-6) at batch 4,
+              prompt 512, 32 tokens, with the kernels' launch counts set to 0
+              just before each run and read just after it, exactly, by
+              variant (every flash launch ``wgmma``, every SSD launch
+              ``tc``, every RMSNorm launch ``vector``), and the decode ms a
+              step; the memory that earlier phases hold is dropped first,
+              and what is still held is printed, so the peak is the serve's
+              own, beside the weights' bytes;
   6. profile  where the time goes: each served model's prefill and decode
               steps, warm, timed untraced and then traced with torch.profiler
               (the top kernels, and each of the port's own kernels by name:
               the tc SSD is two, its C B^T prepass and the scan; the device
-              time by op, the port's ``repro_torch`` operators among them);
+              time by op, the port's ``repro_torch`` operators among them;
+              for deepseek the MoE dispatch's sort, scatter and gather ops
+              against its expert GEMMs);
   7. planner  the figures the port's ``H100_SXM`` HardwareSpec prices swaps
               with, measured: pinned host<->device copy rates of 256 MiB,
               one direction at a time and both at once on two streams (the
@@ -110,7 +121,7 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               batch (the drop must be at least 90% of the 36 layer inputs);
               and a warm step traced with the plan, beside phase 10's: the
               copies' time each way and how much of it lies beside compute;
- 12. serve plans  ``serve.main --plan --plan-cache`` on phase 5's two cells:
+ 12. serve plans  ``serve.main --plan --plan-cache`` on phase 5's three cells:
               launch counts by variant and greedy tokens equal to phase 5's
               (planning launches nothing; decode takes 0-d device positions),
               each step's vars, w, chi/w and AutoSwap@80%; w against the
@@ -676,6 +687,11 @@ def phase_kernels():
         rmsnorm_case((64, 2560), bf16, gen, "scalar", misaligned=True),
         rmsnorm_case((8, 6144), torch.float32, gen, "vector"),  # rows wider than a warp
         rmsnorm_case((37, 1022), torch.float32, gen, "scalar"),  # D not a multiple of 4
+        # deepseek-v2-lite at prefill B4 S512 and decode B4: ln1/ln2, kv_norm
+        rmsnorm_case((2048, 2048), bf16, gen, "vector"),
+        rmsnorm_case((2048, 512), bf16, gen, "vector"),
+        rmsnorm_case((4, 2048), bf16, gen, "vector"),
+        rmsnorm_case((4, 512), bf16, gen, "vector"),
     ]
     flash = [
         flash_case(4, 512, 512, 32, 8, 128, bf16, gen),            # qwen3-4b prefill
@@ -745,22 +761,60 @@ def phase_kernels():
             "flash_attention_bwd": flash_bwd, "flash_lse": flash_lse}
 
 
+# Phase 4: a routing comparison needs each token's k-th router probability
+# clear of its (k+1)-th by more than the card and the CPU disagree on them,
+# else a near-tie that either side may break would be reported as a fault of
+# the port.  The CPU tests (tests/test_torch_moe.py) hold the smallest gap
+# above a fixed 1e-4 at smoke width (8 experts, top-2).  Among deepseek's 64
+# experts the 6th and 7th probabilities of some tokens of a 64-token prompt
+# lie within 1e-4, so here the gap is held to the run's own disagreement:
+# two experts can change places only where their gap is at most the sum of
+# their two probabilities' differences, so a smallest gap above NEAR_TIE = 2
+# times the largest difference between the two sides' probabilities leaves
+# every top-k set determined.  The tokens within 1e-4 are counted.
+ROUTING_MARGIN = 1e-4
+NEAR_TIE = 2.0
+
+
+def depth_cut(full):
+    """The parity phases' 2-layer cut of a full config, in fp32: one layer of
+    each program segment where there are several (deepseek: its dense
+    layer, then an MoE layer), else the one segment's unit twice."""
+    if len(full.program) > 1:
+        program = tuple((unit, 1) for unit, _ in full.program)
+    else:
+        program = ((full.program[0][0], 2),)
+    return full.reduced(num_layers=sum(len(unit) * reps for unit, reps in program),
+                        program=program, dtype="float32")
+
+
+def _routed(record):
+    """One MoE call's routing as lists: each token's experts in ascending
+    order, each with its pair's rank (a pair's rank does not depend on its
+    place among its token's k), and the capacity."""
+    ids, perm = record["idx"].cpu().sort(-1)
+    return ids.tolist(), record["rank"].cpu().gather(-1, perm).tolist(), record["capacity"]
+
+
 def phase_parity(arch: str, P: int):
+    """``depth_cut(arch)`` on the card against the CPU: prefill of a B1
+    prompt of ``P`` tokens, then 4 greedy decode steps."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
     from repro_torch.models.convert import to_device
 
-    full = get_config(arch)
-    unit, _ = full.program[0]
-    cfg = full.reduced(num_layers=2, program=((unit, 2),), dtype="float32")
+    cfg = depth_cut(get_config(arch))
     cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, "cuda")
     t0 = time.perf_counter()
     p_cpu = cpu.init(torch.Generator("cpu").manual_seed(0))
     p_gpu = to_device(p_cpu, "cuda")
     steps = 4
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, P)))
-    l_cpu, c_cpu = cpu.prefill(p_cpu, {"tokens": tokens}, max_seq=P + steps)
-    l_gpu, c_gpu = gpu.prefill(p_gpu, {"tokens": tokens.cuda()}, max_seq=P + steps)
+    routing = {"cpu": [], "cuda": []}
+    with moe.routing_hook(routing["cpu"].append):
+        l_cpu, c_cpu = cpu.prefill(p_cpu, {"tokens": tokens}, max_seq=P + steps)
+    with moe.routing_hook(routing["cuda"].append):
+        l_gpu, c_gpu = gpu.prefill(p_gpu, {"tokens": tokens.cuda()}, max_seq=P + steps)
 
     def rel(a, b):
         return ((a.cpu().float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -769,16 +823,48 @@ def phase_parity(arch: str, P: int):
     for i in range(steps):
         tok_cpu = l_cpu[:, -1].argmax(-1, keepdim=True)
         same += int(torch.equal(l_gpu[:, -1].argmax(-1, keepdim=True).cpu(), tok_cpu))
-        l_cpu, c_cpu = cpu.decode_step(p_cpu, c_cpu, tok_cpu, P + i)
-        l_gpu, c_gpu = gpu.decode_step(p_gpu, c_gpu, tok_cpu.cuda(), P + i)
+        with moe.routing_hook(routing["cpu"].append):
+            l_cpu, c_cpu = cpu.decode_step(p_cpu, c_cpu, tok_cpu, P + i)
+        with moe.routing_hook(routing["cuda"].append):
+            l_gpu, c_gpu = gpu.decode_step(p_gpu, c_gpu, tok_cpu.cuda(), P + i)
         worst = max(worst, rel(l_gpu, l_cpu))
-    # every leaf of every layer's cache: kv {k, v} or ssm {state, conv}
+    # every leaf of every layer's cache: kv {k, v}, MLA kv {c_kv, k_rope} or ssm {state, conv}
     cache_err = max(rel(g[kind][n], c[kind][n])
                     for g, c in zip(c_gpu, c_cpu) for kind in c for n in c[kind])
-    print(f"[4] parity {arch} widths, 2 layers, fp32, B1 P{P} + {steps} decode steps: "
+    route = ""
+    if routing["cpu"]:
+        k = cfg.top_k
+        tops = [torch.topk(r["probs"], k + 1).values for r in routing["cpu"]]
+        gaps = torch.cat([top[:, k - 1] - top[:, k] for top in tops])
+        margin = gaps.min().item()
+        drift = max((g["probs"].cpu() - c["probs"]).abs().max().item()
+                    for g, c in zip(routing["cuda"], routing["cpu"]))
+        kept = sum(int((r["rank"] < r["capacity"]).sum()) for r in routing["cpu"])
+        pairs = sum(r["rank"].numel() for r in routing["cpu"])
+        equal = [_routed(g) == _routed(c) for g, c in zip(routing["cuda"], routing["cpu"])]
+        route = (f"; routing of {len(equal)} MoE calls equal {sum(equal)}/{len(equal)} "
+                 f"(expert ids, ranks, {kept} of {pairs} pairs kept), smallest top-{k} margin "
+                 f"{margin:.3e} against the largest card-CPU router probability "
+                 f"difference {drift:.3e} (must exceed {NEAR_TIE:g}x it; "
+                 f"{int((gaps <= ROUTING_MARGIN).sum())} of {gaps.numel()} tokens within "
+                 f"{ROUTING_MARGIN:g})")
+    kinds = ", ".join(f"{spec.attn}+{spec.ffn}" for unit, reps in cfg.program
+                      for _ in range(reps) for spec in unit)
+    print(f"[4] parity {arch} widths, {cfg.num_layers} layers ({kinds}), "
+          f"fp32, B1 P{P} + {steps} decode steps: "
           f"max rel logit diff {worst:.3e}, max rel cache diff {cache_err:.3e} "
-          f"(tol {PARITY_TOL:g}), greedy tokens equal {same}/{steps}, "
+          f"(tol {PARITY_TOL:g}), greedy tokens equal {same}/{steps}{route}, "
           f"{time.perf_counter() - t0:.1f}s")
+    if routing["cpu"]:
+        require(len(routing["cuda"]) == len(routing["cpu"]) == steps + 1,
+                f"{arch}: {len(routing['cuda'])} MoE calls on the card, {len(routing['cpu'])} "
+                f"on the CPU")
+        require(margin > NEAR_TIE * drift,
+                f"{arch}: a near-tie in the router's top-{k} (margin {margin:.3e} against "
+                f"a card-CPU difference of {drift:.3e}): the routing comparison cannot tell a "
+                f"flip from a fault")
+        require(all(equal), f"{arch}: the card routes differently from the CPU at MoE calls "
+                            f"{[i for i, e in enumerate(equal) if not e]}")
     require(worst < PARITY_TOL,
             f"{arch}: kernel path logits differ from the plain path by {worst:.3e}")
     require(cache_err < PARITY_TOL, f"{arch}: kernel path cache differs by {cache_err:.3e}")
@@ -881,7 +967,12 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
     cfg = get_config(arch)
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(build_model(cfg, "cuda").init_shapes()))
     held = release_memory()
     out = io.StringIO()
     ops.reset_launch_counts()
@@ -902,8 +993,9 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     print(f"  logits finite (serve raises otherwise), "
           f"prefill {prefill_s * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s "
           f"({decode_s / (G - 1) * 1e3:.2f} ms a step), "
-          f"peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.3f} GiB of it held before "
-          f"the run), launches {counts}, "
+          f"peak memory {peak / 2**30:.2f} GiB = {peak / 1e9:.2f} GB ({held / 2**30:.3f} GiB "
+          f"of it held before the run) beside {weights / 1e9:.2f} GB of weights, "
+          f"launches {counts}, "
           f"main() wall {wall:.1f}s (init included)")
     require(counts == want, f"{arch}: launch counts {counts}, want {want}")
     require(tuple(gen.shape) == (B, G), f"generated shape {tuple(gen.shape)}")
@@ -1572,6 +1664,43 @@ def op_breakdown(prof, top: int = 6) -> str:
         f"; the port's ops: {own or 'none'}"
 
 
+# The ops of the MoE dispatch (``models/moe.py:135-158``), which nothing
+# else on the served paths runs, by the op the port calls (its device time
+# includes the ops it calls in turn: ``argsort`` a ``sort``, ``new_zeros`` a
+# fill, ``pad`` a fill and a copy): the sort of the token-expert pairs, their
+# ranks and slots, the zeroed buffer and the scatter into it, the zero row
+# padded onto the experts' output and the gather from it.
+MOE_DISPATCH = {"sort": ("aten::argsort",),
+                "ranks": ("aten::searchsorted", "aten::gather", "aten::scatter_"),
+                "scatter": ("aten::new_zeros", "aten::index_put_"),
+                "gather": ("aten::pad", "aten::index_select")}
+
+
+def moe_breakdown(prof, cfg, tokens: int) -> str:
+    """Device time (inclusive) of the MoE dispatch's ops (``MOE_DISPATCH``),
+    of the router's top-k and of the combine
+    (the gated rows [T, k, D] multiplied and summed), against the expert
+    GEMMs (``aten::bmm`` on [E, d, f] or [E, f, d] weights); ``tokens`` T
+    of one call."""
+    E, d, f, k = cfg.num_experts, cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    by: dict[str, list] = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        t = e.device_time_total / 1e3
+        shapes = [list(x) for x in (e.input_shapes or [])]
+        group = next((g for g, keys in MOE_DISPATCH.items() if e.key in keys), None)
+        if e.key == "aten::bmm" and len(shapes) > 1 and shapes[1] in ([E, d, f], [E, f, d]):
+            group = "expert GEMMs"
+        elif e.key == "aten::topk":
+            group = "top-k"
+        elif e.key in ("aten::mul", "aten::sum") and shapes[:1] == [[tokens, k, d]]:
+            group = "combine"
+        if group and t > 0:
+            by.setdefault(group, [0.0, 0])
+            by[group][0] += t
+            by[group][1] += e.count
+    return "; ".join(f"{g} {ms:.2f}ms ({n} calls)" for g, (ms, n) in by.items()) or "none"
+
+
 def phase_profile(arch: str, B: int, P: int, G: int):
     """Where the time goes in the served model: a warm prefill and warm decode
     steps at the serve phase's shapes, timed untraced, then traced once each."""
@@ -1613,10 +1742,14 @@ def phase_profile(arch: str, B: int, P: int, G: int):
         (tok, cache), wall = timed(prefill)
     print(f"  prefill traced: {device_breakdown(prof, wall)}")
     print(f"  prefill by op: {op_breakdown(prof)}")
+    moe_prefill = moe_breakdown(prof, cfg, B * P) if cfg.num_experts else None
     with profile(activities=acts, record_shapes=True) as prof:
         _, wall = timed(decode, tok, cache)
     print(f"  decode ({steps} steps) traced: {device_breakdown(prof, wall)}")
     print(f"  decode by op: {op_breakdown(prof)}")
+    if cfg.num_experts:
+        print(f"  MoE dispatch against the expert GEMMs: prefill {moe_prefill}; decode "
+              f"({steps} steps) {moe_breakdown(prof, cfg, B)}")
 
 
 # Phase 7: the figures the planner's HardwareSpec prices swaps with, on the card.
@@ -2041,11 +2174,17 @@ def main() -> int:
     cases = phase_kernels()
     phase_parity("qwen3-4b", 256)
     phase_parity("mamba2-370m", 300)  # pads to 512: two chunks of 256, the second ragged
+    t4 = time.perf_counter()
+    phase_parity("deepseek-v2-lite-16b", 64)
+    print(f"[4] deepseek-v2-lite-16b parity took {time.perf_counter() - t4:.1f}s")
     # Launches over 32 forwards (prefill and 31 decode steps): qwen3-4b runs
     # flash once a layer in prefill, RMSNorm 4 times a layer (ln1, ln2,
     # q-norm, k-norm) plus the final norm in every forward; mamba2-370m runs
     # the SSD once a layer in prefill, RMSNorm twice a layer (ln1, the gated
-    # norm) plus the final norm in every forward.  Everything is bf16 with
+    # norm) plus the final norm in every forward; deepseek-v2-lite-16b runs
+    # RMSNorm 3 times a layer (ln1, MLA's kv_norm, ln2) plus the final norm
+    # in every forward, and no flash or SSD kernel (MLA's attention is the
+    # reference's dense softmax).  Everything is bf16 with
     # widths that take 16-byte vectors: flash at head dim 128 is the wgmma
     # variant, the SSD the tc variant, RMSNorm the vector variant.
     def want(rms, flash, ssd, rms_bwd=0, flash_bwd=0):
@@ -2058,12 +2197,18 @@ def main() -> int:
                 "ssd_scan": ssd, "ssd_scan/tc": ssd, "ssd_scan/simt": 0}
 
     serve_want = {"qwen3-4b": (512, want((4 * 36 + 1) * 32, 36, 0)),
-                  "mamba2-370m": (2048, want((2 * 48 + 1) * 32, 0, 48))}
+                  "mamba2-370m": (2048, want((2 * 48 + 1) * 32, 0, 48)),
+                  "deepseek-v2-lite-16b": (512, want((3 * 27 + 1) * 32, 0, 0))}
     paths, served = {}, {}
     for arch, (P, counts) in serve_want.items():
+        t5 = time.perf_counter()
         paths[f"serve {arch}"], *served[arch] = phase_serve(arch, 4, P, 32, counts)
+        print(f"[5] serve {arch} took {time.perf_counter() - t5:.1f}s")
     phase_profile("qwen3-4b", 4, 512, 32)
     phase_profile("mamba2-370m", 4, 2048, 32)
+    t6 = time.perf_counter()
+    phase_profile("deepseek-v2-lite-16b", 4, 512, 32)
+    print(f"[6] deepseek-v2-lite-16b profile took {time.perf_counter() - t6:.1f}s")
     t7 = time.perf_counter()
     phase_link_and_compute()
     phase_planner()
@@ -2117,8 +2262,10 @@ def main() -> int:
     # every kernel as phase 5 does and gives its tokens.
     t12 = time.perf_counter()
     for arch, (P, counts) in serve_want.items():
+        t = time.perf_counter()
         paths[f"serve {arch} (planned)"] = phase_serve_plans(arch, 4, P, 32, counts,
                                                              *served[arch])
+        print(f"[12] serve plans of {arch} took {time.perf_counter() - t:.1f}s")
     phase_colocate(4, 512, 32, 512)
     print(f"[12] serve plans phase took {time.perf_counter() - t12:.1f}s")
 

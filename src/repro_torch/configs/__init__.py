@@ -1,8 +1,8 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
-The port carries qwen3-4b and mamba2-370m so far; the others of the JAX
-package's registry are named here so that asking for one says why it is
-missing.
+The port carries qwen3-4b, mamba2-370m, deepseek-v2-lite-16b and
+llama4-maverick-400b-a17b so far; the others of the JAX package's registry
+are named here so that asking for one says why it is missing.
 """
 
 from __future__ import annotations
@@ -14,14 +14,14 @@ from .base import SHAPES, LayerSpec, ModelConfig, ShapeSpec, uniform_program  # 
 ARCHS: dict[str, str] = {
     "qwen3-4b": "qwen3_4b",
     "mamba2-370m": "mamba2_370m",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 
 NOT_PORTED = (
     "gemma3-4b",
     "starcoder2-7b",
     "gemma2-9b",
-    "deepseek-v2-lite-16b",
-    "llama4-maverick-400b-a17b",
     "qwen2-vl-7b",
     "whisper-large-v3",
     "hymba-1.5b",

@@ -5,12 +5,13 @@ axis (``repro/models/transformer.py:279 init_program``, built with
 ``jax.vmap``) and scans over it; the port keeps one entry per layer.
 ``unstack_program`` turns the one form into the other for any per-segment
 pytree, the parameters and the KV cache alike; ``params_from_jax`` also
-casts matrices to ``cfg.dtype`` or a dtype asked for (norm scales stay
-fp32) and moves them to the device, and ``adamw_from_jax`` carries the
-optimizer's state.  Parameter names and einsum layouts are the reference's;
-the KV cache's is not (``kv_from_jax``, ``cache_from_jax``), while the
-Mamba-2 cache's is.  ``cnn_params_from_jax`` carries a JAX ``CNN.init``
-tree into the port's CNN layout (``models/cnn.py``).
+casts matrices to ``cfg.dtype`` or a dtype asked for (norm scales and MoE
+routers stay fp32) and moves them to the device, and ``adamw_from_jax``
+carries the optimizer's state.  Parameter names and einsum layouts are the
+reference's; the attention KV cache's is not (``kv_from_jax``,
+``cache_from_jax``), while the MLA and Mamba-2 caches' are.
+``cnn_params_from_jax`` carries a JAX ``CNN.init`` tree into the port's CNN
+layout (``models/cnn.py``).
 """
 
 from __future__ import annotations
@@ -38,16 +39,23 @@ def unstack_program(segs, program) -> list:
 def params_from_jax(np_params, cfg: ModelConfig, device, dtype=None):
     """JAX ``Model.init`` params as numpy -> the port's params on ``device``,
     matrices stored as ``dtype`` (``cfg.dtype`` when None; ``torch.float32``
-    keeps the reference's masters for training)."""
+    keeps the reference's masters for training).  Vectors (norm scales) and
+    every MoE ``router`` stay fp32, as the reference keeps them."""
     dt = dtype or dtype_of(cfg)
 
-    def leaf(a):
+    def leaf(a, keep_fp32=False):
         t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=device, dtype=dt if t.ndim >= 2 else torch.float32)
+        return t.to(device=device, dtype=dt if t.ndim >= 2 and not keep_fp32 else torch.float32)
+
+    def block(p):
+        out = map_tree(leaf, p)
+        if "moe" in p:
+            out["moe"]["router"] = leaf(p["moe"]["router"], keep_fp32=True)
+        return out
 
     return {
         "embed": map_tree(leaf, np_params["embed"]),
-        "blocks": [map_tree(leaf, p) for p in unstack_program(np_params["blocks"], cfg.program)],
+        "blocks": [block(p) for p in unstack_program(np_params["blocks"], cfg.program)],
         "final_norm": map_tree(leaf, np_params["final_norm"]),
     }
 
@@ -91,14 +99,15 @@ def kv_from_jax(a, device="cpu"):
 
 def cache_from_jax(np_cache, cfg: ModelConfig, device="cpu") -> list:
     """JAX ``prefill``/``decode_step`` cache (per segment, leaves [reps, ...])
-    -> the port's per-layer list of {"kv": {"k", "v"}} or {"ssm": {"state",
-    "conv"}}, in float32.  KV leaves change layout (``kv_from_jax``); the
+    -> the port's per-layer list of {"kv": {"k", "v"}}, {"kv": {"c_kv",
+    "k_rope"}} (MLA) or {"ssm": {"state", "conv"}}, in float32.  Attention
+    KV leaves change layout (``kv_from_jax``); the MLA latents [B,S,L], the
     ssm state [B,H,P,N] and conv tail [B,K-1,C] keep the reference's."""
-    def leaf(kind):
-        fn = kv_from_jax if kind == "kv" else _f32
+    def leaf(kind, c):
+        fn = kv_from_jax if kind == "kv" and "c_kv" not in c else _f32
         return lambda a: fn(a, device)
 
-    return [{kind: map_tree(leaf(kind), c) for kind, c in layer.items()}
+    return [{kind: map_tree(leaf(kind, c), c) for kind, c in layer.items()}
             for layer in unstack_program(np_cache, cfg.program)]
 
 

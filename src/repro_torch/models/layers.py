@@ -65,10 +65,12 @@ def rmsnorm(scale, x, eps: float = 1e-6):
 
 # ------------------------------------------------------------------ FFN
 def init_dense_ffn(generator: torch.Generator, cfg: ModelConfig,
-                   dtype: torch.dtype | None = None):
+                   dtype: torch.dtype | None = None, d_ff: int | None = None):
+    """``d_ff`` overrides ``cfg.d_ff``, as the reference's does for the MoE's
+    shared experts."""
     if cfg.ffn_act != "swiglu":
         raise NotImplementedError(f"ffn_act {cfg.ffn_act!r} {NOT_PORTED}")
-    d, f = cfg.d_model, cfg.d_ff
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dtype = dtype or dtype_of(cfg)
     return {
         "w_gate": normal(generator, (d, f), 1.0 / math.sqrt(d), dtype),
@@ -86,10 +88,13 @@ def apply_dense_ffn(p, x, cfg: ModelConfig):
 # ------------------------------------------------------------ embeddings
 def init_embedding(generator: torch.Generator, cfg: ModelConfig,
                    dtype: torch.dtype | None = None):
+    """The token table, and the output head ``"head"`` when the config does
+    not tie them."""
+    dtype = dtype or dtype_of(cfg)
+    p = {"tok": normal(generator, (cfg.vocab_size, cfg.d_model), 0.02, dtype)}
     if not cfg.tie_embeddings:
-        raise NotImplementedError(f"untied embeddings {NOT_PORTED}")
-    return {"tok": normal(generator, (cfg.vocab_size, cfg.d_model), 0.02,
-                          dtype or dtype_of(cfg))}
+        p["head"] = normal(generator, (cfg.vocab_size, cfg.d_model), 0.02, dtype)
+    return p
 
 
 def embed_tokens(p, tokens, cfg: ModelConfig):
@@ -97,7 +102,7 @@ def embed_tokens(p, tokens, cfg: ModelConfig):
 
 
 def lm_logits(p, x, cfg: ModelConfig):
-    logits = (x @ p["tok"].to(x.dtype).T).float()
+    logits = (x @ p.get("head", p["tok"]).to(x.dtype).T).float()
     if cfg.final_softcap:
         c = cfg.final_softcap
         logits = c * torch.tanh(logits / c)
@@ -130,11 +135,12 @@ def chunked_softmax_xent(x, params, labels, cfg: ModelConfig, chunk: int = 256,
     each's fp32 logits reduced to a summed CE and recomputed in backward
     (``torch.utils.checkpoint``; nothing here draws random numbers, so no
     RNG state is saved), so live logits are [B, chunk, V].  The
-    table is cast to x's dtype once, outside the loop.  The sequence is
-    padded to a multiple of the chunk with ``ignore_index`` labels.  x is
+    table (the untied ``"head"`` where there is one, else ``"tok"``) is
+    cast to x's dtype once, outside the loop.  The sequence is padded to a
+    multiple of the chunk with ``ignore_index`` labels.  x is
     the final-normed hidden state aligned so that position i predicts
     labels[i] (callers shift)."""
-    table = params["tok"].to(x.dtype)
+    table = params.get("head", params["tok"]).to(x.dtype)
     B, S, D = x.shape
     c = min(chunk, S)
     pad = (-S) % c

@@ -1,16 +1,17 @@
 """Decoder-only LM: the training loss, and serving (prefill into a decode
 cache, then decode steps).
 
-Counterpart of ``repro/models/transformer.py``, for full-attention and Mamba-2
-mixers, each with a dense FFN or none; other layer kinds raise
-NotImplementedError naming the ROADMAP item.  Each layer dispatches on its
-kind as the reference's does: ln1, then the mixer, then the residual, then
-``ln2`` and the FFN where the layer has one.
+Counterpart of ``repro/models/transformer.py``, for full-attention, MLA and
+Mamba-2 mixers, each with a dense FFN, an MoE FFN or none; other layer kinds
+raise NotImplementedError naming the ROADMAP item.  Each layer dispatches on
+its kind as the reference's does: ln1, then the mixer, then the residual,
+then ``ln2`` and the FFN where the layer has one.
 The reference scans stacked segment parameters with ``lax.scan``; here
 ``params["blocks"]`` and the cache hold one entry per layer, in program
 order, and a Python loop runs them (``models/convert.py`` unstacks a JAX
-pytree into this form).  ``Model.loss`` trains attention layers only:
-Mamba-2 training waits for the SSD scan's gradient (ROADMAP queue B item 3).
+pytree into this form).  ``Model.loss`` trains full-attention layers with
+dense FFNs only: Mamba-2 training waits for the SSD scan's gradient
+(ROADMAP queue B item 3), MLA and MoE training for ROADMAP queue A item 10.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from repro_torch.configs.base import LayerSpec, ModelConfig, Segment
 from repro_torch.kernels.ops import label
 from repro_torch.tree import tree_leaves
 from . import attention as attn_mod
+from . import mla as mla_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (
     NOT_PORTED,
@@ -45,12 +48,14 @@ from .rope import position_tensor, rope_angles
 
 NOT_TRAINED = ("is not yet ported: it needs the SSD scan's gradient, see ROADMAP.md queue B "
                "item 3")
+NOT_TRAINED_ZOO = ("is not yet ported: MLA and MoE training (with the aux loss) come with "
+                   "ROADMAP.md queue A item 10")
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.ffn not in ("dense", "none"):
+    if spec.ffn not in ("dense", "moe", "none"):
         raise NotImplementedError(f"ffn {spec.ffn!r} {NOT_PORTED}")
-    if spec.attn != "mamba":
+    if spec.attn not in ("mamba", "mla"):
         attn_mod.check_spec(spec)
 
 
@@ -67,19 +72,29 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     p: dict[str, Any] = {"ln1": init_norm(cfg, dev)}
     if spec.attn == "mamba":
         p["mamba"] = ssm_mod.init_mamba(generator, cfg)
+    elif spec.attn == "mla":
+        p["attn"] = mla_mod.init_mla(generator, cfg, spec, dtype)
     else:
         p["attn"] = attn_mod.init_attention(generator, cfg, spec, dtype)
-    if spec.ffn == "dense":
+    if spec.ffn != "none":
         p["ln2"] = init_norm(cfg, dev)
+    if spec.ffn == "dense":
         p["ffn"] = init_dense_ffn(generator, cfg, dtype)
+    elif spec.ffn == "moe":
+        p["moe"] = moe_mod.init_moe(generator, cfg, dtype)
     return p
 
 
 def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
+    """The FFN sublayer and its residual; serving drops the MoE's aux loss."""
+    if spec.ffn == "none":
+        return x
+    h = apply_norm(p["ln2"], x, cfg)
     if spec.ffn == "dense":
-        h = apply_dense_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
-        x = x + label(h, "ffn_out")
-    return x
+        h = apply_dense_ffn(p["ffn"], h, cfg)
+    else:
+        h, _ = moe_mod.apply_moe(p["moe"], h, cfg)
+    return x + label(h, "ffn_out")
 
 
 def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles):
@@ -100,6 +115,8 @@ def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int)
     h = apply_norm(p["ln1"], x, cfg)
     if spec.attn == "mamba":
         h, cache["ssm"] = ssm_mod.apply_mamba(p["mamba"], h, cfg, return_cache=True)
+    elif spec.attn == "mla":
+        h, cache["kv"] = mla_mod.prefill_mla(p["attn"], h, cfg, spec, angles, max_seq)
     else:
         h, cache["kv"] = attn_mod.prefill_attention(p["attn"], h, cfg, spec, angles, max_seq)
     return _ffn(p, x + h, cfg, spec), cache
@@ -111,6 +128,8 @@ def decode_layer(p, x, cache, pos: torch.Tensor, cfg: ModelConfig, spec: LayerSp
     h = apply_norm(p["ln1"], x, cfg)
     if spec.attn == "mamba":
         h, cache["ssm"] = ssm_mod.decode_mamba(p["mamba"], h, cache["ssm"], cfg)
+    elif spec.attn == "mla":
+        h, cache["kv"] = mla_mod.decode_mla(p["attn"], h, cache["kv"], pos, cfg, spec, angles)
     else:
         h, cache["kv"] = attn_mod.decode_attention(p["attn"], h, cache["kv"], pos, cfg, spec,
                                                    angles)
@@ -119,12 +138,16 @@ def decode_layer(p, x, cache, pos: torch.Tensor, cfg: ModelConfig, spec: LayerSp
 
 def init_program_cache(cfg: ModelConfig, program, batch: int, max_seq: int, dtype, device):
     """One zeroed cache per layer, in execution order: {"kv": {"k", "v"}} for
-    attention, {"ssm": {"state", "conv"}} for Mamba-2."""
-    return [
-        {"ssm": ssm_mod.init_mamba_cache(cfg, batch, dtype, device)} if spec.attn == "mamba"
-        else {"kv": attn_mod.init_kv_cache(cfg, spec, batch, max_seq, dtype, device)}
-        for spec in layer_specs(program)
-    ]
+    attention, {"kv": {"c_kv", "k_rope"}} for MLA, {"ssm": {"state",
+    "conv"}} for Mamba-2."""
+    def layer_cache(spec):
+        if spec.attn == "mamba":
+            return {"ssm": ssm_mod.init_mamba_cache(cfg, batch, dtype, device)}
+        if spec.attn == "mla":
+            return {"kv": mla_mod.init_mla_cache(cfg, batch, max_seq, dtype, device)}
+        return {"kv": attn_mod.init_kv_cache(cfg, spec, batch, max_seq, dtype, device)}
+
+    return [layer_cache(spec) for spec in layer_specs(program)]
 
 
 # ------------------------------------------------------------------ model
@@ -164,9 +187,12 @@ class Model:
         return self.init(ShapeOnly(), dtype)
 
     def _angles(self, positions):
-        if self.cfg.num_heads == 0:  # attention-free (mamba2)
+        """RoPE angles at the rotated head dim: MLA's qk_rope, else head_dim."""
+        cfg = self.cfg
+        if cfg.num_heads == 0:  # attention-free (mamba2)
             return None
-        return rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        hd = cfg.qk_rope_head_dim if cfg.kv_lora_rank else cfg.head_dim
+        return rope_angles(positions, hd, cfg.rope_theta)
 
     # ---- training ----
     def loss(self, params, batch, remat: bool = True, remat_policy=None):
@@ -184,6 +210,8 @@ class Model:
         specs = layer_specs(cfg.program)
         if any(spec.attn == "mamba" for spec in specs):
             raise NotImplementedError(f"Mamba-2 training {NOT_TRAINED}")
+        if any(spec.attn == "mla" or spec.ffn == "moe" for spec in specs):
+            raise NotImplementedError(f"{cfg.name} training {NOT_TRAINED_ZOO}")
         tokens = batch["tokens"]
         x = embed_tokens(params["embed"], tokens, cfg)
         B, S = tokens.shape

@@ -215,12 +215,86 @@ def test_entry_point_defaults_to_cuda():
 
 
 def test_registry():
-    assert list_archs() == [ARCH, "mamba2-370m"]
+    assert list_archs() == [ARCH, "mamba2-370m", "deepseek-v2-lite-16b",
+                            "llama4-maverick-400b-a17b"]
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
             full.d_ff, full.vocab_size) == (36, 2560, 32, 8, 128, 9728, 151_936)
     with pytest.raises(KeyError, match="not yet ported"):
         get_config("gemma2-9b")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "llama4-maverick-400b-a17b"])
+def test_full_moe_config_shapes_match_the_reference(arch):
+    """``Model.init_shapes()`` of the full config, on meta tensors, against
+    the reference's ``eval_shape`` leaf for leaf (its stacked segments
+    unstacked), every ``router`` fp32 and every other matrix bf16;
+    deepseek-v2-lite has 15,706,484,224 parameters, 31.42 GB as stored."""
+    from repro.configs import get_config as jax_config
+    from repro_torch.models.convert import unstack_program
+    from repro_torch.tree import map_tree, tree_leaves
+    from torch.utils._pytree import tree_flatten_with_path
+
+    class Shape:  # a leaf whose [r] drops the stacked axis, as unstack_program reads it
+        def __init__(self, shape):
+            self.shape = tuple(shape)
+
+        def __getitem__(self, r):
+            return Shape(self.shape[1:])
+
+    cfg = get_config(arch)
+    jshapes = jax.tree.map(lambda a: Shape(a.shape),
+                           jax_build_model(jax_config(arch)).init_shapes())
+    jshapes = {"embed": jshapes["embed"], "final_norm": jshapes["final_norm"],
+               "blocks": unstack_program(jshapes["blocks"], cfg.program)}
+    tparams = build_model(cfg, "cpu").init_shapes()
+
+    def paths(tree):
+        leaves, _ = tree_flatten_with_path(tree, is_leaf=lambda a: isinstance(a, Shape))
+        return {str(path): leaf for path, leaf in leaves}
+
+    want = paths(jshapes)
+    got = paths(map_tree(lambda t: Shape(t.shape), tparams))
+    assert got.keys() == want.keys()
+    assert all(got[k].shape == want[k].shape for k in want), \
+        [k for k in want if got[k].shape != want[k].shape]
+    leaves = paths(tparams)
+    for key, t in leaves.items():
+        want_dtype = (torch.float32 if "router" in key or t.ndim < 2 else torch.bfloat16)
+        assert t.dtype == want_dtype and t.device.type == "meta", key
+    n = sum(t.numel() for t in tree_leaves(tparams))
+    if arch == "deepseek-v2-lite-16b":
+        assert n == 15_706_484_224
+        assert sum(t.numel() * t.element_size() for t in tree_leaves(tparams)) == 31_420_037_120
+        assert sum("router" in k for k in leaves) == 26
+
+
+def _serve_deepseek(argv, capsys):
+    ops.reset_launch_counts()
+    gen = serve.main(["--arch", "deepseek-v2-lite-16b", "--smoke", "--device", "cpu", "--batch",
+                      "2", "--prompt-len", "16", "--gen", "4"] + argv)
+    assert not any(ops.launch_counts().values())
+    return gen, capsys.readouterr().out
+
+
+def test_serve_deepseek_smoke_with_and_without_plans(tmp_path, capsys):
+    """``serve.main --arch deepseek-v2-lite-16b --smoke --device cpu``; with
+    ``--plan --plan-cache`` the prefill and decode steps (MLA, the MoE
+    dispatch) trace on fake tensors and solve, and a second run restores
+    both plans; the greedy tokens are the same in all three runs."""
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    gen, _ = _serve_deepseek([], capsys)
+    assert gen.shape == (2, 4) and 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size
+    argv = ["--plan", "--plan-cache", str(tmp_path)]
+    planned, out = _serve_deepseek(argv, capsys)
+    assert torch.equal(planned, gen)
+    for role in ("prefill", "decode"):
+        assert f"[plan] {role}: solved" in out, out
+    again, out = _serve_deepseek(argv, capsys)
+    assert torch.equal(again, gen)
+    for role in ("prefill", "decode"):
+        assert f"[plan] {role}: restored from cache" in out, out
+    assert len(list(tmp_path.glob("*.json"))) == 2
 
 
 def test_unported_layers_raise():
