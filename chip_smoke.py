@@ -20,7 +20,8 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               through its operator, against its plain PyTorch version on
               the card, at the main paths' shapes and a few edge cases, timed beside
               its bound and a library call that computes the same function
-              (none computes the SSD scan); each case names the variant
+              (none computes the SSD scan; a window is SDPA's boolean band
+              mask); each case names the variant
               that ran and checks that it was that one (rmsnorm:
               ``vector``, or ``scalar`` where D or alignment rules out
               16-byte vectors; flash: ``wgmma`` for bf16 at head dim 64 or
@@ -40,10 +41,12 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               call's backward (``torch.autograd.grad`` through
               ``F.rms_norm`` or SDPA, its forward subtracted), and both
               flash forwards with the LSE written;
-  4. parity   qwen3-4b's, mamba2-370m's and deepseek-v2-lite-16b's widths
-              at depth 2 in fp32 (one layer of each program segment, or the
-              one segment's unit twice: deepseek's dense layer, then an MoE
-              layer): prefill + 4 decode steps through the kernels on the
+  4. parity   qwen3-4b's, mamba2-370m's, deepseek-v2-lite-16b's and
+              hymba-1.5b's widths in fp32 (one layer of each program segment,
+              or the one segment's unit twice: deepseek's dense layer, then an
+              MoE layer; hymba's five hybrid layers, global and window in
+              turn, at prompt 1100, which wraps the window's ring and pads
+              the SSD): prefill + 4 decode steps through the kernels on the
               card against the plain path on the CPU, logits and every
               layer's cache, and at each MoE call the routing equal (expert
               ids and ranks), its smallest top-k margin above NEAR_TIE
@@ -54,7 +57,11 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               on the full mamba2-370m (48 layers) at batch 4, prompt 2048,
               32 tokens, and on the full deepseek-v2-lite-16b (27 layers: MLA,
               one dense FFN, 26 MoE FFNs of 64 experts top-6) at batch 4,
-              prompt 512, 32 tokens, with the kernels' launch counts set to 0
+              prompt 512, 32 tokens, and on the full hymba-1.5b (32 hybrid
+              layers: attention, 29 of them with a window of 1024, beside a
+              Mamba-2 mixer) at batch 4, prompt 2048, 32 tokens, with its
+              cache's bytes by kind beside the arithmetic; with the kernels'
+              launch counts set to 0
               just before each run and read just after it, exactly, by
               variant (every flash launch ``wgmma``, every SSD launch
               ``tc``, every RMSNorm launch ``vector``), and the decode ms a
@@ -67,7 +74,7 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               the tc SSD is two, its C B^T prepass and the scan; the device
               time by op, the port's ``repro_torch`` operators among them;
               for deepseek the MoE dispatch's sort, scatter and gather ops
-              against its expert GEMMs);
+              against its expert GEMMs; hymba's too);
   7. planner  the figures the port's ``H100_SXM`` HardwareSpec prices swaps
               with, measured: pinned host<->device copy rates of 256 MiB,
               one direction at a time and both at once on two streams (the
@@ -121,7 +128,7 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               batch (the drop must be at least 90% of the 36 layer inputs);
               and a warm step traced with the plan, beside phase 10's: the
               copies' time each way and how much of it lies beside compute;
- 12. serve plans  ``serve.main --plan --plan-cache`` on phase 5's three cells:
+ 12. serve plans  ``serve.main --plan --plan-cache`` on phase 5's four cells:
               launch counts by variant and greedy tokens equal to phase 5's
               (planning launches nothing; decode takes 0-d device positions),
               each step's vars, w, chi/w and AutoSwap@80%; w against the
@@ -150,12 +157,19 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               allocator's reserved peak beside SmartPool's and CnMem's
               footprints.  The phase launches none of the
               port's kernels (cuDNN and cuBLAS run the CNNs), which the
-              counters must show.
+              counters must show;
+ 14. long decode  hymba-1.5b's long_500k cell: ``Model.init_cache(1, 524288)``
+              on the card, its bytes by kind (3 global caches, 29 rings of
+              1024, the SSM states and conv tails) against the arithmetic and
+              the allocator's count, then 4 decode steps at its last
+              positions: exact launch counts, finite logits, ms a step, the
+              peak.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the main paths, the serve runs, plain
-and planned, the train runs, plain and with the offload plan, and the CNN
-phase, with each path's own count in ``launches_by_path``), the nvidia-smi
+and planned, the train runs, plain and with the offload plan, the CNN
+phase and the long decode, with each path's own count in
+``launches_by_path``), the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -361,7 +375,9 @@ def rmsnorm_bwd_case(shape, dtype, gen, want_variant):
     return case
 
 
-def live_pairs(Sq, Sk, causal, window) -> int:
+def keep_mask(Sq, Sk, causal, window) -> np.ndarray:
+    """[Sq, Sk] bool: the (q, k) pairs that attention keeps, by absolute
+    positions from 0, as the kernels mask them."""
     q = np.arange(Sq)[:, None]
     k = np.arange(Sk)[None, :]
     keep = np.ones((Sq, Sk), bool)
@@ -369,7 +385,11 @@ def live_pairs(Sq, Sk, causal, window) -> int:
         keep &= q >= k
     if window is not None:
         keep &= q - k < window
-    return int(keep.sum())
+    return keep
+
+
+def live_pairs(Sq, Sk, causal, window) -> int:
+    return int(keep_mask(Sq, Sk, causal, window).sum())
 
 
 def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softcap=None):
@@ -398,14 +418,20 @@ def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softc
     ok, _, check = close(got, want, tol)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     sets = copies((q, k, v), nbytes)
-    flops = 4 * hd * B * H * live_pairs(Sq, Sk, causal, window)
+    keep = keep_mask(Sq, Sk, causal, window)
+    flops = 4 * hd * B * H * int(keep.sum())
     b_ms, b_by = bound(nbytes, flops, dtype)
     lib_ms = None
-    if window is None and not softcap:  # one library call computes the same function
+    # One library call computes the same function where there is no softcap
+    # and every row keeps a key (SDPA gives NaN where the kernels give 0): a
+    # window is SDPA's boolean band mask.
+    if not softcap and keep.any(1).all():
+        band = torch.from_numpy(keep).cuda() if window is not None else None
+
         def sdpa(q, k, v):
             return F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
-                enable_gqa=True)
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=band,
+                is_causal=causal and band is None, enable_gqa=True)
         lib_ms = time_ms(sdpa, sets, 20)
     name = (f"flash [{var}] B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} {str(dtype)[6:]}"
             f"{' causal' if causal else ''}{f' window={window}' if window else ''}"
@@ -692,6 +718,13 @@ def phase_kernels():
         rmsnorm_case((2048, 512), bf16, gen, "vector"),
         rmsnorm_case((4, 2048), bf16, gen, "vector"),
         rmsnorm_case((4, 512), bf16, gen, "vector"),
+        # hymba-1.5b at prefill B4 S2048: ln1, the branch norms, ln2 (D 1600);
+        # the gated norm (d_inner 3200)
+        rmsnorm_case((8192, 1600), bf16, gen, "vector"),
+        rmsnorm_case((8192, 3200), bf16, gen, "vector"),
+        # hymba-1.5b at decode B4: ln1, the branch norms, ln2; the gated norm
+        rmsnorm_case((4, 1600), bf16, gen, "vector"),
+        rmsnorm_case((4, 3200), bf16, gen, "vector"),
     ]
     flash = [
         flash_case(4, 512, 512, 32, 8, 128, bf16, gen),            # qwen3-4b prefill
@@ -711,12 +744,17 @@ def phase_kernels():
         flash_case(1, 128, 256, 4, 4, 64, torch.float32, gen, causal=False),
         flash_case(1, 200, 200, 4, 1, 256, torch.bfloat16, gen),   # hd 256 tiles, MQA
         flash_case(1, 192, 64, 2, 1, 256, torch.float32, gen, window=32),  # rows, no live key
+        # hymba-1.5b prefill B4 S2048, 25 heads in 5 groups of 5: its 29 window
+        # layers and its 3 global ones
+        flash_case(4, 2048, 2048, 25, 5, 64, bf16, gen, window=1024),
+        flash_case(4, 2048, 2048, 25, 5, 64, bf16, gen),
     ]
     ssd = [
         ssd_case(4, 2048, 32, 64, 1, 128, bf16, gen, "tc", "views"),  # mamba2 prefill
         ssd_case(1, 300, 4, 16, 2, 8, bf16, gen, "tc"),            # narrow tiles, ragged
         ssd_case(2, 320, 4, 128, 2, 128, bf16, gen, "tc", "views"),  # the largest P and N
         ssd_case(2, 256, 8, 64, 2, 64, bf16, gen, "tc", "views"),  # two groups
+        ssd_case(4, 2048, 50, 64, 1, 16, bf16, gen, "tc", "views"),  # hymba-1.5b prefill
         # the simt variant: fp32, and bf16 that the tc kernel's 16-byte rows rule out
         ssd_case(1, 300, 4, 12, 2, 100, bf16, gen, "simt"),        # P, N not multiples of 8
         ssd_case(2, 256, 8, 64, 2, 64, bf16, gen, "simt", "offset"),
@@ -961,13 +999,16 @@ def release_memory(phase: str = "5") -> int:
 
 def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     """Serve the full model through ``serve.main`` (a prefill and G - 1 decode
-    steps); each kernel must have been launched ``want[name]`` times.  ->
-    (launch counts, the greedy tokens, decode ms a step)."""
+    steps); each kernel must have been launched ``want[name]`` times.  A
+    hybrid model's cache, as its prefill returned it on the card, is held to
+    the arithmetic by kind.  -> (launch counts, the greedy tokens, decode ms
+    a step)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import Model
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch)
@@ -975,11 +1016,23 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
                   for t in tree_leaves(build_model(cfg, "cuda").init_shapes()))
     held = release_memory()
     out = io.StringIO()
+    served = {}
+    prefill = Model.prefill
+
+    def recording_prefill(self, *args, **kwargs):  # keeps the bytes, not the cache
+        logits, cache = prefill(self, *args, **kwargs)
+        served.update(cache_bytes(cfg, cache))
+        return logits, cache
+
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        gen = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
-                          "--gen", str(G)])
+    Model.prefill = recording_prefill
+    try:
+        with contextlib.redirect_stdout(out):
+            gen = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+                              "--gen", str(G)])
+    finally:
+        Model.prefill = prefill
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -998,9 +1051,110 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
           f"launches {counts}, "
           f"main() wall {wall:.1f}s (init included)")
     require(counts == want, f"{arch}: launch counts {counts}, want {want}")
+    if cfg.family == "hybrid":
+        print_cache_bytes("5", cfg, B, P + G, served, "the cache prefill returned on the card")
     require(tuple(gen.shape) == (B, G), f"generated shape {tuple(gen.shape)}")
     require(int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size, "token out of range")
     return counts, gen, decode_s / (G - 1) * 1e3
+
+
+def cache_bytes(cfg, cache) -> dict[str, int]:
+    """A hybrid model's serving cache, bytes by kind: the attention caches of
+    its global layers, the rings of its window layers, the SSM states and
+    the conv tails."""
+    from repro_torch.models.transformer import layer_specs
+
+    out = dict.fromkeys(("global", "rings", "ssm state", "conv tails"), 0)
+    for spec, layer in zip(layer_specs(cfg.program), cache):
+        for part in layer.values():
+            for name, t in part.items():
+                kind = {"state": "ssm state", "conv": "conv tails"}.get(
+                    name, "rings" if spec.window else "global")
+                out[kind] += t.numel() * t.element_size()
+    return out
+
+
+def cache_arithmetic(cfg, B: int, max_seq: int) -> dict[str, int]:
+    """``cache_bytes`` from the config's widths alone: k and v [B, KV, slots,
+    hd] in the config's dtype (2 bytes in bf16) a layer, max_seq slots in a
+    global layer and min(max_seq, window) in a window layer's ring; the fp32
+    state [B, H, P, N] and the conv tail [B, K - 1, d_inner + 2 G N] in the
+    config's dtype a layer."""
+    from repro_torch.models.transformer import layer_specs
+
+    specs = layer_specs(cfg.program)
+    size = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    kv = 2 * B * cfg.num_kv_heads * cfg.head_dim * size
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return {"global": sum(kv * max_seq for sp in specs if not sp.window),
+            "rings": sum(kv * min(max_seq, sp.window) for sp in specs if sp.window),
+            "ssm state": len(specs) * B * cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4,
+            "conv tails": len(specs) * B * (cfg.conv_kernel - 1) * conv_dim * size}
+
+
+def print_cache_bytes(phase: str, cfg, B: int, max_seq: int, got: dict[str, int], how: str):
+    """Print a hybrid cache's bytes by kind beside the arithmetic and beside
+    what full caches in every layer would hold; fail where they differ."""
+    want = cache_arithmetic(cfg, B, max_seq)
+    size = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    full = cfg.num_layers * 2 * B * cfg.num_kv_heads * cfg.head_dim * size * max_seq
+    print(f"[{phase}] {cfg.name} cache at B{B} max_seq {max_seq} ({how}): " + ", ".join(
+        f"{k} {v:,} B (arithmetic {want[k]:,})" for k, v in got.items()) +
+        f"; total {sum(got.values()):,} B; full caches in every layer would hold {full:,} B "
+        f"of k and v, {full / (got['global'] + got['rings']):.2f}x the global caches and rings")
+    require(got == want, f"{cfg.name}: cache bytes {got}, arithmetic {want}")
+
+
+def phase_long_decode(arch: str, max_seq: int, steps: int, want: dict[str, int]):
+    """The long_500k decode cell on the card: ``Model.init_cache(1, max_seq)``,
+    its bytes by kind against the arithmetic and against what the caching
+    allocator counted for it, then ``steps`` greedy decode steps at the
+    cache's last positions (after one to warm), on the zeroed cache, with
+    exact launch counts, finite logits, ms a step and the peak.  -> the
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch)
+    held = release_memory("14")
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cache = model.init_cache(1, max_seq)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    got = cache_bytes(cfg, cache)
+    print_cache_bytes("14", cfg, 1, max_seq, got, f"Model.init_cache on the card; the allocator "
+                      f"counted {allocated:,} B for it")
+    tensors = sum(len(part) for layer in cache for part in layer.values())
+    require(0 <= allocated - sum(got.values()) < 512 * tensors,
+            f"{arch}: the allocator counted {allocated} B for a cache of {sum(got.values())} B")
+    tok = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 1))).cuda()
+    positions = torch.arange(max_seq - steps - 1, max_seq, device="cuda")
+    logits, cache = model.decode_step(params, cache, tok, positions[0])  # warm
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    finite = torch.isfinite(logits).all()
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        logits, cache = model.decode_step(params, cache, tok, positions[i])
+        finite &= torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[14] {arch} long_500k decode: {steps} steps at positions {max_seq - steps} to "
+          f"{max_seq - 1} on the zeroed cache, {ms:.2f} ms a step (host clock, synchronised), "
+          f"logits finite {bool(finite)}, peak {peak / 1e9:.3f} GB ({held / 2**30:.3f} GiB held "
+          f"before; weights {sum(t.numel() * t.element_size() for t in tree_leaves(params)):,} "
+          f"B), launches {counts}")
+    require(bool(finite), f"{arch}: non-finite logits in the long decode")
+    require(counts == want, f"{arch} long decode: launch counts {counts}, want {want}")
+    return counts
 
 
 # qwen3-4b in fp32 (4,022,468,096 parameters): masters, gradients, and AdamW's
@@ -2177,6 +2331,13 @@ def main() -> int:
     t4 = time.perf_counter()
     phase_parity("deepseek-v2-lite-16b", 64)
     print(f"[4] deepseek-v2-lite-16b parity took {time.perf_counter() - t4:.1f}s")
+    # hymba's five segments, one layer each (global, window, global, window,
+    # global): the prompt exceeds the window of 1024, so prefill writes a
+    # wrapped ring, and is not a multiple of 64, so the SSD pads; the 4
+    # decode steps write ring slots 76 to 79.
+    t4 = time.perf_counter()
+    phase_parity("hymba-1.5b", 1100)
+    print(f"[4] hymba-1.5b parity took {time.perf_counter() - t4:.1f}s")
     # Launches over 32 forwards (prefill and 31 decode steps): qwen3-4b runs
     # flash once a layer in prefill, RMSNorm 4 times a layer (ln1, ln2,
     # q-norm, k-norm) plus the final norm in every forward; mamba2-370m runs
@@ -2184,7 +2345,10 @@ def main() -> int:
     # norm) plus the final norm in every forward; deepseek-v2-lite-16b runs
     # RMSNorm 3 times a layer (ln1, MLA's kv_norm, ln2) plus the final norm
     # in every forward, and no flash or SSD kernel (MLA's attention is the
-    # reference's dense softmax).  Everything is bf16 with
+    # reference's dense softmax); hymba-1.5b runs flash (with the window in
+    # 29 of its layers) and the SSD once a layer in prefill, and RMSNorm 5
+    # times a layer (ln1, the gated norm, the two branch norms, ln2) plus
+    # the final norm in every forward.  Everything is bf16 with
     # widths that take 16-byte vectors: flash at head dim 128 is the wgmma
     # variant, the SSD the tc variant, RMSNorm the vector variant.
     def want(rms, flash, ssd, rms_bwd=0, flash_bwd=0):
@@ -2198,7 +2362,8 @@ def main() -> int:
 
     serve_want = {"qwen3-4b": (512, want((4 * 36 + 1) * 32, 36, 0)),
                   "mamba2-370m": (2048, want((2 * 48 + 1) * 32, 0, 48)),
-                  "deepseek-v2-lite-16b": (512, want((3 * 27 + 1) * 32, 0, 0))}
+                  "deepseek-v2-lite-16b": (512, want((3 * 27 + 1) * 32, 0, 0)),
+                  "hymba-1.5b": (2048, want((5 * 32 + 1) * 32, 32, 32))}
     paths, served = {}, {}
     for arch, (P, counts) in serve_want.items():
         t5 = time.perf_counter()
@@ -2209,6 +2374,9 @@ def main() -> int:
     t6 = time.perf_counter()
     phase_profile("deepseek-v2-lite-16b", 4, 512, 32)
     print(f"[6] deepseek-v2-lite-16b profile took {time.perf_counter() - t6:.1f}s")
+    t6 = time.perf_counter()
+    phase_profile("hymba-1.5b", 4, 2048, 32)
+    print(f"[6] hymba-1.5b profile took {time.perf_counter() - t6:.1f}s")
     t7 = time.perf_counter()
     phase_link_and_compute()
     phase_planner()
@@ -2283,6 +2451,15 @@ def main() -> int:
     require(not any(paths["cnn"].values()), f"cnn: the port's kernels ran {paths['cnn']}")
     print(f"[13] cnn phase took {time.perf_counter() - t13:.1f}s; launches of the port's "
           f"kernels: 0")
+
+    # Phase 14: hymba's long_500k decode cell, RMSNorm 5 times a layer and
+    # the final norm a step, no flash or SSD (decode attention is the dense
+    # step, the SSM the recurrence).
+    t14 = time.perf_counter()
+    long_steps = 4
+    paths["decode hymba-1.5b long_500k"] = phase_long_decode(
+        "hymba-1.5b", 524_288, long_steps, want((5 * 32 + 1) * long_steps, 0, 0))
+    print(f"[14] long decode phase took {time.perf_counter() - t14:.1f}s")
 
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA

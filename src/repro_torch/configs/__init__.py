@@ -1,8 +1,9 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
-The port carries qwen3-4b, mamba2-370m, deepseek-v2-lite-16b and
-llama4-maverick-400b-a17b so far; the others of the JAX package's registry
-are named here so that asking for one says why it is missing.
+The port carries qwen3-4b, mamba2-370m, deepseek-v2-lite-16b,
+llama4-maverick-400b-a17b and hymba-1.5b so far; the others of the JAX
+package's registry are named here so that asking for one says why it is
+missing.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ ARCHS: dict[str, str] = {
     "mamba2-370m": "mamba2_370m",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 NOT_PORTED = (
@@ -24,7 +26,6 @@ NOT_PORTED = (
     "gemma2-9b",
     "qwen2-vl-7b",
     "whisper-large-v3",
-    "hymba-1.5b",
 )
 
 

@@ -5,8 +5,10 @@ returns the keyword arguments of the step a cell runs (the loss for
 ``train``, prefill, or a decode step), as meta tensors: shapes and dtypes,
 no memory.  ``core.trace`` traces a step at them.  Token ids are int64, the
 port's (``repro_torch.data``); the reference's are int32.  The port has
-the dense and Mamba-2 families only, so the reference's VLM patch
-embeddings and encoder frames raise, naming ROADMAP queue A item 10.
+the dense, MoE, Mamba-2 and hybrid families, which take tokens only, so the
+reference's VLM patch embeddings and encoder frames raise, naming ROADMAP
+queue A item 10.  ``cache_specs`` gives a decode cell's cache: for hymba's
+long_500k, full caches in its 3 global layers, window rings in the rest.
 """
 
 from __future__ import annotations

@@ -7,10 +7,10 @@ the reference draws them with ``jax.random``, whose bits PyTorch cannot
 reproduce, so the two entry points serve different prompts from the same
 seed.  Runs on CUDA unless ``--device cpu`` is given, and raises on a host
 without CUDA rather than falling back.  On the card, RMSNorm, prefill
-attention and the SSD scan run through the port's Hopper kernels; matrix
-products stay in full fp32 for fp32 models (TF32 off).  Each decode step
-takes its position as a 0-d tensor on the device, a slice of one
-``arange``: the loop reads nothing back to the host.
+attention (with the layer's window) and the SSD scan run through the port's
+Hopper kernels; matrix products stay in full fp32 for fp32 models (TF32
+off).  Each decode step takes its position as a 0-d tensor on the device,
+a slice of one ``arange``: the loop reads nothing back to the host.
 
 The paper's memory planner, as in the reference, on the port's card
 (``H100_SXM``, where the reference plans for ``TPU_V5E``):
@@ -35,6 +35,8 @@ Usage:
       --batch 4 --prompt-len 512 --gen 32 [--plan] [--plan-cache build/plans]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+      --batch 4 --prompt-len 2048 --gen 32 [--plan] [--plan-cache build/plans]
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --batch 2 --prompt-len 16 --gen 4 --plan-cache /tmp/plans --colocate
 """

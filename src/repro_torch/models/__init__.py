@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense and MoE decoders, Mamba-2, and the paper's CNNs."""
+"""Model zoo of the port: the dense and MoE decoders, Mamba-2, the hybrid
+(attention + Mamba-2) decoder, and the paper's CNNs."""
 
 from __future__ import annotations
 
@@ -11,6 +12,6 @@ from .transformer import Model
 
 def build_model(cfg: ModelConfig, device) -> Model:
     """The model object for ``cfg`` on ``device`` (init/init_cache/prefill/decode_step)."""
-    if cfg.is_encoder_decoder or cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.is_encoder_decoder or cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.name} ({cfg.family}) {NOT_PORTED}")
     return Model(cfg, device)

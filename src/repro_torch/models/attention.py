@@ -1,19 +1,23 @@
 """GQA attention with qk-norm and RoPE; prefill and decode against a KV cache.
 
-Counterpart of ``repro/models/attention.py``, full-attention layers only
-(window, hybrid and cross attention arrive with queue A item 10).  Training
-(``apply_attention``) and prefill attention run through
-``kernels.ops.flash_mha`` (the Hopper kernels on the card, forward and,
-when training, backward), at any length, where the reference picks its jnp
-``mha_dense`` or ``mha_chunked`` by length; those compute the same function
-and are not ported.  Decode runs the reference's dense ``_sdpa`` step.
+Counterpart of ``repro/models/attention.py`` for full, sliding-window and
+hybrid layers (a hybrid layer's attention branch is a window or full
+attention layer's; ``models/transformer.py`` runs its Mamba-2 branch); cross
+attention waits for queue A item 10.  Training (``apply_attention``) and
+prefill attention run through ``kernels.ops.flash_mha`` (the Hopper kernels
+on the card, forward and, when training, backward), at any length, with
+the layer's window, where the reference picks its jnp ``mha_dense`` or
+``mha_chunked`` by length; those compute the same function and are not
+ported.  Decode runs the reference's dense ``_sdpa`` step.
 Weights are cast to the activations' dtype at each use (a no-op on bf16
 storage; fp32 masters when training).
 
-Keys are cached post-RoPE.  A full cache is a ring of size max_seq, so slot
-== position; ``decode_attention`` writes the new token's k/v into the cache
-in place (the reference returns a new cache; in place saves a copy of the
-whole cache every step) and returns it.  Its position is a 0-d integer
+Keys are cached post-RoPE.  Every cache is a ring: a full layer's of size
+max_seq, so slot == position, a window layer's of size min(max_seq,
+window), which holds the last ``window`` positions, position p at slot
+p % W, as the reference's does.  ``decode_attention`` writes the new
+token's k/v into the cache in place (the reference returns a new cache; in
+place saves a copy of the whole cache every step) and returns it.  Its position is a 0-d integer
 tensor on the device, as the reference's is an int32 scalar: no decode
 step reads it on the host.
 
@@ -37,8 +41,14 @@ from .rope import apply_rope
 
 
 def check_spec(spec: LayerSpec) -> None:
-    if spec.attn != "full" or spec.cross_attn:
+    if spec.attn not in ("full", "window", "hybrid") or spec.cross_attn:
         raise NotImplementedError(f"attention {spec} {NOT_PORTED}")
+
+
+def _window(spec: LayerSpec) -> int | None:
+    """The layer's sliding window, as the reference reads it: window and
+    hybrid layers that set one; None attends to every earlier position."""
+    return spec.window if spec.attn in ("window", "hybrid") else None
 
 
 # ------------------------------------------------------------------- init
@@ -113,24 +123,33 @@ def _out(p, o, cfg: ModelConfig):
 def apply_attention(p, x, cfg: ModelConfig, spec: LayerSpec, angles):
     """Full-sequence causal attention for training: x [B,S,D] -> [B,S,D].
     The reference's ``mha_dense``/``mha_chunked`` become the flash kernel at
-    every S, differentiable through ``ops.flash_mha``."""
+    every S, with the layer's window, through ``ops.flash_mha``.  It is
+    differentiable without a window; the gradient of a window layer raises
+    (``check_bwd_supported``) until the window backward lands (ROADMAP A10)."""
     check_spec(spec)
     q, k, v = _project(p, x, cfg, angles)
-    out = ops.flash_mha(q, k, v, causal=True, softcap=cfg.attn_softcap, scale=_scale(cfg))
+    out = ops.flash_mha(q, k, v, causal=True, window=_window(spec), softcap=cfg.attn_softcap,
+                        scale=_scale(cfg))
     return _out(p, out, cfg)
 
 
 # ------------------------------------------------------------------ cache
 def cache_len(cfg: ModelConfig, spec: LayerSpec, max_seq: int) -> int:
+    """Slots of the layer's ring: min(max_seq, window) for a layer with a
+    window, else max_seq."""
     check_spec(spec)
-    return max_seq
+    window = _window(spec)
+    return max_seq if window is None else min(max_seq, window)
 
 
 def prefill_attention(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int):
-    """Full-sequence causal attention that also emits the filled KV cache."""
+    """Full-sequence causal attention that also emits the filled KV cache.
+    The ring's slots are written with tensor indices, so nothing here reads
+    a value back to the host (``serve --plan`` traces it on fake tensors)."""
     B, S, _ = x.shape
     q, k, v = _project(p, x, cfg, angles)
-    out = ops.flash_mha(q, k, v, causal=True, softcap=cfg.attn_softcap, scale=_scale(cfg))
+    out = ops.flash_mha(q, k, v, causal=True, window=_window(spec), softcap=cfg.attn_softcap,
+                        scale=_scale(cfg))
     out = _out(p, out, cfg)
 
     cache = init_kv_cache(cfg, spec, B, max_seq, k.dtype, x.device)
@@ -167,8 +186,11 @@ def decode_attention(p, x, cache, pos: torch.Tensor, cfg: ModelConfig, spec: Lay
     cache["k"].index_copy_(2, slot, k.transpose(1, 2))
     cache["v"].index_copy_(2, slot, v.transpose(1, 2))
 
-    # Slot idx was last written at pos - (pos - idx) mod W, which is >= 0
-    # exactly when idx <= pos (every slot once pos >= W - 1).
+    # The reference's mask is written_at >= 0, where slot idx was last
+    # written at pos - (pos - idx) mod W.  That is >= 0 exactly when idx <=
+    # pos, for a full cache and a ring alike: before the ring wraps (pos <
+    # W) slot idx holds position idx, and from pos = W - 1 on every slot
+    # holds one of the last W positions, which the window keeps.
     mask = torch.arange(W, device=x.device) <= pos
     out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
     return _out(p, out, cfg), cache

@@ -5,7 +5,8 @@ axis (``repro/models/transformer.py:279 init_program``, built with
 ``jax.vmap``) and scans over it; the port keeps one entry per layer.
 ``unstack_program`` turns the one form into the other for any per-segment
 pytree, the parameters and the KV cache alike; ``params_from_jax`` also
-casts matrices to ``cfg.dtype`` or a dtype asked for (norm scales and MoE
+casts matrices to ``cfg.dtype`` or a dtype asked for (vectors, such as
+norm scales, hybrid branch norms and Mamba-2's 1-D parameters, and MoE
 routers stay fp32) and moves them to the device, and ``adamw_from_jax``
 carries the optimizer's state.  Parameter names and einsum layouts are the
 reference's; the attention KV cache's is not (``kv_from_jax``,
@@ -39,8 +40,10 @@ def unstack_program(segs, program) -> list:
 def params_from_jax(np_params, cfg: ModelConfig, device, dtype=None):
     """JAX ``Model.init`` params as numpy -> the port's params on ``device``,
     matrices stored as ``dtype`` (``cfg.dtype`` when None; ``torch.float32``
-    keeps the reference's masters for training).  Vectors (norm scales) and
-    every MoE ``router`` stay fp32, as the reference keeps them."""
+    keeps the reference's masters for training).  Vectors (norm scales, a
+    hybrid layer's ``branch_norm_a``/``branch_norm_m``, Mamba-2's ``A_log``,
+    ``D``, ``dt_bias``, ``norm`` and ``conv_b``) and every MoE ``router``
+    stay fp32, as the reference keeps them."""
     dt = dtype or dtype_of(cfg)
 
     def leaf(a, keep_fp32=False):
@@ -100,9 +103,11 @@ def kv_from_jax(a, device="cpu"):
 def cache_from_jax(np_cache, cfg: ModelConfig, device="cpu") -> list:
     """JAX ``prefill``/``decode_step`` cache (per segment, leaves [reps, ...])
     -> the port's per-layer list of {"kv": {"k", "v"}}, {"kv": {"c_kv",
-    "k_rope"}} (MLA) or {"ssm": {"state", "conv"}}, in float32.  Attention
-    KV leaves change layout (``kv_from_jax``); the MLA latents [B,S,L], the
-    ssm state [B,H,P,N] and conv tail [B,K-1,C] keep the reference's."""
+    "k_rope"}} (MLA), {"ssm": {"state", "conv"}} or, for a hybrid layer,
+    both "kv" and "ssm", in float32.  Attention KV leaves (full caches and
+    window rings alike, slot for slot) change layout (``kv_from_jax``);
+    the MLA latents [B,S,L], the ssm state [B,H,P,N] and conv tail
+    [B,K-1,C] keep the reference's."""
     def leaf(kind, c):
         fn = kv_from_jax if kind == "kv" and "c_kv" not in c else _f32
         return lambda a: fn(a, device)

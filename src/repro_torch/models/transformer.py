@@ -1,17 +1,22 @@
 """Decoder-only LM: the training loss, and serving (prefill into a decode
 cache, then decode steps).
 
-Counterpart of ``repro/models/transformer.py``, for full-attention, MLA and
-Mamba-2 mixers, each with a dense FFN, an MoE FFN or none; other layer kinds
-raise NotImplementedError naming the ROADMAP item.  Each layer dispatches on
-its kind as the reference's does: ln1, then the mixer, then the residual,
-then ``ln2`` and the FFN where the layer has one.
+Counterpart of ``repro/models/transformer.py``, for full-attention,
+sliding-window, MLA, Mamba-2 and hybrid mixers, each with a dense FFN, an
+MoE FFN or none; other layer kinds, and config fields the port does not
+implement, raise NotImplementedError naming the ROADMAP item.  Each layer
+dispatches on its kind as the reference's does: ln1, then the mixer, then
+the residual, then ``ln2`` and the FFN where the layer has one.  A hybrid
+layer (hymba) runs attention and a Mamba-2 mixer on the same normed input
+and adds ``0.5 * (rmsnorm(a) + rmsnorm(m))``, each branch normed by its own
+fp32 scale, in the activations' dtype.
 The reference scans stacked segment parameters with ``lax.scan``; here
 ``params["blocks"]`` and the cache hold one entry per layer, in program
 order, and a Python loop runs them (``models/convert.py`` unstacks a JAX
 pytree into this form).  ``Model.loss`` trains full-attention layers with
-dense FFNs only: Mamba-2 training waits for the SSD scan's gradient
-(ROADMAP queue B item 3), MLA and MoE training for ROADMAP queue A item 10.
+dense FFNs only: Mamba-2 and hybrid training wait for the SSD scan's
+gradient (ROADMAP queue B item 3, B3b), MLA and MoE training for ROADMAP
+queue A item 10.
 """
 
 from __future__ import annotations
@@ -42,12 +47,20 @@ from .layers import (
     init_embedding,
     init_norm,
     lm_logits,
+    rmsnorm,
 )
 from .rope import position_tensor, rope_angles
 
 
 NOT_TRAINED = ("is not yet ported: it needs the SSD scan's gradient, see ROADMAP.md queue B "
-               "item 3")
+               "item 3 (B3b)")
+# Layer kinds that run a Mamba-2 mixer.
+SSM_KINDS = ("mamba", "hybrid")
+# Config fields whose function the port does not compute yet (gemma's
+# sandwich norms and embedding scale, qwen2-vl's M-RoPE, the vision and
+# audio frontends): a config that sets one raises rather than serving
+# another function.
+UNPORTED_FIELDS = ("sandwich_norms", "scale_embed", "mrope_sections", "frontend")
 NOT_TRAINED_ZOO = ("is not yet ported: MLA and MoE training (with the aux loss) come with "
                    "ROADMAP.md queue A item 10")
 
@@ -76,6 +89,10 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
         p["attn"] = mla_mod.init_mla(generator, cfg, spec, dtype)
     else:
         p["attn"] = attn_mod.init_attention(generator, cfg, spec, dtype)
+    if spec.attn == "hybrid":
+        p["mamba"] = ssm_mod.init_mamba(generator, cfg)
+        p["branch_norm_a"] = torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
+        p["branch_norm_m"] = torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
     if spec.ffn != "none":
         p["ln2"] = init_norm(cfg, dev)
     if spec.ffn == "dense":
@@ -109,6 +126,13 @@ def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles):
     return _ffn(p, x + label(h, "attn_out"), cfg, spec)
 
 
+def _merge_branches(p, a, m, cfg: ModelConfig):
+    """A hybrid layer's mixer output from its attention branch ``a`` and its
+    Mamba-2 branch ``m``, in the reference's order and dtype."""
+    return 0.5 * (rmsnorm(p["branch_norm_a"], a, cfg.norm_eps)
+                  + rmsnorm(p["branch_norm_m"], m, cfg.norm_eps))
+
+
 def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int):
     """Forward one layer over the whole prompt, emitting its decode cache."""
     cache: dict[str, Any] = {}
@@ -117,6 +141,10 @@ def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int)
         h, cache["ssm"] = ssm_mod.apply_mamba(p["mamba"], h, cfg, return_cache=True)
     elif spec.attn == "mla":
         h, cache["kv"] = mla_mod.prefill_mla(p["attn"], h, cfg, spec, angles, max_seq)
+    elif spec.attn == "hybrid":
+        a, cache["kv"] = attn_mod.prefill_attention(p["attn"], h, cfg, spec, angles, max_seq)
+        m, cache["ssm"] = ssm_mod.apply_mamba(p["mamba"], h, cfg, return_cache=True)
+        h = _merge_branches(p, a, m, cfg)
     else:
         h, cache["kv"] = attn_mod.prefill_attention(p["attn"], h, cfg, spec, angles, max_seq)
     return _ffn(p, x + h, cfg, spec), cache
@@ -130,6 +158,11 @@ def decode_layer(p, x, cache, pos: torch.Tensor, cfg: ModelConfig, spec: LayerSp
         h, cache["ssm"] = ssm_mod.decode_mamba(p["mamba"], h, cache["ssm"], cfg)
     elif spec.attn == "mla":
         h, cache["kv"] = mla_mod.decode_mla(p["attn"], h, cache["kv"], pos, cfg, spec, angles)
+    elif spec.attn == "hybrid":
+        a, cache["kv"] = attn_mod.decode_attention(p["attn"], h, cache["kv"], pos, cfg, spec,
+                                                   angles)
+        m, cache["ssm"] = ssm_mod.decode_mamba(p["mamba"], h, cache["ssm"], cfg)
+        h = _merge_branches(p, a, m, cfg)
     else:
         h, cache["kv"] = attn_mod.decode_attention(p["attn"], h, cache["kv"], pos, cfg, spec,
                                                    angles)
@@ -138,14 +171,18 @@ def decode_layer(p, x, cache, pos: torch.Tensor, cfg: ModelConfig, spec: LayerSp
 
 def init_program_cache(cfg: ModelConfig, program, batch: int, max_seq: int, dtype, device):
     """One zeroed cache per layer, in execution order: {"kv": {"k", "v"}} for
-    attention, {"kv": {"c_kv", "k_rope"}} for MLA, {"ssm": {"state",
-    "conv"}} for Mamba-2."""
+    attention (a ring of ``attention.cache_len`` slots), {"kv": {"c_kv",
+    "k_rope"}} for MLA, {"ssm": {"state", "conv"}} for Mamba-2, and both
+    "kv" and "ssm" for a hybrid layer."""
     def layer_cache(spec):
         if spec.attn == "mamba":
             return {"ssm": ssm_mod.init_mamba_cache(cfg, batch, dtype, device)}
         if spec.attn == "mla":
             return {"kv": mla_mod.init_mla_cache(cfg, batch, max_seq, dtype, device)}
-        return {"kv": attn_mod.init_kv_cache(cfg, spec, batch, max_seq, dtype, device)}
+        c = {"kv": attn_mod.init_kv_cache(cfg, spec, batch, max_seq, dtype, device)}
+        if spec.attn == "hybrid":
+            c["ssm"] = ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
+        return c
 
     return [layer_cache(spec) for spec in layer_specs(program)]
 
@@ -158,6 +195,10 @@ class Model:
 
     def __post_init__(self):
         self.device = torch.device(self.device)
+        for name in UNPORTED_FIELDS:
+            if getattr(self.cfg, name):
+                raise NotImplementedError(f"{self.cfg.name}: {name}={getattr(self.cfg, name)!r} "
+                                          f"{NOT_PORTED}")
         for spec in layer_specs(self.cfg.program):
             _check_spec(spec)
 
@@ -171,7 +212,7 @@ class Model:
         cfg = self.cfg
         specs = layer_specs(cfg.program)
         dtype = dtype or dtype_of(cfg)
-        if dtype != dtype_of(cfg) and any(spec.attn == "mamba" for spec in specs):
+        if dtype != dtype_of(cfg) and any(spec.attn in SSM_KINDS for spec in specs):
             raise NotImplementedError(f"Mamba-2 weights stored apart from cfg.dtype (training) "
                                       f"{NOT_TRAINED}")
         return {
@@ -208,8 +249,9 @@ class Model:
         as the reference's is."""
         cfg = self.cfg
         specs = layer_specs(cfg.program)
-        if any(spec.attn == "mamba" for spec in specs):
-            raise NotImplementedError(f"Mamba-2 training {NOT_TRAINED}")
+        if any(spec.attn in SSM_KINDS for spec in specs):
+            raise NotImplementedError(f"{cfg.name} training (Mamba-2 and hybrid layers) "
+                                      f"{NOT_TRAINED}")
         if any(spec.attn == "mla" or spec.ffn == "moe" for spec in specs):
             raise NotImplementedError(f"{cfg.name} training {NOT_TRAINED_ZOO}")
         tokens = batch["tokens"]

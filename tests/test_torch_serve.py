@@ -216,7 +216,7 @@ def test_entry_point_defaults_to_cuda():
 
 def test_registry():
     assert list_archs() == [ARCH, "mamba2-370m", "deepseek-v2-lite-16b",
-                            "llama4-maverick-400b-a17b"]
+                            "llama4-maverick-400b-a17b", "hymba-1.5b"]
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
             full.d_ff, full.vocab_size) == (36, 2560, 32, 8, 128, 9728, 151_936)
@@ -297,13 +297,29 @@ def test_serve_deepseek_smoke_with_and_without_plans(tmp_path, capsys):
     assert len(list(tmp_path.glob("*.json"))) == 2
 
 
-def test_unported_layers_raise():
+# Layer kinds and config fields the port does not compute yet: each must
+# raise (at build, or at init where the layer's weights are made) rather
+# than serve another function.
+UNPORTED = {
+    "cross-attention": {"cross": True},
+    "layernorm": {"norm_type": "layer"},
+    "gelu-ffn": {"ffn_act": "gelu"},
+    "sandwich-norms": {"sandwich_norms": True},
+    "scale-embed": {"scale_embed": True},
+    "mrope": {"mrope_sections": (2, 3, 3)},
+    "vision-frontend": {"frontend": "vision_stub"},
+}
+
+
+@pytest.mark.parametrize("change", list(UNPORTED.values()), ids=list(UNPORTED))
+def test_unported_layers_raise(change):
     from repro_torch.configs.base import LayerSpec, uniform_program
 
-    cfg = get_smoke_config(ARCH).reduced(program=uniform_program(LayerSpec(attn="window",
-                                                                           window=8), 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, "cpu")
+    cfg = get_smoke_config(ARCH)
+    if "cross" in change:
+        change = {"program": uniform_program(LayerSpec(cross_attn=True), cfg.num_layers)}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 10"):
+        build_model(cfg.reduced(**change), "cpu").init_shapes()
 
 
 # ------------------------------------------------------------ import hygiene
