@@ -40,15 +40,25 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               rest), each beside the library
               call's backward (``torch.autograd.grad`` through
               ``F.rms_norm`` or SDPA, its forward subtracted), and both
-              flash forwards with the LSE written;
-  4. parity   qwen3-4b's, mamba2-370m's, deepseek-v2-lite-16b's and
-              hymba-1.5b's widths in fp32 (one layer of each program segment,
+              flash forwards with the LSE written; the flash rows include
+              starcoder2-7b's prefill (causal, 36 query heads on 4 kv heads)
+              and whisper-large-v3's encoder (unmasked, S 1500, which the
+              128-key tiles pad), its cross attention (unmasked, Sq 128
+              against Sk 1500) and its decoder's causal self attention; at
+              whisper's two unmasked shapes a probe of the padded keys that
+              no bf16 tolerance could miss (v's ones columns must come out
+              1 within one bf16 step, the softmax mass on the partial last
+              tile must match the plain version's);
+  4. parity   qwen3-4b's, mamba2-370m's, deepseek-v2-lite-16b's,
+              hymba-1.5b's, starcoder2-7b's and whisper-large-v3's widths in
+              fp32 (one layer of each program segment,
               or the one segment's unit twice: deepseek's dense layer, then an
               MoE layer; hymba's five hybrid layers, global and window in
               turn, at prompt 1100, which wraps the window's ring and pads
-              the SSD): prefill + 4 decode steps through the kernels on the
+              the SSD; whisper's two encoder and two decoder layers over the
+              full 1500 frames): prefill + 4 decode steps through the kernels on the
               card against the plain path on the CPU, logits and every
-              layer's cache, and at each MoE call the routing equal (expert
+              layer's cache (whisper's cross K/V too), and at each MoE call the routing equal (expert
               ids and ranks), its smallest top-k margin above NEAR_TIE
               times the card's and the CPU's largest router probability
               difference (the tokens within 1e-4 counted);
@@ -60,21 +70,28 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               prompt 512, 32 tokens, and on the full hymba-1.5b (32 hybrid
               layers: attention, 29 of them with a window of 1024, beside a
               Mamba-2 mixer) at batch 4, prompt 2048, 32 tokens, with its
-              cache's bytes by kind beside the arithmetic; with the kernels'
+              cache's bytes by kind beside the arithmetic, on the full
+              starcoder2-7b (32 layers: LayerNorm, GELU FFN) at batch 4,
+              prompt 512, 32 tokens, and on the full whisper-large-v3 (32
+              encoder and 32 decoder layers) at batch 4, 1500 frames,
+              prompt 128, 32 tokens, with its self and cross caches' bytes
+              beside the arithmetic; with the kernels'
               launch counts set to 0
               just before each run and read just after it, exactly, by
               variant (every flash launch ``wgmma``, every SSD launch
-              ``tc``, every RMSNorm launch ``vector``), and the decode ms a
-              step; the memory that earlier phases hold is dropped first,
+              ``tc``, every RMSNorm launch ``vector``; none for the two
+              LayerNorm models), and the decode ms a step; the memory that earlier phases hold is dropped first,
               and what is still held is printed, so the peak is the serve's
               own, beside the weights' bytes;
   6. profile  where the time goes: each served model's prefill and decode
-              steps, warm, timed untraced and then traced with torch.profiler
-              (the top kernels, and each of the port's own kernels by name:
+              steps, warm, timed untraced (16 decode steps) and then traced
+              with torch.profiler (prefill and 4 decode steps; the top kernels, and each of the port's own kernels by name:
               the tc SSD is two, its C B^T prepass and the scan; the device
               time by op, the port's ``repro_torch`` operators among them;
               for deepseek the MoE dispatch's sort, scatter and gather ops
-              against its expert GEMMs; hymba's too);
+              against its expert GEMMs; hymba's, starcoder2's and whisper's
+              too, whisper's encoder also timed alone; the seconds each part
+              of the phase took, the profiler's parse included);
   7. planner  the figures the port's ``H100_SXM`` HardwareSpec prices swaps
               with, measured: pinned host<->device copy rates of 256 MiB,
               one direction at a time and both at once on two streams (the
@@ -128,7 +145,7 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               batch (the drop must be at least 90% of the 36 layer inputs);
               and a warm step traced with the plan, beside phase 10's: the
               copies' time each way and how much of it lies beside compute;
- 12. serve plans  ``serve.main --plan --plan-cache`` on phase 5's four cells:
+ 12. serve plans  ``serve.main --plan --plan-cache`` on phase 5's six cells:
               launch counts by variant and greedy tokens equal to phase 5's
               (planning launches nothing; decode takes 0-d device positions),
               each step's vars, w, chi/w and AutoSwap@80%; w against the
@@ -445,6 +462,49 @@ def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softc
     }
 
 
+WGMMA_KEY_TILE = 128   # keys a tile of the wgmma forward (BK in flash_attention_wgmma.cu)
+ONE_BF16_STEP = 2.0 ** -8  # the spacing of bf16 just below 1
+
+
+def flash_padding_probe(B, Sq, Sk, H, KV, hd, gen):
+    """The wgmma kernel's padded keys, unmasked, at an Sk that is not a
+    multiple of its key tile, held where a fault cannot hide inside the bf16
+    tolerance.  q and k are random, so the logits have a standard deviation
+    of about 1.  v's first half of columns is all ones: every output there is
+    a softmax's sum of weights, 1, and must come out within one bf16 step of
+    it (a padded key that took weight would pull it down by that key's share,
+    about 1.5% at Sk 1500).  v's second half is one on the keys of the last,
+    partial tile and zero elsewhere: the output there is the softmax mass on
+    those keys, about their share of Sk, and must agree with the plain
+    version to 2e-2 of its largest value (a kernel that skipped or misread
+    the partial tile would be off by all of it)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").bfloat16()
+    tail = Sk - (Sk % WGMMA_KEY_TILE or WGMMA_KEY_TILE)
+    v = torch.zeros((B, Sk, KV, hd), device="cuda", dtype=torch.bfloat16)
+    v[..., : hd // 2] = 1
+    v[:, tail:, :, hd // 2:] = 1
+    before = flash_attention.variant_launches["wgmma"]
+    got = torch.ops.repro_torch.flash_attention(q, k, v, False, None, None, None).float()
+    want = flash_attention_plain(q, k, v, causal=False).float()
+    torch.cuda.synchronize()
+    require(flash_attention.variant_launches["wgmma"] == before + 1,
+            f"flash padding probe Sq{Sq} Sk{Sk} did not launch the wgmma kernel")
+    ones_err = (got[..., : hd // 2] - 1).abs().max().item()
+    mass_got, mass_want = got[..., hd // 2:], want[..., hd // 2:]
+    mass_rel = ((mass_got - mass_want).abs().max() / mass_want.abs().max()).item()
+    ok = ones_err <= ONE_BF16_STEP and mass_rel <= TOL[torch.bfloat16]
+    print(f"  flash [wgmma] key padding B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} bfloat16 (keys "
+          f"{tail}..{Sk - 1} in the last tile, {-Sk % WGMMA_KEY_TILE} padded): v = 1 columns "
+          f"max|got - 1| {ones_err:.3e} <= {ONE_BF16_STEP:.3e}; last tile's softmax mass "
+          f"{mass_want.mean().item():.4f} on average, max|got-want| / max|want| "
+          f"{mass_rel:.3e} <= {TOL[torch.bfloat16]}: {'ok' if ok else 'FAILED'}")
+    require(ok, f"flash wgmma key padding at Sq{Sq} Sk{Sk}: ones columns off by {ones_err:.3e}, "
+                f"last tile's mass off by {mass_rel:.3e} of its largest value")
+
+
 def flash_lse_case(B, S, H, KV, hd, dtype, gen):
     """Causal flash with the LSE written (as training runs it) against the
     plain version's output and LSE; the LSE at fp32's tolerance in either
@@ -748,6 +808,15 @@ def phase_kernels():
         # layers and its 3 global ones
         flash_case(4, 2048, 2048, 25, 5, 64, bf16, gen, window=1024),
         flash_case(4, 2048, 2048, 25, 5, 64, bf16, gen),
+        # starcoder2-7b prefill B4 S512: 36 heads in 4 groups of 9
+        flash_case(4, 512, 512, 36, 4, 128, bf16, gen),
+        # whisper-large-v3 B4: the encoder over 1500 frames, unmasked (the
+        # last 128-key tile padded); cross attention, the prompt's 128
+        # queries against the 1500 frames, unmasked; the decoder's causal
+        # self attention over the prompt
+        flash_case(4, 1500, 1500, 20, 20, 64, bf16, gen, causal=False),
+        flash_case(4, 128, 1500, 20, 20, 64, bf16, gen, causal=False),
+        flash_case(4, 128, 128, 20, 20, 64, bf16, gen),
     ]
     ssd = [
         ssd_case(4, 2048, 32, 64, 1, 128, bf16, gen, "tc", "views"),  # mamba2 prefill
@@ -795,6 +864,10 @@ def phase_kernels():
         print_case(c)
     for c in every:
         require(c["ok"], f"{c['case']} disagrees with its plain version ({c['check']})")
+    # whisper-large-v3's two unmasked launches, whose 1500 keys end in a
+    # tile of 92 keys and 36 padded ones: the encoder and cross attention
+    flash_padding_probe(4, 1500, 1500, 20, 20, 64, gen)
+    flash_padding_probe(4, 128, 1500, 20, 20, 64, gen)
     return {"rmsnorm": rms, "flash_attention": flash, "ssd_scan": ssd, "rmsnorm_bwd": rms_bwd,
             "flash_attention_bwd": flash_bwd, "flash_lse": flash_lse}
 
@@ -817,13 +890,17 @@ NEAR_TIE = 2.0
 def depth_cut(full):
     """The parity phases' 2-layer cut of a full config, in fp32: one layer of
     each program segment where there are several (deepseek: its dense
-    layer, then an MoE layer), else the one segment's unit twice."""
-    if len(full.program) > 1:
-        program = tuple((unit, 1) for unit, _ in full.program)
-    else:
-        program = ((full.program[0][0], 2),)
+    layer, then an MoE layer), else the one segment's unit twice; an
+    encoder-decoder's encoder is cut the same way."""
+    def cut(program):
+        if len(program) > 1:
+            return tuple((unit, 1) for unit, _ in program)
+        return ((program[0][0], 2),)
+
+    program = cut(full.program)
+    enc = {"enc_program": cut(full.enc_program)} if full.is_encoder_decoder else {}
     return full.reduced(num_layers=sum(len(unit) * reps for unit, reps in program),
-                        program=program, dtype="float32")
+                        program=program, dtype="float32", **enc)
 
 
 def _routed(record):
@@ -836,8 +913,10 @@ def _routed(record):
 
 def phase_parity(arch: str, P: int):
     """``depth_cut(arch)`` on the card against the CPU: prefill of a B1
-    prompt of ``P`` tokens, then 4 greedy decode steps."""
+    prompt of ``P`` tokens (and an encoder-decoder's frames), then 4 greedy
+    decode steps."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
     from repro_torch.models import build_model, moe
     from repro_torch.models.convert import to_device
 
@@ -847,12 +926,12 @@ def phase_parity(arch: str, P: int):
     p_cpu = cpu.init(torch.Generator("cpu").manual_seed(0))
     p_gpu = to_device(p_cpu, "cuda")
     steps = 4
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, P)))
+    batch = serve_batch(cfg, 1, P, 0, "cpu")
     routing = {"cpu": [], "cuda": []}
     with moe.routing_hook(routing["cpu"].append):
-        l_cpu, c_cpu = cpu.prefill(p_cpu, {"tokens": tokens}, max_seq=P + steps)
+        l_cpu, c_cpu = cpu.prefill(p_cpu, batch, max_seq=P + steps)
     with moe.routing_hook(routing["cuda"].append):
-        l_gpu, c_gpu = gpu.prefill(p_gpu, {"tokens": tokens.cuda()}, max_seq=P + steps)
+        l_gpu, c_gpu = gpu.prefill(p_gpu, to_device(batch, "cuda"), max_seq=P + steps)
 
     def rel(a, b):
         return ((a.cpu().float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -866,7 +945,8 @@ def phase_parity(arch: str, P: int):
         with moe.routing_hook(routing["cuda"].append):
             l_gpu, c_gpu = gpu.decode_step(p_gpu, c_gpu, tok_cpu.cuda(), P + i)
         worst = max(worst, rel(l_gpu, l_cpu))
-    # every leaf of every layer's cache: kv {k, v}, MLA kv {c_kv, k_rope} or ssm {state, conv}
+    # every leaf of every layer's cache: kv {k, v}, MLA kv {c_kv, k_rope}, ssm
+    # {state, conv} or enc_kv {k, v}
     cache_err = max(rel(g[kind][n], c[kind][n])
                     for g, c in zip(c_gpu, c_cpu) for kind in c for n in c[kind])
     route = ""
@@ -886,8 +966,11 @@ def phase_parity(arch: str, P: int):
                  f"difference {drift:.3e} (must exceed {NEAR_TIE:g}x it; "
                  f"{int((gaps <= ROUTING_MARGIN).sum())} of {gaps.numel()} tokens within "
                  f"{ROUTING_MARGIN:g})")
-    kinds = ", ".join(f"{spec.attn}+{spec.ffn}" for unit, reps in cfg.program
-                      for _ in range(reps) for spec in unit)
+    kinds = ", ".join(f"{spec.attn}+{'cross+' if spec.cross_attn else ''}{spec.ffn}"
+                      for unit, reps in cfg.program for _ in range(reps) for spec in unit)
+    if cfg.is_encoder_decoder:
+        kinds = (f"encoder {sum(len(u) * r for u, r in cfg.enc_program)} unmasked layers over "
+                 f"{cfg.enc_seq} frames; decoder {kinds}")
     print(f"[4] parity {arch} widths, {cfg.num_layers} layers ({kinds}), "
           f"fp32, B1 P{P} + {steps} decode steps: "
           f"max rel logit diff {worst:.3e}, max rel cache diff {cache_err:.3e} "
@@ -1000,24 +1083,24 @@ def release_memory(phase: str = "5") -> int:
 def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     """Serve the full model through ``serve.main`` (a prefill and G - 1 decode
     steps); each kernel must have been launched ``want[name]`` times.  A
-    hybrid model's cache, as its prefill returned it on the card, is held to
-    the arithmetic by kind.  -> (launch counts, the greedy tokens, decode ms
-    a step)."""
+    hybrid model's cache and an encoder-decoder's, as its prefill returned
+    it on the card, are held to the arithmetic by kind.  -> (launch counts,
+    the greedy tokens, decode ms a step)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import Model
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch)
-    weights = sum(t.numel() * t.element_size()
-                  for t in tree_leaves(build_model(cfg, "cuda").init_shapes()))
+    model = build_model(cfg, "cuda")
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(model.init_shapes()))
     held = release_memory()
     out = io.StringIO()
     served = {}
-    prefill = Model.prefill
+    cls = type(model)
+    prefill = cls.prefill
 
     def recording_prefill(self, *args, **kwargs):  # keeps the bytes, not the cache
         logits, cache = prefill(self, *args, **kwargs)
@@ -1026,13 +1109,13 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    Model.prefill = recording_prefill
+    cls.prefill = recording_prefill
     try:
         with contextlib.redirect_stdout(out):
             gen = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
                               "--gen", str(G)])
     finally:
-        Model.prefill = prefill
+        cls.prefill = prefill
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1051,57 +1134,73 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
           f"launches {counts}, "
           f"main() wall {wall:.1f}s (init included)")
     require(counts == want, f"{arch}: launch counts {counts}, want {want}")
-    if cfg.family == "hybrid":
+    if cfg.family == "hybrid" or cfg.is_encoder_decoder:
         print_cache_bytes("5", cfg, B, P + G, served, "the cache prefill returned on the card")
     require(tuple(gen.shape) == (B, G), f"generated shape {tuple(gen.shape)}")
     require(int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size, "token out of range")
     return counts, gen, decode_s / (G - 1) * 1e3
 
 
+CACHE_KINDS = ("global", "rings", "cross", "ssm state", "conv tails")
+
+
 def cache_bytes(cfg, cache) -> dict[str, int]:
-    """A hybrid model's serving cache, bytes by kind: the attention caches of
-    its global layers, the rings of its window layers, the SSM states and
-    the conv tails."""
+    """A serving cache's bytes by kind, the kinds it holds: the self
+    attention caches of global layers, the rings of window layers, the
+    cross K/V of an encoder-decoder's decoder layers, the SSM states and the
+    conv tails."""
     from repro_torch.models.transformer import layer_specs
 
-    out = dict.fromkeys(("global", "rings", "ssm state", "conv tails"), 0)
+    out = dict.fromkeys(CACHE_KINDS, 0)
     for spec, layer in zip(layer_specs(cfg.program), cache):
-        for part in layer.values():
+        for part_name, part in layer.items():
             for name, t in part.items():
                 kind = {"state": "ssm state", "conv": "conv tails"}.get(
-                    name, "rings" if spec.window else "global")
+                    name, "cross" if part_name == "enc_kv" else
+                    "rings" if spec.window else "global")
                 out[kind] += t.numel() * t.element_size()
-    return out
+    return {k: v for k, v in out.items() if v}
 
 
 def cache_arithmetic(cfg, B: int, max_seq: int) -> dict[str, int]:
     """``cache_bytes`` from the config's widths alone: k and v [B, KV, slots,
     hd] in the config's dtype (2 bytes in bf16) a layer, max_seq slots in a
-    global layer and min(max_seq, window) in a window layer's ring; the fp32
-    state [B, H, P, N] and the conv tail [B, K - 1, d_inner + 2 G N] in the
-    config's dtype a layer."""
+    global layer, min(max_seq, window) in a window layer's ring and enc_seq
+    in a decoder layer's cross K/V; the fp32 state [B, H, P, N] and the conv
+    tail [B, K - 1, d_inner + 2 G N] in the config's dtype a Mamba-2 or
+    hybrid layer."""
     from repro_torch.models.transformer import layer_specs
 
     specs = layer_specs(cfg.program)
     size = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     kv = 2 * B * cfg.num_kv_heads * cfg.head_dim * size
     conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-    return {"global": sum(kv * max_seq for sp in specs if not sp.window),
-            "rings": sum(kv * min(max_seq, sp.window) for sp in specs if sp.window),
-            "ssm state": len(specs) * B * cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4,
-            "conv tails": len(specs) * B * (cfg.conv_kernel - 1) * conv_dim * size}
+    ssm = sum(sp.attn in ("mamba", "hybrid") for sp in specs)
+    out = {"global": sum(kv * max_seq for sp in specs if not sp.window),
+           "rings": sum(kv * min(max_seq, sp.window) for sp in specs if sp.window),
+           "cross": sum(kv * cfg.enc_seq for sp in specs if sp.cross_attn),
+           "ssm state": ssm * B * cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4,
+           "conv tails": ssm * B * (cfg.conv_kernel - 1) * conv_dim * size}
+    return {k: v for k, v in out.items() if v}
 
 
 def print_cache_bytes(phase: str, cfg, B: int, max_seq: int, got: dict[str, int], how: str):
-    """Print a hybrid cache's bytes by kind beside the arithmetic and beside
-    what full caches in every layer would hold; fail where they differ."""
+    """Print a cache's bytes by kind beside the arithmetic and, where it
+    holds window rings, beside what full caches in every layer would hold;
+    fail where they differ."""
     want = cache_arithmetic(cfg, B, max_seq)
     size = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     full = cfg.num_layers * 2 * B * cfg.num_kv_heads * cfg.head_dim * size * max_seq
+    tail = ""
+    if "rings" in got:
+        tail = (f"; full caches in every layer would hold {full:,} B of k and v, "
+                f"{full / (got.get('global', 0) + got['rings']):.2f}x the global caches and "
+                f"rings")
+    elif "cross" in got:
+        tail = f"; the cross K/V is {got['cross'] / sum(got.values()):.1%} of it"
     print(f"[{phase}] {cfg.name} cache at B{B} max_seq {max_seq} ({how}): " + ", ".join(
-        f"{k} {v:,} B (arithmetic {want[k]:,})" for k, v in got.items()) +
-        f"; total {sum(got.values()):,} B; full caches in every layer would hold {full:,} B "
-        f"of k and v, {full / (got['global'] + got['rings']):.2f}x the global caches and rings")
+        f"{k} {v:,} B (arithmetic {want.get(k, 0):,})" for k, v in got.items()) +
+        f"; total {sum(got.values()):,} B" + tail)
     require(got == want, f"{cfg.name}: cache bytes {got}, arithmetic {want}")
 
 
@@ -1440,12 +1539,11 @@ def phase_serve_plans(arch: str, B: int, P: int, G: int, want: dict[str, int], p
     planners = {role: serve.serve_step_planner(model, arch, role, B, P, P + G, False,
                                                str(PLAN_DIR)) for role in ("prefill", "decode")}
     params = model.init(torch.Generator("cuda").manual_seed(0))
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, P)))
-    tokens = tokens.cuda()
+    batch = serve.serve_batch(cfg, B, P, 0, "cuda")
     positions = torch.arange(P, P + G, device="cuda")
 
     def prefill():
-        logits, cache = model.prefill(params, {"tokens": tokens}, max_seq=P + G)
+        logits, cache = model.prefill(params, batch, max_seq=P + G)
         return logits[:, -1].argmax(-1, keepdim=True), cache
 
     def real_peak(fn, *args):
@@ -1464,7 +1562,7 @@ def phase_serve_plans(arch: str, B: int, P: int, G: int, want: dict[str, int], p
     model.decode_step(params, cache, tok, positions[0])  # warm
     _, peaks["decode"], resident["decode"] = real_peak(model.decode_step, params, cache, tok,
                                                        positions[1])
-    del tok, cache, params
+    del tok, cache, params, batch
     for role, planner in planners.items():
         rep = planner.report()
         sw = planner.swap_report(int(rep.peak_load * 0.8))
@@ -1857,23 +1955,28 @@ def moe_breakdown(prof, cfg, tokens: int) -> str:
 
 def phase_profile(arch: str, B: int, P: int, G: int):
     """Where the time goes in the served model: a warm prefill and warm decode
-    steps at the serve phase's shapes, timed untraced, then traced once each."""
+    steps at the serve phase's shapes, timed untraced over ``steps`` decode
+    steps, then traced once each, the decode over ``traced_steps`` (the
+    profiler's parse of a trace takes seconds for each step of a 27-layer
+    MoE, while the shares of a step change little from one to the next)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
     from repro_torch.models import build_model
 
     cfg = get_config(arch)
-    steps = 16
+    steps, traced_steps = 16, 4
+    t0 = time.perf_counter()
     model = build_model(cfg, "cuda")
     params = model.init(torch.Generator("cuda").manual_seed(0))
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, P))).cuda()
+    batch = serve_batch(cfg, B, P, 0, "cuda")
 
     def prefill():
-        logits, cache = model.prefill(params, {"tokens": tokens}, max_seq=P + G)
+        logits, cache = model.prefill(params, batch, max_seq=P + G)
         return logits[:, -1].argmax(-1, keepdim=True), cache
 
-    def decode(tok, cache):
+    def decode(tok, cache, steps=steps):
         for i in range(steps):
             logits, cache = model.decode_step(params, cache, tok, P + i)
             tok = logits[:, -1].argmax(-1, keepdim=True)
@@ -1887,23 +1990,34 @@ def phase_profile(arch: str, B: int, P: int, G: int):
         return out, (time.perf_counter() - t0) * 1e3
 
     decode(*prefill())  # warm: lazily loaded library kernels, allocator
+    t_warm = time.perf_counter()
     (tok, cache), prefill_ms = timed(prefill)
     _, decode_ms = timed(decode, tok, cache)
-    print(f"[6] profile {arch} B{B} P{P}, warm, untraced: prefill {prefill_ms:.2f} ms, "
+    encoder = ""
+    if cfg.is_encoder_decoder:
+        _, enc_ms = timed(model.encode, params, batch["frames"])
+        encoder = f" (the encoder alone over {cfg.enc_seq} frames {enc_ms:.2f} ms)"
+    print(f"[6] profile {arch} B{B} P{P}, warm, untraced: prefill {prefill_ms:.2f} ms{encoder}, "
           f"decode {decode_ms / steps:.2f} ms/step ({B * steps / decode_ms * 1e3:.1f} tok/s)")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t_traced = time.perf_counter()
     with profile(activities=acts, record_shapes=True) as prof:
         (tok, cache), wall = timed(prefill)
     print(f"  prefill traced: {device_breakdown(prof, wall)}")
     print(f"  prefill by op: {op_breakdown(prof)}")
     moe_prefill = moe_breakdown(prof, cfg, B * P) if cfg.num_experts else None
+    t_decode = time.perf_counter()
     with profile(activities=acts, record_shapes=True) as prof:
-        _, wall = timed(decode, tok, cache)
-    print(f"  decode ({steps} steps) traced: {device_breakdown(prof, wall)}")
+        _, wall = timed(decode, tok, cache, traced_steps)
+    print(f"  decode ({traced_steps} steps) traced: {device_breakdown(prof, wall)}")
     print(f"  decode by op: {op_breakdown(prof)}")
     if cfg.num_experts:
         print(f"  MoE dispatch against the expert GEMMs: prefill {moe_prefill}; decode "
-              f"({steps} steps) {moe_breakdown(prof, cfg, B)}")
+              f"({traced_steps} steps) {moe_breakdown(prof, cfg, B)}")
+    t_end = time.perf_counter()
+    print(f"  seconds: build, init and warm run {t_warm - t0:.1f}, untraced runs "
+          f"{t_traced - t_warm:.1f}, traced prefill and its parse {t_decode - t_traced:.1f}, "
+          f"traced decode and its parse {t_end - t_decode:.1f}")
 
 
 # Phase 7: the figures the planner's HardwareSpec prices swaps with, on the card.
@@ -2338,6 +2452,13 @@ def main() -> int:
     t4 = time.perf_counter()
     phase_parity("hymba-1.5b", 1100)
     print(f"[4] hymba-1.5b parity took {time.perf_counter() - t4:.1f}s")
+    # starcoder2's two layers at its served prompt's half; whisper's two
+    # encoder layers over the full 1500 frames and two decoder layers at its
+    # served prompt, 128.
+    for arch, P in (("starcoder2-7b", 256), ("whisper-large-v3", 128)):
+        t4 = time.perf_counter()
+        phase_parity(arch, P)
+        print(f"[4] {arch} parity took {time.perf_counter() - t4:.1f}s")
     # Launches over 32 forwards (prefill and 31 decode steps): qwen3-4b runs
     # flash once a layer in prefill, RMSNorm 4 times a layer (ln1, ln2,
     # q-norm, k-norm) plus the final norm in every forward; mamba2-370m runs
@@ -2348,9 +2469,13 @@ def main() -> int:
     # reference's dense softmax); hymba-1.5b runs flash (with the window in
     # 29 of its layers) and the SSD once a layer in prefill, and RMSNorm 5
     # times a layer (ln1, the gated norm, the two branch norms, ln2) plus
-    # the final norm in every forward.  Everything is bf16 with
-    # widths that take 16-byte vectors: flash at head dim 128 is the wgmma
-    # variant, the SSD the tc variant, RMSNorm the vector variant.
+    # the final norm in every forward; starcoder2-7b runs flash once a layer
+    # in prefill and no RMSNorm (LayerNorm, no qk-norm); whisper-large-v3
+    # runs flash once in each of its 32 encoder layers (unmasked) and twice
+    # in each of its 32 decoder layers in prefill (causal self attention,
+    # unmasked cross attention), and no RMSNorm.  Everything is bf16 with
+    # widths that take 16-byte vectors: flash at head dim 64 or 128 is the
+    # wgmma variant, the SSD the tc variant, RMSNorm the vector variant.
     def want(rms, flash, ssd, rms_bwd=0, flash_bwd=0):
         return {"rmsnorm": rms, "rmsnorm/vector": rms, "rmsnorm/scalar": 0,
                 "rmsnorm_bwd": rms_bwd, "rmsnorm_bwd/vector": rms_bwd, "rmsnorm_bwd/scalar": 0,
@@ -2363,20 +2488,18 @@ def main() -> int:
     serve_want = {"qwen3-4b": (512, want((4 * 36 + 1) * 32, 36, 0)),
                   "mamba2-370m": (2048, want((2 * 48 + 1) * 32, 0, 48)),
                   "deepseek-v2-lite-16b": (512, want((3 * 27 + 1) * 32, 0, 0)),
-                  "hymba-1.5b": (2048, want((5 * 32 + 1) * 32, 32, 32))}
+                  "hymba-1.5b": (2048, want((5 * 32 + 1) * 32, 32, 32)),
+                  "starcoder2-7b": (512, want(0, 32, 0)),
+                  "whisper-large-v3": (128, want(0, 32 + 2 * 32, 0))}
     paths, served = {}, {}
     for arch, (P, counts) in serve_want.items():
         t5 = time.perf_counter()
         paths[f"serve {arch}"], *served[arch] = phase_serve(arch, 4, P, 32, counts)
         print(f"[5] serve {arch} took {time.perf_counter() - t5:.1f}s")
-    phase_profile("qwen3-4b", 4, 512, 32)
-    phase_profile("mamba2-370m", 4, 2048, 32)
-    t6 = time.perf_counter()
-    phase_profile("deepseek-v2-lite-16b", 4, 512, 32)
-    print(f"[6] deepseek-v2-lite-16b profile took {time.perf_counter() - t6:.1f}s")
-    t6 = time.perf_counter()
-    phase_profile("hymba-1.5b", 4, 2048, 32)
-    print(f"[6] hymba-1.5b profile took {time.perf_counter() - t6:.1f}s")
+    for arch, (P, _) in serve_want.items():
+        t6 = time.perf_counter()
+        phase_profile(arch, 4, P, 32)
+        print(f"[6] {arch} profile took {time.perf_counter() - t6:.1f}s")
     t7 = time.perf_counter()
     phase_link_and_compute()
     phase_planner()

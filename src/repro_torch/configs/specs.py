@@ -34,16 +34,18 @@ def supports_shape(cfg: ModelConfig, shape: str) -> bool:
 
 
 def input_specs(cfg: ModelConfig, shape: str) -> dict:
-    """{"batch": {"tokens"[, "labels"]}} for train and prefill cells;
-    {"tokens", "pos"} for decode, where ``pos`` is the 0-d integer tensor
-    the port's ``decode_step`` takes (the reference's int32 scalar)."""
+    """{"batch": {["frames", ]"tokens"[, "labels"]}} for train and prefill
+    cells; {"tokens", "pos"} for decode, where ``pos`` is the 0-d integer
+    tensor the port's ``decode_step`` takes (the reference's int32 scalar)."""
     sp: ShapeSpec = SHAPES[shape]
     B, S = sp.global_batch, sp.seq_len
-    if cfg.is_encoder_decoder or cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}'s inputs ({cfg.frontend or 'encoder frames'}) "
-                                  f"{NOT_PORTED}")
+    if cfg.frontend == "vision_stub":
+        raise NotImplementedError(f"{cfg.name}'s inputs ({cfg.frontend}) {NOT_PORTED}")
     if sp.kind in ("train", "prefill"):
-        batch = {"tokens": _meta((B, S), torch.long)}
+        batch = {}
+        if cfg.is_encoder_decoder:
+            batch["frames"] = _meta((B, cfg.enc_seq, cfg.d_model), getattr(torch, cfg.dtype))
+        batch["tokens"] = _meta((B, S), torch.long)
         if sp.kind == "train":
             batch["labels"] = _meta((B, S), torch.long)
         return {"batch": batch}

@@ -5,12 +5,18 @@ random parameters drawn from ``torch.Generator(device)`` seeded with
 ``--seed``.  Prompt tokens come from ``numpy.random.default_rng(seed + 1)``:
 the reference draws them with ``jax.random``, whose bits PyTorch cannot
 reproduce, so the two entry points serve different prompts from the same
-seed.  Runs on CUDA unless ``--device cpu`` is given, and raises on a host
+seed.  An encoder-decoder (whisper-large-v3) also takes the audio stub's
+frames [B, enc_seq, d_model] fp32: the reference serves zeros; here they
+are standard normal draws from the same generator after the tokens, so the
+batch's rows differ and the encoder computes more than its positions.
+Runs on CUDA unless ``--device cpu`` is given, and raises on a host
 without CUDA rather than falling back.  On the card, RMSNorm, prefill
-attention (with the layer's window) and the SSD scan run through the port's
-Hopper kernels; matrix products stay in full fp32 for fp32 models (TF32
-off).  Each decode step takes its position as a 0-d tensor on the device,
-a slice of one ``arange``: the loop reads nothing back to the host.
+attention (with the layer's window; the encoder's and cross attention
+unmasked) and the SSD scan run through the port's Hopper kernels; matrix
+products stay in full fp32 for fp32 models (TF32 off).  Each decode step
+takes its position as a 0-d tensor on the device, a slice of one
+``arange`` from the prompt's length: the loop reads nothing back to the
+host.
 
 The paper's memory planner, as in the reference, on the port's card
 (``H100_SXM``, where the reference plans for ``TPU_V5E``):
@@ -37,6 +43,10 @@ Usage:
       --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --batch 4 --prompt-len 2048 --gen 32 [--plan] [--plan-cache build/plans]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
+      --batch 4 --prompt-len 512 --gen 32 [--plan] [--plan-cache build/plans]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \\
+      --batch 4 --prompt-len 128 --gen 32 [--plan] [--plan-cache build/plans]
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --batch 2 --prompt-len 16 --gen 4 --plan-cache /tmp/plans --colocate
 """
@@ -63,12 +73,33 @@ def _sync(device: torch.device) -> None:
 def serve_batch_struct(cfg, B: int, P: int) -> dict:
     """Shape and dtype of one serving batch as meta tensors: the single
     source of truth shared by the planner (fake-tensor trace) and ``main``
-    (real tensors).  The ported archs take tokens only."""
-    if cfg.frontend is not None or cfg.is_encoder_decoder:
+    (real tensors, ``serve_batch``).  The tokens, and for an
+    encoder-decoder the frames [B, enc_seq, d_model] fp32, as the
+    reference's (its ``:42-43``)."""
+    if cfg.frontend == "vision_stub":
         raise NotImplementedError(
-            f"{cfg.name}'s serving inputs ({cfg.frontend or 'encoder frames'}) are not yet "
-            f"ported: see ROADMAP.md queue A item 10")
-    return {"tokens": torch.empty((B, P), dtype=torch.long, device="meta")}
+            f"{cfg.name}'s serving inputs ({cfg.frontend}) are not yet ported: see ROADMAP.md "
+            f"queue A item 10")
+    batch = {"tokens": torch.empty((B, P), dtype=torch.long, device="meta")}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.empty((B, cfg.enc_seq, cfg.d_model), dtype=torch.float32,
+                                      device="meta")
+    return batch
+
+
+def serve_batch(cfg, B: int, P: int, seed: int, device) -> dict:
+    """One serving batch of ``serve_batch_struct``'s shapes on ``device``:
+    tokens uniform over the vocabulary from ``numpy.random.default_rng(seed
+    + 1)``, then from the same generator the frames, standard normal."""
+    rng = np.random.default_rng(seed + 1)
+    batch = {}
+    for name, t in serve_batch_struct(cfg, B, P).items():
+        if name == "tokens":
+            a = rng.integers(0, cfg.vocab_size, tuple(t.shape))
+        else:
+            a = rng.standard_normal(tuple(t.shape), dtype=np.float32)
+        batch[name] = torch.from_numpy(a).to(device)
+    return batch
 
 
 def serve_step_planner(model, arch: str, role: str, B: int, P: int, max_seq: int,
@@ -76,9 +107,11 @@ def serve_step_planner(model, arch: str, role: str, B: int, P: int, max_seq: int
     """The ``MemoryPlanner`` of the ``role`` ("prefill" or "decode") step at
     these shapes under ``H100_SXM``, keyed as the reference keys it: traced
     on fake tensors, or restored from ``cache`` (a ``PlanCache`` or a
-    directory) without tracing.  The decode step's cache is
-    ``init_program_cache``'s on meta tensors, the shapes prefill fills;
-    its position a 0-d int64 tensor."""
+    directory) without tracing.  The prefill step takes
+    ``serve_batch_struct``'s batch (an encoder-decoder's frames included);
+    the decode step's cache is ``init_program_cache``'s on meta tensors,
+    the shapes prefill fills (an encoder-decoder's cross K/V included); its
+    position a 0-d int64 tensor."""
     from repro_torch.core.planner import MemoryPlanner
     from repro_torch.core.simulator import H100_SXM
     from repro_torch.launch.steps import build_serve_step
@@ -174,7 +207,6 @@ def main(argv=None):
     model = build_model(cfg, device)
     B, P = args.batch, args.prompt_len
     max_seq = P + args.gen
-    spec = serve_batch_struct(cfg, B, P)
 
     if args.plan or args.plan_cache or args.colocate:
         from repro_torch.plan import PlanCache
@@ -212,13 +244,11 @@ def main(argv=None):
                               report=result.report)
 
     params = model.init(torch.Generator(device).manual_seed(args.seed))
-    rng = np.random.default_rng(args.seed + 1)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, tuple(spec["tokens"].shape)))
-    tokens = tokens.to(device)
+    batch = serve_batch(cfg, B, P, args.seed, device)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_seq=max_seq)
+    logits, cache = model.prefill(params, batch, max_seq=max_seq)
     finite = torch.isfinite(logits).all()
     next_tok = logits[:, -1].argmax(-1, keepdim=True)
     _sync(device)

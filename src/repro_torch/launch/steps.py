@@ -9,7 +9,8 @@ prefill and serve steps.
 (``steps.py:217,224``): ``(params, batch) -> (logits, cache)`` and
 ``(params, cache, tokens, pos) -> (logits, cache)``, where ``pos`` is a
 0-d integer tensor on the model's device and the cache is updated in
-place.  The reference's PartitionSpec rules (``param_specs`` and the rest)
+place; for a ``Model`` and an ``EncDecModel`` alike (whose batch holds
+the frames too, and whose cache the cross K/V).  The reference's PartitionSpec rules (``param_specs`` and the rest)
 wait for ROADMAP queue A item 12.
 """
 

@@ -2,13 +2,17 @@
 
 Counterpart of ``repro/models/attention.py`` for full, sliding-window and
 hybrid layers (a hybrid layer's attention branch is a window or full
-attention layer's; ``models/transformer.py`` runs its Mamba-2 branch); cross
-attention waits for queue A item 10.  Training (``apply_attention``) and
-prefill attention run through ``kernels.ops.flash_mha`` (the Hopper kernels
-on the card, forward and, when training, backward), at any length, with
-the layer's window, where the reference picks its jnp ``mha_dense`` or
-``mha_chunked`` by length; those compute the same function and are not
-ported.  Decode runs the reference's dense ``_sdpa`` step.
+attention layer's; ``models/transformer.py`` runs its Mamba-2 branch), and
+for an encoder-decoder's cross attention.  Training (``apply_attention``)
+and prefill attention run through ``kernels.ops.flash_mha`` (the Hopper
+kernels on the card, forward and, when training, backward), at any length,
+with the layer's window, causal or not (an encoder's is not), where the
+reference picks its jnp ``mha_dense`` or ``mha_chunked`` by length; those
+compute the same function and are not ported.  Cross attention at prefill
+runs the same operator unmasked, with the prompt's queries against the
+encoder's keys (Sq != Sk).  Decode runs the reference's dense ``_sdpa``
+step, against the self cache with its mask and against the cross cache
+with none.
 Weights are cast to the activations' dtype at each use (a no-op on bf16
 storage; fp32 masters when training).
 
@@ -26,6 +30,8 @@ The cache is head-major, [B, KV, W, hd], where the reference's is
 Decode groups the H query heads by their kv head and multiplies against the
 cache as it lies: with (b, kv) as the batch of one bmm, a head-major cache
 is a view, while a position-major one would be copied every step and layer.
+The cross cache ``enc_kv`` is head-major too, {"k", "v"} [B, KV, enc_seq,
+hd], where the reference's is a (k, v) pair of [B, enc_seq, KV, hd].
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from .rope import apply_rope
 
 
 def check_spec(spec: LayerSpec) -> None:
-    if spec.attn not in ("full", "window", "hybrid") or spec.cross_attn:
+    if spec.attn not in ("full", "window", "hybrid"):
         raise NotImplementedError(f"attention {spec} {NOT_PORTED}")
 
 
@@ -72,6 +78,12 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec
     return p
 
 
+def init_cross_attention(generator: torch.Generator, cfg: ModelConfig,
+                         dtype: torch.dtype | None = None):
+    """A decoder layer's cross attention: a full attention layer's weights."""
+    return init_attention(generator, cfg, LayerSpec(), dtype)
+
+
 # ---------------------------------------------------------------- scoring
 def _scale(cfg: ModelConfig) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(cfg.head_dim)
@@ -98,13 +110,15 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     return torch.einsum("bkgqs,bksd->bqkgd", w, v).reshape(B, Sq, H, hd)
 
 
+def _heads(x, w):
+    """x [B,S,D] @ w [D,n,hd] -> [B,S,n,hd], contiguous."""
+    B, S, D = x.shape
+    return (x @ w.reshape(D, -1).to(x.dtype)).view(B, S, *w.shape[1:])
+
+
 def _project(p, x, cfg: ModelConfig, angles):
     """x [B,S,D] -> q [B,S,H,hd], k and v [B,S,KV,hd], contiguous, qk-normed and rotated."""
-    B, S, D = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].reshape(D, H * hd).to(x.dtype)).view(B, S, H, hd)
-    k = (x @ p["wk"].reshape(D, KV * hd).to(x.dtype)).view(B, S, KV, hd)
-    v = (x @ p["wv"].reshape(D, KV * hd).to(x.dtype)).view(B, S, KV, hd)
+    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -120,17 +134,47 @@ def _out(p, o, cfg: ModelConfig):
 
 
 # ----------------------------------------------------------------- train
-def apply_attention(p, x, cfg: ModelConfig, spec: LayerSpec, angles):
-    """Full-sequence causal attention for training: x [B,S,D] -> [B,S,D].
-    The reference's ``mha_dense``/``mha_chunked`` become the flash kernel at
-    every S, with the layer's window, through ``ops.flash_mha``.  It is
-    differentiable without a window; the gradient of a window layer raises
-    (``check_bwd_supported``) until the window backward lands (ROADMAP A10)."""
+def apply_attention(p, x, cfg: ModelConfig, spec: LayerSpec, angles, causal: bool = True):
+    """Full-sequence attention for training, or an encoder's (``causal=False``):
+    x [B,S,D] -> [B,S,D].  The reference's ``mha_dense``/``mha_chunked``
+    become the flash kernel at every S, with the layer's window, through
+    ``ops.flash_mha``.  It is differentiable when causal without a window;
+    the gradient of any other raises (``check_bwd_supported``) until its
+    backward lands (ROADMAP B2d)."""
     check_spec(spec)
     q, k, v = _project(p, x, cfg, angles)
-    out = ops.flash_mha(q, k, v, causal=True, window=_window(spec), softcap=cfg.attn_softcap,
+    out = ops.flash_mha(q, k, v, causal=causal, window=_window(spec), softcap=cfg.attn_softcap,
                         scale=_scale(cfg))
     return _out(p, out, cfg)
+
+
+def encode_cross_kv(p, enc_out, cfg: ModelConfig):
+    """The encoder's output [B,Se,D] -> cross k, v [B,Se,KV,hd], contiguous
+    (position-major, as the flash operator takes them and the reference
+    returns them)."""
+    return _heads(enc_out, p["wk"]), _heads(enc_out, p["wv"])
+
+
+def apply_cross_attention(p, x, enc_kv, cfg: ModelConfig):
+    """Cross attention over the whole prompt: x [B,S,D] against ``enc_kv`` =
+    (k, v) from ``encode_cross_kv``, unmasked, through ``ops.flash_mha``
+    (the reference's ``_sdpa`` with no mask computes the same function)."""
+    k, v = enc_kv
+    out = ops.flash_mha(_heads(x, p["wq"]), k, v, causal=False, softcap=cfg.attn_softcap,
+                        scale=_scale(cfg))
+    return _out(p, out, cfg)
+
+
+def cross_cache(enc_kv):
+    """(k, v) [B,Se,KV,hd] -> the head-major cross cache {"k", "v"} [B,KV,Se,hd]."""
+    k, v = enc_kv
+    return {"k": k.transpose(1, 2).contiguous(), "v": v.transpose(1, 2).contiguous()}
+
+
+def decode_cross_attention(p, x, cache, cfg: ModelConfig):
+    """One token's cross attention: x [B,1,D] against the head-major cross
+    cache, with no mask, as the reference's decode runs ``_sdpa``."""
+    return _out(p, _sdpa(_heads(x, p["wq"]), cache["k"], cache["v"], None, cfg), cfg)
 
 
 # ------------------------------------------------------------------ cache
@@ -142,13 +186,15 @@ def cache_len(cfg: ModelConfig, spec: LayerSpec, max_seq: int) -> int:
     return max_seq if window is None else min(max_seq, window)
 
 
-def prefill_attention(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int):
-    """Full-sequence causal attention that also emits the filled KV cache.
-    The ring's slots are written with tensor indices, so nothing here reads
-    a value back to the host (``serve --plan`` traces it on fake tensors)."""
+def prefill_attention(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int,
+                      causal: bool = True):
+    """Full-sequence attention (causal by default) that also emits the filled
+    KV cache.  The ring's slots are written with tensor indices, so nothing
+    here reads a value back to the host (``serve --plan`` traces it on fake
+    tensors)."""
     B, S, _ = x.shape
     q, k, v = _project(p, x, cfg, angles)
-    out = ops.flash_mha(q, k, v, causal=True, window=_window(spec), softcap=cfg.attn_softcap,
+    out = ops.flash_mha(q, k, v, causal=causal, window=_window(spec), softcap=cfg.attn_softcap,
                         scale=_scale(cfg))
     out = _out(p, out, cfg)
 

@@ -9,7 +9,9 @@ casts matrices to ``cfg.dtype`` or a dtype asked for (vectors, such as
 norm scales, hybrid branch norms and Mamba-2's 1-D parameters, and MoE
 routers stay fp32) and moves them to the device, and ``adamw_from_jax``
 carries the optimizer's state.  Parameter names and einsum layouts are the
-reference's; the attention KV cache's is not (``kv_from_jax``,
+reference's, an encoder-decoder's tree (``embed``, ``encoder``,
+``enc_norm``, ``decoder``, ``final_norm``) included; the attention KV
+cache's layout is not, nor is the cross cache's (``kv_from_jax``,
 ``cache_from_jax``), while the MLA and Mamba-2 caches' are.
 ``cnn_params_from_jax`` carries a JAX ``CNN.init`` tree into the port's CNN
 layout (``models/cnn.py``).
@@ -42,8 +44,10 @@ def params_from_jax(np_params, cfg: ModelConfig, device, dtype=None):
     matrices stored as ``dtype`` (``cfg.dtype`` when None; ``torch.float32``
     keeps the reference's masters for training).  Vectors (norm scales, a
     hybrid layer's ``branch_norm_a``/``branch_norm_m``, Mamba-2's ``A_log``,
-    ``D``, ``dt_bias``, ``norm`` and ``conv_b``) and every MoE ``router``
-    stay fp32, as the reference keeps them."""
+    ``D``, ``dt_bias``, ``norm`` and ``conv_b``, LayerNorm biases, the GELU
+    FFN's ``b_up``/``b_down``) and every MoE ``router`` stay fp32, as the
+    reference keeps them.  An encoder-decoder's ``encoder`` and ``decoder``
+    unstack as a decoder's ``blocks`` do."""
     dt = dtype or dtype_of(cfg)
 
     def leaf(a, keep_fp32=False):
@@ -56,9 +60,20 @@ def params_from_jax(np_params, cfg: ModelConfig, device, dtype=None):
             out["moe"]["router"] = leaf(p["moe"]["router"], keep_fp32=True)
         return out
 
+    def stack(segs, program):
+        return [block(p) for p in unstack_program(segs, program)]
+
+    if cfg.is_encoder_decoder:
+        return {
+            "embed": map_tree(leaf, np_params["embed"]),
+            "encoder": stack(np_params["encoder"], cfg.enc_program),
+            "enc_norm": map_tree(leaf, np_params["enc_norm"]),
+            "decoder": stack(np_params["decoder"], cfg.program),
+            "final_norm": map_tree(leaf, np_params["final_norm"]),
+        }
     return {
         "embed": map_tree(leaf, np_params["embed"]),
-        "blocks": [block(p) for p in unstack_program(np_params["blocks"], cfg.program)],
+        "blocks": stack(np_params["blocks"], cfg.program),
         "final_norm": map_tree(leaf, np_params["final_norm"]),
     }
 
@@ -104,15 +119,18 @@ def cache_from_jax(np_cache, cfg: ModelConfig, device="cpu") -> list:
     """JAX ``prefill``/``decode_step`` cache (per segment, leaves [reps, ...])
     -> the port's per-layer list of {"kv": {"k", "v"}}, {"kv": {"c_kv",
     "k_rope"}} (MLA), {"ssm": {"state", "conv"}} or, for a hybrid layer,
-    both "kv" and "ssm", in float32.  Attention KV leaves (full caches and
-    window rings alike, slot for slot) change layout (``kv_from_jax``);
-    the MLA latents [B,S,L], the ssm state [B,H,P,N] and conv tail
-    [B,K-1,C] keep the reference's."""
-    def leaf(kind, c):
+    both "kv" and "ssm", in float32; a decoder layer's cross cache, the
+    reference's (k, v) pair, becomes "enc_kv": {"k", "v"}.  Attention KV
+    leaves (full caches and window rings alike, slot for slot, and the
+    cross K/V) change layout (``kv_from_jax``); the MLA latents [B,S,L],
+    the ssm state [B,H,P,N] and conv tail [B,K-1,C] keep the reference's."""
+    def part(kind, c):
+        if kind == "enc_kv":
+            return {"k": kv_from_jax(c[0], device), "v": kv_from_jax(c[1], device)}
         fn = kv_from_jax if kind == "kv" and "c_kv" not in c else _f32
-        return lambda a: fn(a, device)
+        return map_tree(lambda a: fn(a, device), c)
 
-    return [{kind: map_tree(leaf(kind, c), c) for kind, c in layer.items()}
+    return [{kind: part(kind, c) for kind, c in layer.items()}
             for layer in unstack_program(np_cache, cfg.program)]
 
 

@@ -6,9 +6,13 @@ generator's device), the apply functions consume it.  The ``init_*``
 functions take the matrices' storage dtype: ``cfg.dtype`` (the default) for serving,
 which halves weight memory in bf16, or ``torch.float32`` for training, the
 reference's fp32 masters.  Each use casts with ``.to(x.dtype)``, as the
-reference's ``.astype(dt)`` does (a no-op on bf16 storage).  Norm scales
-stay fp32.  RMSNorm goes through ``kernels.ops.fused_rmsnorm``: the Hopper
-kernel on the card (both ways when training), its plain version on the CPU.
+reference's ``.astype(dt)`` does (a no-op on bf16 storage).  Norm scales,
+LayerNorm biases and FFN biases stay fp32.  RMSNorm goes through
+``kernels.ops.fused_rmsnorm``: the Hopper kernel on the card (both ways
+when training), its plain version on the CPU.  LayerNorm (starcoder2,
+whisper) is the reference's jnp arithmetic, in fp32, with no kernel: the
+JAX package has no Pallas LayerNorm either.  The GELU FFN is the tanh form,
+as ``jax.nn.gelu``'s default is.
 """
 
 from __future__ import annotations
@@ -46,16 +50,33 @@ def normal(generator: torch.Generator, shape, std: float, dtype: torch.dtype):
 
 
 # ----------------------------------------------------------------- norms
-def init_norm(cfg: ModelConfig, device):
-    if cfg.norm_type != "rms":
+def _check_norm(cfg: ModelConfig) -> None:
+    if cfg.norm_type not in ("rms", "layer"):
         raise NotImplementedError(f"norm_type {cfg.norm_type!r} {NOT_PORTED}")
-    return {"scale": torch.ones(cfg.d_model, dtype=torch.float32, device=device)}
+
+
+def init_norm(cfg: ModelConfig, device):
+    """fp32 ``scale`` (ones), and for LayerNorm an fp32 ``bias`` (zeros)."""
+    _check_norm(cfg)
+    p = {"scale": torch.ones(cfg.d_model, dtype=torch.float32, device=device)}
+    if cfg.norm_type == "layer":
+        p["bias"] = torch.zeros(cfg.d_model, dtype=torch.float32, device=device)
+    return p
 
 
 def apply_norm(p, x, cfg: ModelConfig):
-    if cfg.norm_type != "rms":
-        raise NotImplementedError(f"norm_type {cfg.norm_type!r} {NOT_PORTED}")
-    return ops.fused_rmsnorm(x, p["scale"], eps=cfg.norm_eps)
+    """RMSNorm through the kernel, or LayerNorm as the reference computes it
+    (``repro/models/layers.py:30-35``): in fp32, the mean, the centred
+    variance, ``rsqrt(var + eps)``, then scale and bias, cast back to x's
+    dtype."""
+    _check_norm(cfg)
+    if cfg.norm_type == "rms":
+        return ops.fused_rmsnorm(x, p["scale"], eps=cfg.norm_eps)
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
 def rmsnorm(scale, x, eps: float = 1e-6):
@@ -66,23 +87,37 @@ def rmsnorm(scale, x, eps: float = 1e-6):
 # ------------------------------------------------------------------ FFN
 def init_dense_ffn(generator: torch.Generator, cfg: ModelConfig,
                    dtype: torch.dtype | None = None, d_ff: int | None = None):
-    """``d_ff`` overrides ``cfg.d_ff``, as the reference's does for the MoE's
-    shared experts."""
-    if cfg.ffn_act != "swiglu":
+    """SwiGLU's ``w_gate``, ``w_up``, ``w_down``, or GELU's ``w_up``, ``b_up``,
+    ``w_down``, ``b_down`` with fp32 zero biases.  ``d_ff`` overrides
+    ``cfg.d_ff``, as the reference's does for the MoE's shared experts."""
+    if cfg.ffn_act not in ("swiglu", "gelu"):
         raise NotImplementedError(f"ffn_act {cfg.ffn_act!r} {NOT_PORTED}")
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dtype = dtype or dtype_of(cfg)
+    if cfg.ffn_act == "swiglu":
+        return {
+            "w_gate": normal(generator, (d, f), 1.0 / math.sqrt(d), dtype),
+            "w_up": normal(generator, (d, f), 1.0 / math.sqrt(d), dtype),
+            "w_down": normal(generator, (f, d), 1.0 / math.sqrt(f), dtype),
+        }
+    dev = generator.device
     return {
-        "w_gate": normal(generator, (d, f), 1.0 / math.sqrt(d), dtype),
         "w_up": normal(generator, (d, f), 1.0 / math.sqrt(d), dtype),
+        "b_up": torch.zeros(f, dtype=torch.float32, device=dev),
         "w_down": normal(generator, (f, d), 1.0 / math.sqrt(f), dtype),
+        "b_down": torch.zeros(d, dtype=torch.float32, device=dev),
     }
 
 
 def apply_dense_ffn(p, x, cfg: ModelConfig):
+    """SwiGLU, or GELU with biases in the tanh form (``jax.nn.gelu``'s
+    default; ``F.gelu``'s default is the erf form, up to 4.7e-4 away)."""
     dt = x.dtype
-    h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    return h @ p["w_down"].to(dt)
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        return h @ p["w_down"].to(dt)
+    h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt), approximate="tanh")
+    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
 
 
 # ------------------------------------------------------------ embeddings

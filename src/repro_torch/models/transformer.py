@@ -2,11 +2,15 @@
 cache, then decode steps).
 
 Counterpart of ``repro/models/transformer.py``, for full-attention,
-sliding-window, MLA, Mamba-2 and hybrid mixers, each with a dense FFN, an
-MoE FFN or none; other layer kinds, and config fields the port does not
-implement, raise NotImplementedError naming the ROADMAP item.  Each layer
-dispatches on its kind as the reference's does: ln1, then the mixer, then
-the residual, then ``ln2`` and the FFN where the layer has one.  A hybrid
+sliding-window, MLA, Mamba-2 and hybrid mixers, each with a dense FFN
+(SwiGLU or GELU), an MoE FFN or none, under RMSNorm or LayerNorm; other
+layer kinds, and config fields the port does not implement, raise
+NotImplementedError naming the ROADMAP item.  Each layer dispatches on its
+kind as the reference's does: ln1, then the mixer, then the residual, then,
+in an encoder-decoder's decoder layer, ``ln_cross`` and cross attention
+over the encoder's output with its residual, then ``ln2`` and the FFN
+where the layer has one.  ``models/encdec.py`` runs these layers as
+whisper's encoder (``causal=False``) and decoder.  A hybrid
 layer (hymba) runs attention and a Mamba-2 mixer on the same normed input
 and adds ``0.5 * (rmsnorm(a) + rmsnorm(m))``, each branch normed by its own
 fp32 scale, in the activations' dtype.
@@ -57,9 +61,10 @@ NOT_TRAINED = ("is not yet ported: it needs the SSD scan's gradient, see ROADMAP
 # Layer kinds that run a Mamba-2 mixer.
 SSM_KINDS = ("mamba", "hybrid")
 # Config fields whose function the port does not compute yet (gemma's
-# sandwich norms and embedding scale, qwen2-vl's M-RoPE, the vision and
-# audio frontends): a config that sets one raises rather than serving
-# another function.
+# sandwich norms and embedding scale, qwen2-vl's M-RoPE, the vision
+# frontend): a config that sets one raises rather than serving another
+# function.  The audio stub's frames are ``EncDecModel``'s input, so only
+# that class lets ``frontend="audio_stub"`` through.
 UNPORTED_FIELDS = ("sandwich_norms", "scale_embed", "mrope_sections", "frontend")
 NOT_TRAINED_ZOO = ("is not yet ported: MLA and MoE training (with the aux loss) come with "
                    "ROADMAP.md queue A item 10")
@@ -75,6 +80,19 @@ def _check_spec(spec: LayerSpec) -> None:
 def layer_specs(program: tuple[Segment, ...]) -> list[LayerSpec]:
     """One LayerSpec per layer, in execution order."""
     return [spec for unit, reps in program for _ in range(reps) for spec in unit]
+
+
+def check_config(cfg: ModelConfig, program: tuple[Segment, ...],
+                 frontend: str | None = None) -> None:
+    """Raise NotImplementedError on a config field or a layer of ``program``
+    that the port does not compute; ``frontend`` names the one frontend the
+    caller consumes."""
+    for name in UNPORTED_FIELDS:
+        value = getattr(cfg, name)
+        if value and not (name == "frontend" and value == frontend):
+            raise NotImplementedError(f"{cfg.name}: {name}={value!r} {NOT_PORTED}")
+    for spec in layer_specs(program):
+        _check_spec(spec)
 
 
 # ---------------------------------------------------------------- layers
@@ -93,6 +111,9 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
         p["mamba"] = ssm_mod.init_mamba(generator, cfg)
         p["branch_norm_a"] = torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
         p["branch_norm_m"] = torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
+    if spec.cross_attn:
+        p["ln_cross"] = init_norm(cfg, dev)
+        p["cross"] = attn_mod.init_cross_attention(generator, cfg, dtype)
     if spec.ffn != "none":
         p["ln2"] = init_norm(cfg, dev)
     if spec.ffn == "dense":
@@ -114,16 +135,29 @@ def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
     return x + label(h, "ffn_out")
 
 
-def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles):
-    """Forward one attention layer over the whole sequence, for the loss,
-    with the reference's activation labels (``block_in``, ``attn_out``,
-    ``ffn_out``: ``repro/models/transformer.py:106,118,319``), which name
-    variables for the planner and, under an offload policy, the
-    activations it offloads or saves; otherwise they cost nothing on real
-    tensors."""
+def _cross(p, x, cfg: ModelConfig, enc_kv):
+    """The cross-attention sublayer and its residual over the whole prompt:
+    ``enc_kv`` is ``attention.encode_cross_kv``'s (k, v)."""
+    h = apply_norm(p["ln_cross"], x, cfg)
+    return x + attn_mod.apply_cross_attention(p["cross"], h, enc_kv, cfg)
+
+
+def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, enc_out=None,
+                causal: bool = True):
+    """Forward one attention layer over the whole sequence, for the loss or
+    as an encoder layer (``causal=False``), with the reference's activation
+    labels (``block_in``, ``attn_out``, ``ffn_out``:
+    ``repro/models/transformer.py:106,118,319``), which name variables for
+    the planner and, under an offload policy, the activations it offloads or
+    saves; otherwise they cost nothing on real tensors.  A decoder layer
+    with cross attention reads the encoder's output ``enc_out``."""
     x = label(x, "block_in")
-    h = attn_mod.apply_attention(p["attn"], apply_norm(p["ln1"], x, cfg), cfg, spec, angles)
-    return _ffn(p, x + label(h, "attn_out"), cfg, spec)
+    h = attn_mod.apply_attention(p["attn"], apply_norm(p["ln1"], x, cfg), cfg, spec, angles,
+                                 causal)
+    x = x + label(h, "attn_out")
+    if spec.cross_attn:
+        x = _cross(p, x, cfg, attn_mod.encode_cross_kv(p["cross"], enc_out, cfg))
+    return _ffn(p, x, cfg, spec)
 
 
 def _merge_branches(p, a, m, cfg: ModelConfig):
@@ -133,8 +167,11 @@ def _merge_branches(p, a, m, cfg: ModelConfig):
                   + rmsnorm(p["branch_norm_m"], m, cfg.norm_eps))
 
 
-def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int):
-    """Forward one layer over the whole prompt, emitting its decode cache."""
+def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int,
+                  enc_out=None, causal: bool = True):
+    """Forward one layer over the whole prompt, emitting its decode cache: a
+    decoder layer with cross attention also emits its head-major cross
+    K/V over the encoder's output ``enc_out`` as ``"enc_kv"``."""
     cache: dict[str, Any] = {}
     h = apply_norm(p["ln1"], x, cfg)
     if spec.attn == "mamba":
@@ -146,8 +183,14 @@ def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int)
         m, cache["ssm"] = ssm_mod.apply_mamba(p["mamba"], h, cfg, return_cache=True)
         h = _merge_branches(p, a, m, cfg)
     else:
-        h, cache["kv"] = attn_mod.prefill_attention(p["attn"], h, cfg, spec, angles, max_seq)
-    return _ffn(p, x + h, cfg, spec), cache
+        h, cache["kv"] = attn_mod.prefill_attention(p["attn"], h, cfg, spec, angles, max_seq,
+                                                    causal)
+    x = x + h
+    if spec.cross_attn:
+        enc_kv = attn_mod.encode_cross_kv(p["cross"], enc_out, cfg)
+        cache["enc_kv"] = attn_mod.cross_cache(enc_kv)
+        x = _cross(p, x, cfg, enc_kv)
+    return _ffn(p, x, cfg, spec), cache
 
 
 def decode_layer(p, x, cache, pos: torch.Tensor, cfg: ModelConfig, spec: LayerSpec, angles):
@@ -166,14 +209,19 @@ def decode_layer(p, x, cache, pos: torch.Tensor, cfg: ModelConfig, spec: LayerSp
     else:
         h, cache["kv"] = attn_mod.decode_attention(p["attn"], h, cache["kv"], pos, cfg, spec,
                                                    angles)
-    return _ffn(p, x + h, cfg, spec), cache
+    x = x + h
+    if spec.cross_attn:
+        h = apply_norm(p["ln_cross"], x, cfg)
+        x = x + attn_mod.decode_cross_attention(p["cross"], h, cache["enc_kv"], cfg)
+    return _ffn(p, x, cfg, spec), cache
 
 
 def init_program_cache(cfg: ModelConfig, program, batch: int, max_seq: int, dtype, device):
     """One zeroed cache per layer, in execution order: {"kv": {"k", "v"}} for
     attention (a ring of ``attention.cache_len`` slots), {"kv": {"c_kv",
     "k_rope"}} for MLA, {"ssm": {"state", "conv"}} for Mamba-2, and both
-    "kv" and "ssm" for a hybrid layer."""
+    "kv" and "ssm" for a hybrid layer; a layer with cross attention also
+    holds "enc_kv": {"k", "v"} [B, KV, enc_seq, hd]."""
     def layer_cache(spec):
         if spec.attn == "mamba":
             return {"ssm": ssm_mod.init_mamba_cache(cfg, batch, dtype, device)}
@@ -182,6 +230,9 @@ def init_program_cache(cfg: ModelConfig, program, batch: int, max_seq: int, dtyp
         c = {"kv": attn_mod.init_kv_cache(cfg, spec, batch, max_seq, dtype, device)}
         if spec.attn == "hybrid":
             c["ssm"] = ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
+        if spec.cross_attn:
+            c["enc_kv"] = attn_mod.init_kv_cache(cfg, LayerSpec(), batch, cfg.enc_seq, dtype,
+                                                 device)
         return c
 
     return [layer_cache(spec) for spec in layer_specs(program)]
@@ -195,12 +246,10 @@ class Model:
 
     def __post_init__(self):
         self.device = torch.device(self.device)
-        for name in UNPORTED_FIELDS:
-            if getattr(self.cfg, name):
-                raise NotImplementedError(f"{self.cfg.name}: {name}={getattr(self.cfg, name)!r} "
-                                          f"{NOT_PORTED}")
-        for spec in layer_specs(self.cfg.program):
-            _check_spec(spec)
+        check_config(self.cfg, self.cfg.program)
+        if any(spec.cross_attn for spec in layer_specs(self.cfg.program)):
+            raise ValueError(f"{self.cfg.name}: cross-attention layers read an encoder's "
+                             f"output; build an encoder-decoder (models.build_model)")
 
     # ---- parameters ----
     def init(self, generator: torch.Generator, dtype: torch.dtype | None = None):

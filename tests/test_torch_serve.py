@@ -216,7 +216,8 @@ def test_entry_point_defaults_to_cuda():
 
 def test_registry():
     assert list_archs() == [ARCH, "mamba2-370m", "deepseek-v2-lite-16b",
-                            "llama4-maverick-400b-a17b", "hymba-1.5b"]
+                            "llama4-maverick-400b-a17b", "hymba-1.5b", "starcoder2-7b",
+                            "whisper-large-v3"]
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
             full.d_ff, full.vocab_size) == (36, 2560, 32, 8, 128, 9728, 151_936)
@@ -299,25 +300,21 @@ def test_serve_deepseek_smoke_with_and_without_plans(tmp_path, capsys):
 
 # Layer kinds and config fields the port does not compute yet: each must
 # raise (at build, or at init where the layer's weights are made) rather
-# than serve another function.
+# than serve another function.  The audio stub's frames only an
+# encoder-decoder reads: a decoder-only model with it would serve the
+# tokens alone.
 UNPORTED = {
-    "cross-attention": {"cross": True},
-    "layernorm": {"norm_type": "layer"},
-    "gelu-ffn": {"ffn_act": "gelu"},
     "sandwich-norms": {"sandwich_norms": True},
     "scale-embed": {"scale_embed": True},
     "mrope": {"mrope_sections": (2, 3, 3)},
     "vision-frontend": {"frontend": "vision_stub"},
+    "audio-frontend-decoder-only": {"frontend": "audio_stub"},
 }
 
 
 @pytest.mark.parametrize("change", list(UNPORTED.values()), ids=list(UNPORTED))
 def test_unported_layers_raise(change):
-    from repro_torch.configs.base import LayerSpec, uniform_program
-
     cfg = get_smoke_config(ARCH)
-    if "cross" in change:
-        change = {"program": uniform_program(LayerSpec(cross_attn=True), cfg.num_layers)}
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 10"):
         build_model(cfg.reduced(**change), "cpu").init_shapes()
 

@@ -281,7 +281,14 @@ def test_serve_without_cuda_raises_unless_asked_for_the_cpu(plan, monkeypatch):
 
 
 def test_unported_frontends_raise_naming_the_roadmap():
+    """The vision stub's patch embeddings raise; an encoder-decoder's batch
+    holds the audio stub's frames fp32 beside the tokens, as the
+    reference's does."""
     cfg = get_smoke_config("qwen3-4b")
-    for kw in ({"frontend": "vision_stub", "num_patch_tokens": 8}, {"is_encoder_decoder": True}):
-        with pytest.raises(NotImplementedError, match="queue A item 10"):
-            serve.serve_batch_struct(cfg.reduced(**kw), B, P)
+    with pytest.raises(NotImplementedError, match="queue A item 10"):
+        serve.serve_batch_struct(cfg.reduced(frontend="vision_stub", num_patch_tokens=8), B, P)
+    whisper = get_smoke_config("whisper-large-v3")
+    batch = serve.serve_batch_struct(whisper, B, P)
+    assert {k: (tuple(t.shape), t.dtype) for k, t in batch.items()} == {
+        "tokens": ((B, P), torch.long),
+        "frames": ((B, whisper.enc_seq, whisper.d_model), torch.float32)}
