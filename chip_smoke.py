@@ -24,8 +24,8 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               mask); each case names the variant
               that ran and checks that it was that one (rmsnorm:
               ``vector``, or ``scalar`` where D or alignment rules out
-              16-byte vectors; flash: ``wgmma`` for bf16 at head dim 64 or
-              128, ``simt`` the rest; SSD: ``tc`` for bf16 with P and N
+              16-byte vectors; flash: ``wgmma`` for bf16 at head dim 64,
+              128 or 256, ``simt`` the rest; SSD: ``tc`` for bf16 with P and N
               multiples of 8 and 16-byte aligned rows, ``simt`` for fp32
               and the other bf16 inputs).  Beside the tc SSD cases the
               simt kernel is timed on the same inputs, and beside the
@@ -48,15 +48,24 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               whisper's two unmasked shapes a probe of the padded keys that
               no bf16 tolerance could miss (v's ones columns must come out
               1 within one bf16 step, the softmax mass on the partial last
-              tile must match the plain version's);
+              tile must match the plain version's); and the head-dim-256
+              rows of gemma3-4b's prefill (B4 S2048 H8 KV4, global and with
+              its window of 1024) and gemma2-9b's (B4 S512 H16 KV8, softcap
+              50, scale 224^-0.5, and its window of 4096 at B1 S8192), with
+              the simt kernel, which ran that head dim before, timed beside
+              each on the same inputs, the LSE case at hd 256, and the
+              padding probe at 1100 keys (17 tiles of 64 and one of 12);
   4. parity   qwen3-4b's, mamba2-370m's, deepseek-v2-lite-16b's,
-              hymba-1.5b's, starcoder2-7b's and whisper-large-v3's widths in
-              fp32 (one layer of each program segment,
+              hymba-1.5b's, starcoder2-7b's, whisper-large-v3's, gemma3-4b's
+              and gemma2-9b's widths in fp32 (one layer of each program
+              segment,
               or the one segment's unit twice: deepseek's dense layer, then an
               MoE layer; hymba's five hybrid layers, global and window in
               turn, at prompt 1100, which wraps the window's ring and pads
               the SSD; whisper's two encoder and two decoder layers over the
-              full 1500 frames): prefill + 4 decode steps through the kernels on the
+              full 1500 frames; each gemma's window layer, then a global
+              one, gemma3 at prompt 1100, which wraps its ring of 1024,
+              gemma2 at 256): prefill + 4 decode steps through the kernels on the
               card against the plain path on the CPU, logits and every
               layer's cache (whisper's cross K/V too), and at each MoE call the routing equal (expert
               ids and ranks), its smallest top-k margin above NEAR_TIE
@@ -75,12 +84,17 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               prompt 512, 32 tokens, and on the full whisper-large-v3 (32
               encoder and 32 decoder layers) at batch 4, 1500 frames,
               prompt 128, 32 tokens, with its self and cross caches' bytes
-              beside the arithmetic; with the kernels'
+              beside the arithmetic, on the full gemma3-4b (34 layers, 29
+              of them with a window of 1024, sandwich norms, qk-norm) at
+              batch 4, prompt 2048, 32 tokens, and on the full gemma2-9b (42
+              layers, window 4096 in every other one, softcap 50) at batch
+              4, prompt 512, 32 tokens, each with its cache's bytes beside
+              the arithmetic; with the kernels'
               launch counts set to 0
               just before each run and read just after it, exactly, by
               variant (every flash launch ``wgmma``, every SSD launch
               ``tc``, every RMSNorm launch ``vector``; none for the two
-              LayerNorm models), and the decode ms a step; the memory that earlier phases hold is dropped first,
+              LayerNorm models; no ``simt`` launch on any path), and the decode ms a step; the memory that earlier phases hold is dropped first,
               and what is still held is printed, so the peak is the serve's
               own, beside the weights' bytes;
   6. profile  where the time goes: each served model's prefill and decode
@@ -89,8 +103,8 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               the tc SSD is two, its C B^T prepass and the scan; the device
               time by op, the port's ``repro_torch`` operators among them;
               for deepseek the MoE dispatch's sort, scatter and gather ops
-              against its expert GEMMs; hymba's, starcoder2's and whisper's
-              too, whisper's encoder also timed alone; the seconds each part
+              against its expert GEMMs; hymba's, starcoder2's, whisper's
+              and the gemmas' too, whisper's encoder also timed alone; the seconds each part
               of the phase took, the profiler's parse included);
   7. planner  the figures the port's ``H100_SXM`` HardwareSpec prices swaps
               with, measured: pinned host<->device copy rates of 256 MiB,
@@ -145,7 +159,7 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               batch (the drop must be at least 90% of the 36 layer inputs);
               and a warm step traced with the plan, beside phase 10's: the
               copies' time each way and how much of it lies beside compute;
- 12. serve plans  ``serve.main --plan --plan-cache`` on phase 5's six cells:
+ 12. serve plans  ``serve.main --plan --plan-cache`` on phase 5's eight cells:
               launch counts by variant and greedy tokens equal to phase 5's
               (planning launches nothing; decode takes 0-d device positions),
               each step's vars, w, chi/w and AutoSwap@80%; w against the
@@ -409,20 +423,24 @@ def live_pairs(Sq, Sk, causal, window) -> int:
     return int(keep_mask(Sq, Sk, causal, window).sum())
 
 
-def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softcap=None):
+def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softcap=None,
+               scale=None):
     """bf16 cases hold the wgmma variant, which rounds P to bf16 before P.V,
-    to the plain version, which keeps P in fp32, at the bf16 tolerance."""
-    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
-                                                     variant)
+    to the plain version, which keeps P in fp32, at the bf16 tolerance.  At
+    head dim 256, which the simt kernel ran before the wgmma kernel took it,
+    the simt kernel is timed beside it on the same inputs (through
+    ``_launch``, counting no launch)."""
+    from repro_torch.kernels.flash_attention import (_launch, flash_attention,
+                                                     flash_attention_plain, variant)
 
     q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
-    kw = dict(causal=causal, window=window, softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     var = variant(dtype, hd)
 
     def op(q, k, v):
-        return torch.ops.repro_torch.flash_attention(q, k, v, causal, window, softcap, None)
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, window, softcap, scale)
 
     before = flash_attention.variant_launches[var]
     got, want = op(q, k, v), flash_attention_plain(q, k, v, **kw)
@@ -448,21 +466,30 @@ def flash_case(B, Sq, Sk, H, KV, hd, dtype, gen, causal=True, window=None, softc
         def sdpa(q, k, v):
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=band,
-                is_causal=causal and band is None, enable_gqa=True)
+                is_causal=causal and band is None, scale=scale, enable_gqa=True)
         lib_ms = time_ms(sdpa, sets, 20)
+    other = None
+    if var == "wgmma" and hd == 256:
+        # Where a row keeps no key, its output follows the kernel's tile (the
+        # simt kernel's is 32 rows), so the two agree only where every row
+        # keeps one.
+        if keep.any(1).all():
+            simt_ok, simt_excess, _ = close(_launch("simt", q, k, v, **kw), want, tol)
+            require(simt_ok, f"flash [simt] B{B} Sq{Sq} hd{hd}: {simt_excess:.3e} beyond {tol:g}")
+        other = ("simt", time_ms(lambda *a: _launch("simt", *a, **kw), sets, 10))
     name = (f"flash [{var}] B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} {str(dtype)[6:]}"
             f"{' causal' if causal else ''}{f' window={window}' if window else ''}"
-            f"{f' softcap={softcap}' if softcap else ''} "
+            f"{f' softcap={softcap}' if softcap else ''}"
+            f"{f' scale={scale:.6f}' if scale else ''} "
             f"(error relative to max|want|: {rel:.2e})")
     return {
         "case": name, "variant": var, "max_abs_err": err, "check": check, "ok": ok,
         "ms": time_ms(op, sets, 20),
         "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, **kw), sets, 3),
-        "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "other": other,
     }
 
 
-WGMMA_KEY_TILE = 128   # keys a tile of the wgmma forward (BK in flash_attention_wgmma.cu)
 ONE_BF16_STEP = 2.0 ** -8  # the spacing of bf16 just below 1
 
 
@@ -477,12 +504,15 @@ def flash_padding_probe(B, Sq, Sk, H, KV, hd, gen):
     partial tile and zero elsewhere: the output there is the softmax mass on
     those keys, about their share of Sk, and must agree with the plain
     version to 2e-2 of its largest value (a kernel that skipped or misread
-    the partial tile would be off by all of it)."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    the partial tile would be off by all of it).  The key tile is the
+    kernel's at this head dim (``block_shape``: 128 keys, 64 at hd 256)."""
+    from repro_torch.kernels.flash_attention import (block_shape, flash_attention,
+                                                     flash_attention_plain)
 
     q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").bfloat16()
     k = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").bfloat16()
-    tail = Sk - (Sk % WGMMA_KEY_TILE or WGMMA_KEY_TILE)
+    key_tile = block_shape(torch.bfloat16, hd)[1]
+    tail = Sk - (Sk % key_tile or key_tile)
     v = torch.zeros((B, Sk, KV, hd), device="cuda", dtype=torch.bfloat16)
     v[..., : hd // 2] = 1
     v[:, tail:, :, hd // 2:] = 1
@@ -497,7 +527,8 @@ def flash_padding_probe(B, Sq, Sk, H, KV, hd, gen):
     mass_rel = ((mass_got - mass_want).abs().max() / mass_want.abs().max()).item()
     ok = ones_err <= ONE_BF16_STEP and mass_rel <= TOL[torch.bfloat16]
     print(f"  flash [wgmma] key padding B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} bfloat16 (keys "
-          f"{tail}..{Sk - 1} in the last tile, {-Sk % WGMMA_KEY_TILE} padded): v = 1 columns "
+          f"{tail}..{Sk - 1} in the last tile of {key_tile}, {-Sk % key_tile} padded): v = 1 "
+          f"columns "
           f"max|got - 1| {ones_err:.3e} <= {ONE_BF16_STEP:.3e}; last tile's softmax mass "
           f"{mass_want.mean().item():.4f} on average, max|got-want| / max|want| "
           f"{mass_rel:.3e} <= {TOL[torch.bfloat16]}: {'ok' if ok else 'FAILED'}")
@@ -713,7 +744,8 @@ def print_case(c) -> None:
 
 def opcheck_ops(gen) -> None:
     """``torch.library.opcheck`` of each of the five operators on CUDA tensors
-    at a small shape: the schema, the autograd registration (rmsnorm and
+    at a small shape (the flash forward also at head dim 256, with a window,
+    a softcap and a scale): the schema, the autograd registration (rmsnorm and
     flash_attention_lse take inputs that need a gradient), the fake
     implementation against the kernel's real outputs (shapes, dtypes,
     strides), and AOT dispatch with dynamic shapes."""
@@ -730,12 +762,16 @@ def opcheck_ops(gen) -> None:
     q, k, v = randn(1, 128, 4, 64, dtype=bf16), randn(1, 128, 2, 64, dtype=bf16), \
         randn(1, 128, 2, 64, dtype=bf16)
     o, lse = O.flash_attention_lse(q, k, v, True, None, None, None)
+    q256, k256, v256 = randn(1, 192, 4, 256, dtype=bf16), randn(1, 192, 2, 256, dtype=bf16), \
+        randn(1, 192, 2, 256, dtype=bf16)
     cases = {
         "rmsnorm": (O.rmsnorm, (randn(64, 256, dtype=bf16, grad=True),
                                 randn(256, grad=True), 1e-6)),
         "rmsnorm_bwd": (O.rmsnorm_bwd, (randn(64, 256, dtype=bf16), randn(256),
                                         randn(64, 256, dtype=bf16), 1e-6)),
         "flash_attention": (O.flash_attention, (q, k, v, True, None, None, None)),
+        "flash_attention hd256": (O.flash_attention, (q256, k256, v256, True, 100, 50.0,
+                                                      224.0**-0.5)),
         "flash_attention_lse": (O.flash_attention_lse,
                                 (q.detach().requires_grad_(), k.detach().requires_grad_(),
                                  v.detach().requires_grad_(), True, None, None, None)),
@@ -785,6 +821,14 @@ def phase_kernels():
         # hymba-1.5b at decode B4: ln1, the branch norms, ln2; the gated norm
         rmsnorm_case((4, 1600), bf16, gen, "vector"),
         rmsnorm_case((4, 3200), bf16, gen, "vector"),
+        # gemma3-4b at prefill B4 S2048 (ln1, ln1_post, ln2, ln2_post; the
+        # q-norm over 8 heads of 256) and gemma2-9b at prefill B4 S512 and
+        # decode B4 (its four norms; gemma3's decode q-norm)
+        rmsnorm_case((8192, 2560), bf16, gen, "vector"),
+        rmsnorm_case((65536, 256), bf16, gen, "vector"),
+        rmsnorm_case((2048, 3584), bf16, gen, "vector"),
+        rmsnorm_case((4, 3584), bf16, gen, "vector"),
+        rmsnorm_case((32, 256), bf16, gen, "vector"),
     ]
     flash = [
         flash_case(4, 512, 512, 32, 8, 128, bf16, gen),            # qwen3-4b prefill
@@ -802,7 +846,6 @@ def phase_kernels():
         flash_case(1, 256, 256, 4, 2, 64, torch.float32, gen, window=100),
         flash_case(2, 128, 128, 2, 2, 64, torch.float32, gen, causal=False, softcap=30.0),
         flash_case(1, 128, 256, 4, 4, 64, torch.float32, gen, causal=False),
-        flash_case(1, 200, 200, 4, 1, 256, torch.bfloat16, gen),   # hd 256 tiles, MQA
         flash_case(1, 192, 64, 2, 1, 256, torch.float32, gen, window=32),  # rows, no live key
         # hymba-1.5b prefill B4 S2048, 25 heads in 5 groups of 5: its 29 window
         # layers and its 3 global ones
@@ -817,6 +860,20 @@ def phase_kernels():
         flash_case(4, 1500, 1500, 20, 20, 64, bf16, gen, causal=False),
         flash_case(4, 128, 1500, 20, 20, 64, bf16, gen, causal=False),
         flash_case(4, 128, 128, 20, 20, 64, bf16, gen),
+        # head dim 256, the wgmma kernel's tiles of 128 q rows by 64 keys:
+        # gemma3-4b prefill B4 S2048, 8 heads in 4 groups of 2, its 5 global
+        # layers and its 29 with a window of 1024; gemma2-9b prefill B4 S512,
+        # 16 heads in 8 groups, softcap 50 and scale 224^-0.5 (its window of
+        # 4096 masks nothing at 512, so both its kinds of layer run this
+        # call), and its window at B1 S8192, where it masks; then the tile's
+        # edges: ragged lengths with MQA, and rows with no live key
+        flash_case(4, 2048, 2048, 8, 4, 256, bf16, gen),
+        flash_case(4, 2048, 2048, 8, 4, 256, bf16, gen, window=1024),
+        flash_case(4, 512, 512, 16, 8, 256, bf16, gen, softcap=50.0, scale=224.0**-0.5),
+        flash_case(1, 8192, 8192, 16, 8, 256, bf16, gen, window=4096, softcap=50.0,
+                   scale=224.0**-0.5),
+        flash_case(1, 200, 200, 4, 1, 256, bf16, gen),
+        flash_case(1, 384, 128, 2, 1, 256, bf16, gen, window=32),
     ]
     ssd = [
         ssd_case(4, 2048, 32, 64, 1, 128, bf16, gen, "tc", "views"),  # mamba2 prefill
@@ -850,6 +907,7 @@ def phase_kernels():
         flash_lse_case(4, 512, 32, 8, 128, bf16, gen),       # qwen3-4b training forward
         flash_lse_case(2, 512, 8, 2, 64, bf16, gen),
         flash_lse_case(1, 300, 32, 8, 128, f32, gen),        # simt, ragged tiles
+        flash_lse_case(1, 1024, 8, 4, 256, bf16, gen),       # hd 256, for B2d
     ]
     flash_bwd = [
         flash_bwd_case(4, 512, 32, 8, 128, bf16, gen, "wgmma"),  # qwen3-4b training
@@ -868,6 +926,8 @@ def phase_kernels():
     # tile of 92 keys and 36 padded ones: the encoder and cross attention
     flash_padding_probe(4, 1500, 1500, 20, 20, 64, gen)
     flash_padding_probe(4, 128, 1500, 20, 20, 64, gen)
+    # head dim 256: 1100 keys are 17 tiles of 64 and one of 12, 52 padded
+    flash_padding_probe(4, 256, 1100, 8, 4, 256, gen)
     return {"rmsnorm": rms, "flash_attention": flash, "ssd_scan": ssd, "rmsnorm_bwd": rms_bwd,
             "flash_attention_bwd": flash_bwd, "flash_lse": flash_lse}
 
@@ -887,12 +947,16 @@ ROUTING_MARGIN = 1e-4
 NEAR_TIE = 2.0
 
 
-def depth_cut(full):
+def depth_cut(full, tail: int | None = None):
     """The parity phases' 2-layer cut of a full config, in fp32: one layer of
     each program segment where there are several (deepseek: its dense
     layer, then an MoE layer), else the one segment's unit twice; an
-    encoder-decoder's encoder is cut the same way."""
+    encoder-decoder's encoder is cut the same way.  With ``tail``, the last
+    ``tail`` layers of the first segment's unit, once (the gemmas: a window
+    layer, then a global one)."""
     def cut(program):
+        if tail:
+            return ((program[0][0][-tail:], 1),)
         if len(program) > 1:
             return tuple((unit, 1) for unit, _ in program)
         return ((program[0][0], 2),)
@@ -911,8 +975,8 @@ def _routed(record):
     return ids.tolist(), record["rank"].cpu().gather(-1, perm).tolist(), record["capacity"]
 
 
-def phase_parity(arch: str, P: int):
-    """``depth_cut(arch)`` on the card against the CPU: prefill of a B1
+def phase_parity(arch: str, P: int, tail: int | None = None):
+    """``depth_cut(arch, tail)`` on the card against the CPU: prefill of a B1
     prompt of ``P`` tokens (and an encoder-decoder's frames), then 4 greedy
     decode steps."""
     from repro_torch.configs import get_config
@@ -920,7 +984,7 @@ def phase_parity(arch: str, P: int):
     from repro_torch.models import build_model, moe
     from repro_torch.models.convert import to_device
 
-    cfg = depth_cut(get_config(arch))
+    cfg = depth_cut(get_config(arch), tail)
     cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, "cuda")
     t0 = time.perf_counter()
     p_cpu = cpu.init(torch.Generator("cpu").manual_seed(0))
@@ -1082,15 +1146,16 @@ def release_memory(phase: str = "5") -> int:
 
 def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
     """Serve the full model through ``serve.main`` (a prefill and G - 1 decode
-    steps); each kernel must have been launched ``want[name]`` times.  A
-    hybrid model's cache and an encoder-decoder's, as its prefill returned
-    it on the card, are held to the arithmetic by kind.  -> (launch counts,
+    steps); each kernel must have been launched ``want[name]`` times.  The
+    cache of a model with window layers and an encoder-decoder's, as its
+    prefill returned it on the card, are held to the arithmetic by kind.  -> (launch counts,
     the greedy tokens, decode ms a step)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import layer_specs
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch)
@@ -1134,7 +1199,7 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
           f"launches {counts}, "
           f"main() wall {wall:.1f}s (init included)")
     require(counts == want, f"{arch}: launch counts {counts}, want {want}")
-    if cfg.family == "hybrid" or cfg.is_encoder_decoder:
+    if cfg.is_encoder_decoder or any(spec.window for spec in layer_specs(cfg.program)):
         print_cache_bytes("5", cfg, B, P + G, served, "the cache prefill returned on the card")
     require(tuple(gen.shape) == (B, G), f"generated shape {tuple(gen.shape)}")
     require(int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size, "token out of range")
@@ -2459,6 +2524,14 @@ def main() -> int:
         t4 = time.perf_counter()
         phase_parity(arch, P)
         print(f"[4] {arch} parity took {time.perf_counter() - t4:.1f}s")
+    # The gemmas at a window layer and a global one: gemma3's prompt of 1100
+    # wraps its window's ring of 1024 (and pads the last 64-key tile), and
+    # gemma2's window of 4096 masks nothing at 256, so its softcap and scale
+    # are what the two layers hold.
+    for arch, P in (("gemma3-4b", 1100), ("gemma2-9b", 256)):
+        t4 = time.perf_counter()
+        phase_parity(arch, P, tail=2)
+        print(f"[4] {arch} parity took {time.perf_counter() - t4:.1f}s")
     # Launches over 32 forwards (prefill and 31 decode steps): qwen3-4b runs
     # flash once a layer in prefill, RMSNorm 4 times a layer (ln1, ln2,
     # q-norm, k-norm) plus the final norm in every forward; mamba2-370m runs
@@ -2473,9 +2546,13 @@ def main() -> int:
     # in prefill and no RMSNorm (LayerNorm, no qk-norm); whisper-large-v3
     # runs flash once in each of its 32 encoder layers (unmasked) and twice
     # in each of its 32 decoder layers in prefill (causal self attention,
-    # unmasked cross attention), and no RMSNorm.  Everything is bf16 with
-    # widths that take 16-byte vectors: flash at head dim 64 or 128 is the
-    # wgmma variant, the SSD the tc variant, RMSNorm the vector variant.
+    # unmasked cross attention), and no RMSNorm; gemma3-4b runs flash once a
+    # layer in prefill (29 with the window) and RMSNorm 6 times a layer (ln1,
+    # q-norm, k-norm, ln1_post, ln2, ln2_post) plus the final norm in every
+    # forward, gemma2-9b flash once a layer (softcap 50) and RMSNorm 4 times
+    # a layer (no qk-norm) plus the final norm.  Everything is bf16 with
+    # widths that take 16-byte vectors: flash at head dim 64, 128 or 256 is
+    # the wgmma variant, the SSD the tc variant, RMSNorm the vector variant.
     def want(rms, flash, ssd, rms_bwd=0, flash_bwd=0):
         return {"rmsnorm": rms, "rmsnorm/vector": rms, "rmsnorm/scalar": 0,
                 "rmsnorm_bwd": rms_bwd, "rmsnorm_bwd/vector": rms_bwd, "rmsnorm_bwd/scalar": 0,
@@ -2490,7 +2567,9 @@ def main() -> int:
                   "deepseek-v2-lite-16b": (512, want((3 * 27 + 1) * 32, 0, 0)),
                   "hymba-1.5b": (2048, want((5 * 32 + 1) * 32, 32, 32)),
                   "starcoder2-7b": (512, want(0, 32, 0)),
-                  "whisper-large-v3": (128, want(0, 32 + 2 * 32, 0))}
+                  "whisper-large-v3": (128, want(0, 32 + 2 * 32, 0)),
+                  "gemma3-4b": (2048, want((6 * 34 + 1) * 32, 34, 0)),
+                  "gemma2-9b": (512, want((4 * 42 + 1) * 32, 42, 0))}
     paths, served = {}, {}
     for arch, (P, counts) in serve_want.items():
         t5 = time.perf_counter()
@@ -2613,10 +2692,18 @@ def main() -> int:
     # 72 of a step's launches); its case at the same shape stands beside
     # the serving one.
     lse = cases["flash_lse"][0]
-    next(k for k in kernels if k["name"] == "flash_attention").update(
-        lse_ms=lse["ms"], lse_plain_ms=lse["plain_ms"], lse_bound_ms=lse["bound_ms"],
-        lse_library_ms=lse["library_ms"], lse_max_abs_err=lse["max_abs_err"],
-        lse_check=lse["check"])
+    flash = next(k for k in kernels if k["name"] == "flash_attention")
+    flash.update(lse_ms=lse["ms"], lse_plain_ms=lse["plain_ms"], lse_bound_ms=lse["bound_ms"],
+                 lse_library_ms=lse["library_ms"], lse_max_abs_err=lse["max_abs_err"],
+                 lse_check=lse["check"])
+    # The gemmas' prefill runs the head-dim-256 instantiation: gemma3-4b's
+    # global call stands beside the qwen3-4b one, with the simt kernel's ms.
+    hd256 = next(c for c in cases["flash_attention"]
+                 if c["variant"] == "wgmma" and "hd256" in c["case"])
+    flash.update(hd256_case=hd256["case"], hd256_ms=hd256["ms"],
+                 hd256_plain_ms=hd256["plain_ms"], hd256_bound_ms=hd256["bound_ms"],
+                 hd256_bound_by=hd256["bound_by"], hd256_library_ms=hd256["library_ms"],
+                 hd256_simt_ms=hd256["other"][1], hd256_max_abs_err=hd256["max_abs_err"])
     summary = [f"{k['name']} launches={k['launches']} "
                f"({', '.join(f'{p} {n}' for p, n in k['launches_by_path'].items())}) "
                f"parity=ok ({len(cases[k['name']])} cases)" for k in kernels]

@@ -1,9 +1,9 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
 The port carries qwen3-4b, mamba2-370m, deepseek-v2-lite-16b,
-llama4-maverick-400b-a17b, hymba-1.5b, starcoder2-7b and whisper-large-v3
-so far; the others of the JAX package's registry are named here so that
-asking for one says why it is missing.
+llama4-maverick-400b-a17b, hymba-1.5b, starcoder2-7b, whisper-large-v3,
+gemma3-4b and gemma2-9b so far; the other of the JAX package's registry is
+named here so that asking for it says why it is missing.
 """
 
 from __future__ import annotations
@@ -20,13 +20,11 @@ ARCHS: dict[str, str] = {
     "hymba-1.5b": "hymba_1_5b",
     "starcoder2-7b": "starcoder2_7b",
     "whisper-large-v3": "whisper_large_v3",
+    "gemma3-4b": "gemma3_4b",
+    "gemma2-9b": "gemma2_9b",
 }
 
-NOT_PORTED = (
-    "gemma3-4b",
-    "gemma2-9b",
-    "qwen2-vl-7b",
-)
+NOT_PORTED = ("qwen2-vl-7b",)
 
 
 def _module(arch: str):

@@ -1,8 +1,8 @@
 // Flash attention forward for Hopper (sm_90a) on the CUDA cores: the `simt`
 // variant of `flash_attention`, which the wrapper (kernels/
 // flash_attention.py, `variant`) routes fp32 and bf16 at head dims other
-// than 64 and 128 to.  bf16 at 64 and 128 runs on the tensor cores in
-// flash_attention_wgmma.cu.
+// than 64, 128 and 256 to.  bf16 at 64, 128 and 256 runs on the tensor cores
+// in flash_attention_wgmma.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:99
 // `flash_attention` (body `_flash_kernel`): blockwise softmax(q k^T * scale) v

@@ -1,14 +1,14 @@
 // Flash attention forward for Hopper (sm_90a) on the tensor cores: bf16,
-// head dim 64 or 128.  The `wgmma` variant of `flash_attention`; the wrapper
-// (kernels/flash_attention.py, `variant`) routes fp32 and other head dims to
-// the CUDA-core kernel of flash_attention.cu.
+// head dim 64, 128 or 256.  The `wgmma` variant of `flash_attention`; the
+// wrapper (kernels/flash_attention.py, `variant`) routes fp32 and other head
+// dims to the CUDA-core kernel of flash_attention.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:99
 // `flash_attention` (body `_flash_kernel`) for those inputs, with its
-// semantics at block_q = block_k = 128: an online softmax (m, l, acc) in
-// fp32; causal and sliding-window masks on absolute positions from 0;
-// whole-tile skipping; an optional tanh logit softcap; GQA through kv head
-// h / (H / KV).  Masked logits are -1e30, so a row that meets a live tile
+// semantics at block_q = 128 and block_k = 128 (64 at hd 256): an online
+// softmax (m, l, acc) in fp32; causal and sliding-window masks on absolute
+// positions from 0; whole-tile skipping; an optional tanh logit softcap;
+// GQA through kv head h / (H / KV).  Masked logits are -1e30, so a row that meets a live tile
 // with every key masked averages that tile's values, and a row that meets
 // no live tile outputs 0.  Keys past Sk are padding, not masked keys: their
 // logit is -inf and they take no weight (a zero-filled K row would give a
@@ -25,29 +25,40 @@
 // prefill moves 42 MB of q, k, v and out (12.5 us at 3.35 TB/s) and needs
 // 8.6 GFLOP for its live (q, k) pairs (8.7 us at 989 TFLOP/s): bytes, by a
 // little.  Flops grow with Sq * Sk, so longer prompts are bound by the
-// tensor cores.
+// tensor cores.  At hd 256 a pair costs twice the flops: gemma3-4b's causal
+// B4 S2048 H8 KV4 prefill moves 101 MB (30 us) and needs 68.8 GFLOP (69.5
+// us), and gemma2-9b's B4 S512 H16 KV8 (softcap 50) moves 50 MB (15.0 us)
+// against 8.6 GFLOP (8.7 us): operations at gemma3's prompt, bytes at
+// gemma2's.
 //
 // Design: one block of two warpgroups (256 threads) for each (q tile of 128
 // rows, head, batch); each warpgroup owns 64 q rows.  The q tile is loaded
-// once into shared memory; k and v tiles of 128 keys go through a 3-stage
-// ring, each tile's cp.async copies issued two tiles ahead so that they
-// overlap the math, with one block barrier a tile.  Tiles are stored as
-// 64-column panels of 128-byte rows in the 128-byte swizzle that wgmma reads
-// (16-byte chunk c of row r at chunk c ^ (r % 8)), written so by the
-// cp.async addressing; every 128-row tile is 16 KB a panel, 1024-byte
-// aligned.  S = Q K^T is wgmma m64n128k16 with both operands in shared
-// memory (K rows are contiguous in hd: the K-major B operand).  The online
-// softmax runs on S in the accumulator's own registers, in log2 units
+// once into shared memory; k and v tiles of BK keys go through a ring of
+// STAGES, each tile's cp.async copies issued STAGES - 1 tiles ahead so that
+// they overlap the math, with one block barrier a tile (`Tiles`: 128 keys
+// and 3 stages up to hd 128; 64 keys and 2 stages at hd 256, where 128-key
+// tiles in 3 stages would need 448 KB).  Tiles are stored as 64-column
+// panels of 128-byte rows in the 128-byte swizzle that wgmma reads (16-byte
+// chunk c of row r at chunk c ^ (r % 8)), written so by the cp.async
+// addressing; a panel holds the tile's rows (16 KB for 128, 8 KB for 64)
+// and is 1024-byte aligned.  S = Q K^T is wgmma m64nBKk16 with both
+// operands in shared memory (K rows are contiguous in hd: the K-major B
+// operand).  The online softmax runs on S in the accumulator's own
+// registers, in log2 units
 // (exp(s - m) = 2^(s log2(e) - m')): each row lies in the 4 threads of a
 // quad, reduced with two shuffles, and a tile that no mask touches costs
 // one FFMA and one ex2 a score.  P goes to bf16 in registers, where the
 // accumulator's layout is the A operand's, and O += P V is wgmma with A
 // from registers and V as the N-major B operand (the transpose bit), so no
-// transposed copy of V is written.  The output goes through the block's own
-// q rows in shared memory and out in 16-byte stores.  q tiles are launched
+// transposed copy of V is written; at hd 256 it is two m64n128k16 products
+// a step of 16 keys, one on each half of O's columns.  The output goes
+// through the block's own q rows in shared memory and out in 16-byte
+// stores.  q tiles are launched
 // longest first (the tile index is the slowest grid axis, reversed), so
 // causal work leaves no tail wave.  Shared memory at hd 128: q 32 KB + 3 x
-// (k 32 KB + v 32 KB) = 224 KB; registers a thread: S 64, O 64, P 32.
+// (k 32 KB + v 32 KB) = 224 KB; registers a thread: S 64, O 64, P 32.  At
+// hd 256: q 64 KB + 2 x (k 32 KB + v 32 KB) = 192 KB; registers: S 32, O
+// 128, P 16.
 //
 // Not yet done (the next step for speed): the two warpgroups run their
 // softmax at the same time, between the block's two products, so the
@@ -82,42 +93,69 @@ namespace {
 
 constexpr int NT = 256;           // threads a block: two warpgroups
 constexpr int BQ = 128;           // q rows a block (64 a warpgroup)
-constexpr int BK = 128;           // keys a tile
-constexpr int PANEL = 128 * 128;  // bytes of a 64-column panel of a 128-row tile
-constexpr int STAGES = 3;          // k/v tiles in the ring, loaded two ahead
 constexpr float NEG = -1e30f;     // the TPU kernel's mask value
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
-// O += P V for head dim HD.
+// Keys a tile and the k/v ring's stages at head dim HD: the q tile and the
+// ring, (BQ + 2 STAGES BK) HD bf16, must fit in the 227 KB a block can have.
+// Up to hd 128: 128 keys, 3 stages, each tile loaded two ahead.  At hd 256:
+// 64 keys, 2 stages, each tile loaded one ahead.
+template <int HD>
+struct Tiles {
+  static constexpr int BK = HD <= 128 ? 128 : 64;
+  static constexpr int STAGES = HD <= 128 ? 3 : 2;
+  static constexpr size_t SMEM = (size_t)(BQ + 2 * STAGES * BK) * HD * 2 + 1024;  // + alignment
+  static_assert(SMEM <= 232448, "the tiles exceed a block's shared memory");
+};
+
+// S = Q K^T += over one 16-column step, for BK keys.
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BK / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  if constexpr (BK == 64)
+    wgmma_ss_n64(s, desc_a, desc_b, accumulate);
+  else
+    wgmma_ss_n128(s, desc_a, desc_b, accumulate);
+}
+
+// O += P V for head dim HD, 16 keys: V's rows from shared address `addr`,
+// its 64-column panels `panel` bytes apart (the N-major B operand).  At hd
+// 256, O's two 128-column halves over V's panels 0-1 and 2-3.
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  if constexpr (HD == 64)
-    wgmma_rs_n64(o, a, desc_b);
-  else
-    wgmma_rs_n128(o, a, desc_b);
+                                         uint32_t addr, uint32_t panel) {
+  if constexpr (HD == 64) {
+    wgmma_rs_n64(o, a, sw128_desc(addr, panel, 1024));
+  } else if constexpr (HD == 128) {
+    wgmma_rs_n128(o, a, sw128_desc(addr, panel, 1024));
+  } else {
+    wgmma_rs_n128<0>(o, a, sw128_desc(addr, panel, 1024));
+    wgmma_rs_n128<64>(o, a, sw128_desc(addr + 2 * panel, panel, 1024));
+  }
 }
 
-// Byte offset of 16-byte chunk c (8 columns) of row r in a 128-row tile.
+// Byte offset of 16-byte chunk c (8 columns) of row r in a tile of ROWS
+// rows: 64-column panels of ROWS 128-byte rows each.
+template <int ROWS>
 __device__ __forceinline__ uint32_t chunk_offset(int r, int c) {
-  return (c >> 3) * PANEL + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
-// Copy rows [0, 128) of a tile, hd columns, from `g` (row stride `stride`
+// Copy rows [0, ROWS) of a tile, hd columns, from `g` (row stride `stride`
 // elements) into shared memory at `dst`; rows from `valid` on are zeros.
-template <int HD>
+template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g, long long stride, int valid,
                                           int tid) {
   constexpr int CPR = HD / 8;  // 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < 128 * CPR / NT; ++i) {
+  for (int i = 0; i < ROWS * CPR / NT; ++i) {
     const int e = tid + i * NT;
     const int r = e / CPR, c = e % CPR;
     const bool in = r < valid;
-    cp_async16(dst + chunk_offset(r, c), in ? g + r * stride + c * 8 : g, in ? 16 : 0);
+    cp_async16(dst + chunk_offset<ROWS>(r, c), in ? g + r * stride + c * 8 : g, in ? 16 : 0);
   }
 }
 
@@ -127,12 +165,14 @@ __global__ void __launch_bounds__(NT, 1)
                            const bf16* __restrict__ v, bf16* __restrict__ out,
                            float* __restrict__ lse, int Sq, int Sk, int H, int KV, float scale,
                            int causal, int window, float softcap) {
-  constexpr uint32_t TILE = 128 * HD * 2;  // bytes of a 128-row tile
+  constexpr int BK = Tiles<HD>::BK, STAGES = Tiles<HD>::STAGES;
+  constexpr uint32_t Q_PANEL = BQ * 128, KV_PANEL = BK * 128;  // bytes of a 64-column panel
+  constexpr uint32_t KV_TILE = BK * HD * 2;                    // bytes of a k or v tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t sQ = (raw + 1023) & ~1023u;  // the swizzle needs 1024-byte aligned tiles
-  const uint32_t sK = sQ + TILE;              // stage s at sK + s * TILE
-  const uint32_t sV = sK + STAGES * TILE;     // stage s at sV + s * TILE
+  const uint32_t sQ = (raw + 1023) & ~1023u;  // the swizzle needs 1024-byte aligned panels
+  const uint32_t sK = sQ + BQ * HD * 2;       // stage s at sK + s * KV_TILE
+  const uint32_t sV = sK + STAGES * KV_TILE;  // stage s at sV + s * KV_TILE
   uint8_t* q_tile = smem_raw + (sQ - raw);
 
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
@@ -160,13 +200,13 @@ __global__ void __launch_bounds__(NT, 1)
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // l: this thread's share of the row sum
 
-  if (n_tiles > 0) load_tile<HD>(sQ, qb, q_stride, Sq - q0, tid);
+  if (n_tiles > 0) load_tile<HD, BQ>(sQ, qb, q_stride, Sq - q0, tid);
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {  // the first tiles, one commit group each
     const int kt = k_first + t * BK;
     if (t < n_tiles) {
-      load_tile<HD>(sK + t * TILE, kb + kt * kv_stride, kv_stride, Sk - kt, tid);
-      load_tile<HD>(sV + t * TILE, vb + kt * kv_stride, kv_stride, Sk - kt, tid);
+      load_tile<HD, BK>(sK + t * KV_TILE, kb + kt * kv_stride, kv_stride, Sk - kt, tid);
+      load_tile<HD, BK>(sV + t * KV_TILE, vb + kt * kv_stride, kv_stride, Sk - kt, tid);
     }
     cp_async_commit();
   }
@@ -174,28 +214,29 @@ __global__ void __launch_bounds__(NT, 1)
   const float sl2 = scale * LOG2E;  // scores are kept in log2 units: exp(s - m) = 2^(x - m2)
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = k_first + j * BK;
-    const uint32_t st = (j % STAGES) * TILE;
+    const uint32_t st = (j % STAGES) * KV_TILE;
     cp_async_wait<STAGES - 2>();  // q and tile j have landed (this thread's copies)
     fence_proxy_async();
     __syncthreads();  // ... and every thread's, and every thread is done with tile j - 1
     {  // tile j + STAGES - 1 into the stage that tile j - 1 held
       const int kn = k0 + (STAGES - 1) * BK;
       if (j + STAGES - 1 < n_tiles) {
-        const uint32_t sn = ((j + STAGES - 1) % STAGES) * TILE;
-        load_tile<HD>(sK + sn, kb + kn * kv_stride, kv_stride, Sk - kn, tid);
-        load_tile<HD>(sV + sn, vb + kn * kv_stride, kv_stride, Sk - kn, tid);
+        const uint32_t sn = ((j + STAGES - 1) % STAGES) * KV_TILE;
+        load_tile<HD, BK>(sK + sn, kb + kn * kv_stride, kv_stride, Sk - kn, tid);
+        load_tile<HD, BK>(sV + sn, vb + kn * kv_stride, kv_stride, Sk - kn, tid);
       }
       cp_async_commit();
     }
 
-    // S = Q K^T for this warpgroup's 64 rows: 64 x 128, hd / 16 steps.
-    float s[64];
+    // S = Q K^T for this warpgroup's 64 rows: 64 x BK, hd / 16 steps, each
+    // 16 columns of a q and a k panel.
+    float s[BK / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t off = (kk / 4) * PANEL + (kk % 4) * 32;
-      wgmma_ss_n128(s, sw128_desc(sQ + off + wg * 64 * 128, 0, 1024),
-                    sw128_desc(sK + st + off, 0, 1024), kk > 0);
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_qk<BK>(s, sw128_desc(sQ + (kk / 4) * Q_PANEL + col + wg * 64 * 128, 0, 1024),
+                   sw128_desc(sK + st + (kk / 4) * KV_PANEL + col, 0, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -212,7 +253,7 @@ __global__ void __launch_bounds__(NT, 1)
     const bool general = edge || softcap > 0.f;
     if (general) {
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < BK / 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = softcap > 0.f ? softcap * LOG2E * tanhf(s[4 * i + e] * scale / softcap)
@@ -229,7 +270,7 @@ __global__ void __launch_bounds__(NT, 1)
     }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < BK / 8; ++i) {
       mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
       mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
@@ -250,10 +291,10 @@ __global__ void __launch_bounds__(NT, 1)
 
     // P = exp(S - m) in bf16 pairs: p[4 t .. 4 t + 3] is the A fragment of
     // keys 16 t .. 16 t + 15.
-    uint32_t p[32];
+    uint32_t p[BK / 4];
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < BK / 8; ++i) {
       const float p00 = fast_exp2(fmaf(s[4 * i], cs, -mn0));
       const float p01 = fast_exp2(fmaf(s[4 * i + 1], cs, -mn0));
       const float p10 = fast_exp2(fmaf(s[4 * i + 2], cs, -mn1));
@@ -275,12 +316,12 @@ __global__ void __launch_bounds__(NT, 1)
       o[4 * i + 3] *= c1;
     }
 
-    // O += P V: 128 keys in 8 steps of 16; V is the N-major B operand.
+    // O += P V: BK keys in steps of 16; V is the N-major B operand.
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < BK / 16; ++t) {
       const uint32_t a[4] = {p[4 * t], p[4 * t + 1], p[4 * t + 2], p[4 * t + 3]};
-      wgmma_pv<HD>(o, a, sw128_desc(sV + st + t * 16 * 128, PANEL, 1024));
+      wgmma_pv<HD>(o, a, sV + st + t * 16 * 128, KV_PANEL);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -308,8 +349,8 @@ __global__ void __launch_bounds__(NT, 1)
   for (int i = 0; i < HD / 8; ++i) {
     const __nv_bfloat162 r0 = __floats2bfloat162_rn(o[4 * i] * inv0, o[4 * i + 1] * inv0);
     const __nv_bfloat162 r1 = __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
-    *reinterpret_cast<__nv_bfloat162*>(q_tile + chunk_offset(row0, i) + 2 * cq) = r0;
-    *reinterpret_cast<__nv_bfloat162*>(q_tile + chunk_offset(row0 + 8, i) + 2 * cq) = r1;
+    *reinterpret_cast<__nv_bfloat162*>(q_tile + chunk_offset<BQ>(row0, i) + 2 * cq) = r0;
+    *reinterpret_cast<__nv_bfloat162*>(q_tile + chunk_offset<BQ>(row0 + 8, i) + 2 * cq) = r1;
   }
   warpgroup_barrier(1 + wg);
   constexpr int CPR = HD / 8;
@@ -318,7 +359,7 @@ __global__ void __launch_bounds__(NT, 1)
     const int r = 64 * wg + e / CPR, c = e % CPR;
     if (q0 + r < Sq)
       *reinterpret_cast<uint4*>(out + ((long long)b * Sq + q0 + r) * q_stride + h * HD + c * 8) =
-          *reinterpret_cast<const uint4*>(q_tile + chunk_offset(r, c));
+          *reinterpret_cast<const uint4*>(q_tile + chunk_offset<BQ>(r, c));
   }
 }
 
@@ -328,7 +369,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
                    float softcap, cudaStream_t stream) {
   // Two instantiations, so that serving's (no LSE) is the kernel without it.
   auto kernel = lse ? flash_fwd_wgmma_kernel<HD, true> : flash_fwd_wgmma_kernel<HD, false>;
-  const size_t smem = (1 + 2 * STAGES) * 128 * HD * 2 + 1024;  // q, the k/v ring, alignment
+  const size_t smem = Tiles<HD>::SMEM;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -342,8 +383,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 }  // namespace
 
 // q, out: [B, Sq, H, hd]; k, v: [B, Sk, KV, hd]; all contiguous, of `dtype`
-// (DTypeCode: bf16 only), with 16-byte aligned base addresses; hd 64 or
-// 128.  lse: null, or fp32 [B, H, Sq].  window <= 0 means none; softcap <=
+// (DTypeCode: bf16 only), with 16-byte aligned base addresses; hd 64, 128
+// or 256.  lse: null, or fp32 [B, H, Sq].  window <= 0 means none; softcap <=
 // 0 means none.  The arguments are flash_attention_fwd's.  Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int flash_attention_wgmma_fwd(int dtype, const void* q, const void* k, const void* v,
@@ -362,6 +403,9 @@ extern "C" int flash_attention_wgmma_fwd(int dtype, const void* q, const void* k
                         window, softcap, s);
     case 128:
       return launch<128>(q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, H, KV, scale, causal,
+                         window, softcap, s);
+    case 256:
+      return launch<256>(q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, H, KV, scale, causal,
                          window, softcap, s);
     default:
       return cudaErrorInvalidValue;

@@ -4,17 +4,23 @@ Counterpart of ``repro/kernels/flash_attention.py:99 flash_attention`` (a
 Pallas TPU kernel).  ``flash_attention`` launches a Hopper kernel on CUDA
 tensors: ``variant(dtype, hd)`` names which one, and nothing else decides.
 
-- ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 at head dim 64 or
-  128, on the tensor cores, tiles of 128 q rows by 128 keys.  It rounds P to
-  bf16 before P.V (the TPU kernel's P.V is fp32; see the source note).
+- ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 at head dim 64, 128
+  or 256, on the tensor cores, tiles of 128 q rows by 128 keys (by 64 keys
+  at head dim 256, whose 128-key tiles would not fit in shared memory).  It
+  rounds P to bf16 before P.V (the TPU kernel's P.V is fp32; see the source
+  note).
 - ``"simt"`` (``csrc/flash_attention.cu``): everything else the wrapper takes
   -- fp32 (whose 2e-5 parity needs IEEE fp32 products, not TF32 tensor
-  cores) and bf16 at head dims other than 64 and 128 (16 to 256 in steps of
-  16) -- on the CUDA cores, tiles of 64 rows (32 above head dim 128).
+  cores) and bf16 at head dims other than 64, 128 and 256 (16 to 240 in
+  steps of 16) -- on the CUDA cores, tiles of 64 rows (32 above head dim
+  128).
 
 Each launch counts in ``flash_attention.launches`` and in
 ``flash_attention.variant_launches[variant]``.  A launch that fails raises;
 nothing gives way to the other variant or to the plain version.
+``_launch(var, ...)`` runs a named variant on inputs the wrapper would
+take, counting nothing: the wrapper's own launcher, which ``chip_smoke.py``
+also calls to time the ``simt`` kernel beside ``wgmma`` on the same inputs.
 ``flash_attention_plain`` repeats the kernels' arithmetic in PyTorch (q
 tiles, live k tiles at the variant's tile shape, fp32 online softmax with
 P kept in fp32, -1e30 masking, rows with no live key give 0) and is what
@@ -29,7 +35,8 @@ serving leaves it off, so its kernels write nothing more.
 ``flash_attention_bwd`` is the gradient of causal attention with no window
 or softcap, the only attention a ported training config has: from q, k, v,
 the output o, dO and the LSE it returns dq, dk and dv in q's dtype,
-recomputing P from the LSE.  ``bwd_variant`` names its kernel: ``"wgmma"``
+recomputing P from the LSE, at head dims up to 128.  ``bwd_variant``
+names its kernel: ``"wgmma"``
 (``csrc/flash_attention_bwd_wgmma.cu``: bf16 at head dim 64 or 128 with
 16-byte aligned tensors, on Hopper's warpgroup MMA; it rounds P and dS to
 bf16 where they enter a product, as the wgmma forward rounds P) or
@@ -61,12 +68,13 @@ from . import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 
 
 def variant(dtype: torch.dtype, hd: int) -> str:
     """The kernel ``flash_attention`` launches for q/k/v of ``dtype`` and head
-    dim ``hd``: ``"wgmma"`` for bf16 at hd 64 or 128, ``"simt"`` otherwise."""
+    dim ``hd``: ``"wgmma"`` for bf16 at hd 64, 128 or 256, ``"simt"``
+    otherwise."""
     return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "simt"
 
 
@@ -76,7 +84,7 @@ def block_shape(dtype: torch.dtype, hd: int) -> tuple[int, int]:
     and so give a uniform average rather than 0, so the plain version tiles
     as the kernel does."""
     if variant(dtype, hd) == "wgmma":
-        return 128, 128
+        return 128, 128 if hd <= 128 else 64  # ``Tiles`` in csrc/flash_attention_wgmma.cu
     t = 64 if hd <= 128 else 32  # ``dispatch`` in csrc/flash_attention.cu
     return t, t
 
@@ -162,18 +170,15 @@ def check_args(q, k, v, window) -> None:
                          f"{q.device}, {k.device}, {v.device}")
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
-                    return_lse=False):
-    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd], through the CUDA kernel
-    that ``variant(q.dtype, hd)`` names; with ``return_lse`` also the rows'
-    log-sum-exp, fp32 [B,H,Sq]."""
-    check_args(q, k, v, window)
+def _launch(var: str, q, k, v, *, causal=True, window=None, softcap=None, scale=None,
+            return_lse=False):
+    """Run forward kernel ``var`` (``"wgmma"`` or ``"simt"``) on arguments that
+    ``check_args`` passed; count nothing."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     scale = scale if scale is not None else hd**-0.5
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), device=q.device) if return_lse else None
-    var = variant(q.dtype, hd)
     lib = "flash_attention_wgmma" if var == "wgmma" else "flash_attention"
     fn = _build.function(lib, f"{lib}_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
@@ -182,9 +187,21 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=No
                  float(scale), int(causal), window or 0, float(softcap or 0.0),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
+                    return_lse=False):
+    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd], through the CUDA kernel
+    that ``variant(q.dtype, hd)`` names; with ``return_lse`` also the rows'
+    log-sum-exp, fp32 [B,H,Sq]."""
+    check_args(q, k, v, window)
+    var = variant(q.dtype, q.shape[-1])
+    out = _launch(var, q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
+                  return_lse=return_lse)
     flash_attention.launches += 1
     flash_attention.variant_launches[var] += 1
-    return (out, lse) if return_lse else out
+    return out
 
 
 flash_attention.launches = 0
@@ -252,7 +269,8 @@ def bwd_variant(o, do) -> str:
     requires q, k and v to, as the forward does there), ``"simt"``
     otherwise."""
     aligned = o.data_ptr() % 16 == 0 and do.data_ptr() % 16 == 0
-    return "wgmma" if variant(o.dtype, o.shape[-1]) == "wgmma" and aligned else "simt"
+    wgmma = o.dtype == torch.bfloat16 and o.shape[-1] in (64, 128)
+    return "wgmma" if wgmma and aligned else "simt"
 
 
 def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float):

@@ -47,6 +47,10 @@ Usage:
       --batch 4 --prompt-len 512 --gen 32 [--plan] [--plan-cache build/plans]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \\
       --batch 4 --prompt-len 128 --gen 32 [--plan] [--plan-cache build/plans]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+      --batch 4 --prompt-len 2048 --gen 32 [--plan] [--plan-cache build/plans]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+      --batch 4 --prompt-len 512 --gen 32 [--plan] [--plan-cache build/plans]
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --batch 2 --prompt-len 16 --gen 4 --plan-cache /tmp/plans --colocate
 """

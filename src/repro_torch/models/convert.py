@@ -45,7 +45,8 @@ def params_from_jax(np_params, cfg: ModelConfig, device, dtype=None):
     keeps the reference's masters for training).  Vectors (norm scales, a
     hybrid layer's ``branch_norm_a``/``branch_norm_m``, Mamba-2's ``A_log``,
     ``D``, ``dt_bias``, ``norm`` and ``conv_b``, LayerNorm biases, the GELU
-    FFN's ``b_up``/``b_down``) and every MoE ``router`` stay fp32, as the
+    FFN's ``b_up``/``b_down``; gemma's sandwich norms ``ln1_post``/``ln2_post``
+    are norm scales too) and every MoE ``router`` stay fp32, as the
     reference keeps them.  An encoder-decoder's ``encoder`` and ``decoder``
     unstack as a decoder's ``blocks`` do."""
     dt = dtype or dtype_of(cfg)

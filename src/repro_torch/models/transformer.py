@@ -9,7 +9,15 @@ NotImplementedError naming the ROADMAP item.  Each layer dispatches on its
 kind as the reference's does: ln1, then the mixer, then the residual, then,
 in an encoder-decoder's decoder layer, ``ln_cross`` and cross attention
 over the encoder's output with its residual, then ``ln2`` and the FFN
-where the layer has one.  ``models/encdec.py`` runs these layers as
+where the layer has one.  With ``cfg.sandwich_norms`` (gemma2, gemma3) the
+mixer's output is normed by ``ln1_post`` and the FFN's by ``ln2_post``
+before their residuals, where the reference norms them: ``ln2_post`` in
+every layer function, ``ln1_post`` after any mixer when training but, in
+prefill and decode, after full or window attention only (never after MLA,
+Mamba-2 or the hybrid mixer), as the reference's ``prefill_layer`` and
+``decode_layer`` do.  With ``cfg.scale_embed`` the token embeddings are
+multiplied by sqrt(d_model) rounded to their dtype first (``embed_scale``).
+``models/encdec.py`` runs these layers as
 whisper's encoder (``causal=False``) and decoder.  A hybrid
 layer (hymba) runs attention and a Mamba-2 mixer on the same normed input
 and adds ``0.5 * (rmsnorm(a) + rmsnorm(m))``, each branch normed by its own
@@ -60,12 +68,11 @@ NOT_TRAINED = ("is not yet ported: it needs the SSD scan's gradient, see ROADMAP
                "item 3 (B3b)")
 # Layer kinds that run a Mamba-2 mixer.
 SSM_KINDS = ("mamba", "hybrid")
-# Config fields whose function the port does not compute yet (gemma's
-# sandwich norms and embedding scale, qwen2-vl's M-RoPE, the vision
-# frontend): a config that sets one raises rather than serving another
-# function.  The audio stub's frames are ``EncDecModel``'s input, so only
-# that class lets ``frontend="audio_stub"`` through.
-UNPORTED_FIELDS = ("sandwich_norms", "scale_embed", "mrope_sections", "frontend")
+# Config fields whose function the port does not compute yet (qwen2-vl's
+# M-RoPE, the vision frontend): a config that sets one raises rather than
+# serving another function.  The audio stub's frames are ``EncDecModel``'s
+# input, so only that class lets ``frontend="audio_stub"`` through.
+UNPORTED_FIELDS = ("mrope_sections", "frontend")
 NOT_TRAINED_ZOO = ("is not yet ported: MLA and MoE training (with the aux loss) come with "
                    "ROADMAP.md queue A item 10")
 
@@ -111,6 +118,8 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
         p["mamba"] = ssm_mod.init_mamba(generator, cfg)
         p["branch_norm_a"] = torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
         p["branch_norm_m"] = torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
+    if cfg.sandwich_norms:
+        p["ln1_post"] = init_norm(cfg, dev)
     if spec.cross_attn:
         p["ln_cross"] = init_norm(cfg, dev)
         p["cross"] = attn_mod.init_cross_attention(generator, cfg, dtype)
@@ -120,11 +129,20 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
         p["ffn"] = init_dense_ffn(generator, cfg, dtype)
     elif spec.ffn == "moe":
         p["moe"] = moe_mod.init_moe(generator, cfg, dtype)
+    if spec.ffn != "none" and cfg.sandwich_norms:
+        p["ln2_post"] = init_norm(cfg, dev)
     return p
 
 
+def _post_norm(p, name: str, h, cfg: ModelConfig):
+    """A sandwich norm ``name`` (``ln1_post``, ``ln2_post``) of a sublayer's
+    output, where the config has them."""
+    return apply_norm(p[name], h, cfg) if cfg.sandwich_norms else h
+
+
 def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
-    """The FFN sublayer and its residual; serving drops the MoE's aux loss."""
+    """The FFN sublayer, its sandwich norm and its residual; serving drops the
+    MoE's aux loss."""
     if spec.ffn == "none":
         return x
     h = apply_norm(p["ln2"], x, cfg)
@@ -132,7 +150,7 @@ def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
         h = apply_dense_ffn(p["ffn"], h, cfg)
     else:
         h, _ = moe_mod.apply_moe(p["moe"], h, cfg)
-    return x + label(h, "ffn_out")
+    return x + _post_norm(p, "ln2_post", label(h, "ffn_out"), cfg)
 
 
 def _cross(p, x, cfg: ModelConfig, enc_kv):
@@ -154,7 +172,7 @@ def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, enc_out=None,
     x = label(x, "block_in")
     h = attn_mod.apply_attention(p["attn"], apply_norm(p["ln1"], x, cfg), cfg, spec, angles,
                                  causal)
-    x = x + label(h, "attn_out")
+    x = x + _post_norm(p, "ln1_post", label(h, "attn_out"), cfg)
     if spec.cross_attn:
         x = _cross(p, x, cfg, attn_mod.encode_cross_kv(p["cross"], enc_out, cfg))
     return _ffn(p, x, cfg, spec)
@@ -185,6 +203,7 @@ def prefill_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, max_seq: int,
     else:
         h, cache["kv"] = attn_mod.prefill_attention(p["attn"], h, cfg, spec, angles, max_seq,
                                                     causal)
+        h = _post_norm(p, "ln1_post", h, cfg)
     x = x + h
     if spec.cross_attn:
         enc_kv = attn_mod.encode_cross_kv(p["cross"], enc_out, cfg)
@@ -209,11 +228,23 @@ def decode_layer(p, x, cache, pos: torch.Tensor, cfg: ModelConfig, spec: LayerSp
     else:
         h, cache["kv"] = attn_mod.decode_attention(p["attn"], h, cache["kv"], pos, cfg, spec,
                                                    angles)
+        h = _post_norm(p, "ln1_post", h, cfg)
     x = x + h
     if spec.cross_attn:
         h = apply_norm(p["ln_cross"], x, cfg)
         x = x + attn_mod.decode_cross_attention(p["cross"], h, cache["enc_kv"], cfg)
     return _ffn(p, x, cfg, spec), cache
+
+
+def embed_scale(cfg: ModelConfig) -> float:
+    """sqrt(d_model) rounded to the activations' dtype, as the reference's
+    ``jnp.asarray(cfg.d_model**0.5, x.dtype)`` (``repro/models/
+    transformer.py:420, 475``): in bf16 sqrt(2560) is 50.5 and sqrt(3584)
+    59.75.  That value is exact in fp32, so ``x * embed_scale(cfg)``, which
+    PyTorch computes in fp32 and rounds once, gives the reference's product
+    of two bf16 values bit for bit, where ``x * d**0.5`` would multiply by
+    the unrounded root."""
+    return torch.tensor(cfg.d_model**0.5, dtype=dtype_of(cfg)).item()
 
 
 def init_program_cache(cfg: ModelConfig, program, batch: int, max_seq: int, dtype, device):
@@ -276,6 +307,12 @@ class Model:
         ``jax.eval_shape(self.init, ...)``), for tracing a step."""
         return self.init(ShapeOnly(), dtype)
 
+    def _embed(self, params, tokens):
+        """Token embeddings in the activations' dtype, scaled by
+        ``embed_scale`` where the config says so."""
+        x = embed_tokens(params["embed"], tokens, self.cfg)
+        return x * embed_scale(self.cfg) if self.cfg.scale_embed else x
+
     def _angles(self, positions):
         """RoPE angles at the rotated head dim: MLA's qk_rope, else head_dim."""
         cfg = self.cfg
@@ -304,7 +341,7 @@ class Model:
         if any(spec.attn == "mla" or spec.ffn == "moe" for spec in specs):
             raise NotImplementedError(f"{cfg.name} training {NOT_TRAINED_ZOO}")
         tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = self._embed(params, tokens)
         B, S = tokens.shape
         angles = self._angles(torch.arange(S, device=tokens.device).expand(B, S))
         for p, spec in zip(params["blocks"], specs):
@@ -331,7 +368,7 @@ class Model:
         """Forward the prompt, return (last-position logits [B,1,V], filled cache)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = self._embed(params, tokens)
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         angles = self._angles(positions)
@@ -351,7 +388,7 @@ class Model:
         reads ``pos`` on the host, so a step costs no sync and traces once
         for every position, as the reference's does with an int32 scalar."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], tokens, cfg)
+        x = self._embed(params, tokens)
         pos = position_tensor(pos, tokens.device)
         angles = self._angles(pos.expand(tokens.shape))
         for p, c, spec in zip(params["blocks"], cache, layer_specs(cfg.program)):

@@ -1,12 +1,13 @@
 """The flash kernel's two variants (repro_torch.kernels.flash_attention).
 
 ``variant(dtype, hd)`` alone decides which CUDA kernel runs: ``wgmma`` (bf16
-at head dim 64 or 128, tiles of 128 q rows by 128 keys) or ``simt``
-(everything else).  The tile decides what a row with no live key outputs,
-so the plain version tiles as the chosen kernel does; here its bf16 path at
-the wgmma tile is held against the Pallas kernel (interpret mode) at
-block_q = block_k = 128 and against the JAX oracle, with the bf16 tolerance
-of tests/test_kernels.py.  The kernels themselves run only on the card
+at head dim 64 or 128, tiles of 128 q rows by 128 keys, and at head dim
+256, tiles of 128 q rows by 64 keys) or ``simt`` (everything else).  The
+tile decides what a row with no live key outputs, so the plain version
+tiles as the chosen kernel does; here its bf16 path at the wgmma tiles is
+held against the Pallas kernel (interpret mode) at the same block_q and
+block_k and against the JAX oracle, with the bf16 tolerance of
+tests/test_kernels.py.  The kernels themselves run only on the card
 (``chip_smoke.py``).
 """
 
@@ -43,7 +44,7 @@ def _f32(x):
     (torch.bfloat16, 128, ("wgmma", (128, 128))),
     (torch.bfloat16, 16, ("simt", (64, 64))),
     (torch.bfloat16, 96, ("simt", (64, 64))),
-    (torch.bfloat16, 256, ("simt", (32, 32))),
+    (torch.bfloat16, 256, ("wgmma", (128, 64))),
     (torch.float32, 64, ("simt", (64, 64))),
     (torch.float32, 128, ("simt", (64, 64))),
     (torch.float32, 256, ("simt", (32, 32))),
@@ -69,6 +70,44 @@ def test_bf16_plain_at_wgmma_tiles_matches_pallas(B, Sq, Sk, H, KV, hd, kw):
     kernel = jax_flash(qj, kj, vj, block_q=128, block_k=128, **kw)
     np.testing.assert_allclose(_f32(got), _f32(kernel), **TOL)
     np.testing.assert_allclose(_f32(got), _f32(jax_ref.mha_reference(qj, kj, vj, **kw)), **TOL)
+
+
+# Head dim 256 (gemma2-9b, gemma3-4b): the wgmma kernel's tiles of 128 q rows
+# by 64 keys, held to the Pallas kernel at block_q = 128, block_k = 64.
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,kw", [
+    (1, 256, 256, 4, 2, 256, dict(causal=True)),                            # GQA
+    (1, 256, 256, 2, 2, 256, dict(causal=True, window=100)),
+    (1, 256, 256, 4, 2, 256, dict(causal=True, softcap=50.0, scale=224.0**-0.5)),  # gemma2
+    (1, 128, 256, 4, 1, 256, dict(causal=False)),                           # MQA, Sq < Sk
+], ids=["gqa", "window", "softcap-scale", "mqa-unmasked"])
+def test_bf16_plain_at_hd256_wgmma_tiles_matches_pallas(B, Sq, Sk, H, KV, hd, kw):
+    (qj, kj, vj), (qt, kt, vt) = _inputs(B * Sq + Sk + hd, B, Sq, Sk, H, KV, hd)
+    assert (variant(qt.dtype, hd), block_shape(qt.dtype, hd)) == ("wgmma", (128, 64))
+    got = ops.flash_mha(qt, kt, vt, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == qt.shape
+    kernel = jax_flash(qj, kj, vj, block_q=128, block_k=64, **kw)
+    np.testing.assert_allclose(_f32(got), _f32(kernel), **TOL)
+    np.testing.assert_allclose(_f32(got), _f32(jax_ref.mha_reference(qj, kj, vj, **kw)), **TOL)
+
+
+def test_rows_without_live_keys_follow_the_hd256_tile():
+    """Sq > Sk with a window of 32, bf16 at hd 256: the 128-row q tile from 128
+    meets only live k tile 1 (keys 64-127), so its rows from 159 on, whose
+    keys are all masked, average those 64 keys' values; the q tile from 256
+    meets no live tile and outputs 0.  With 128-key tiles those rows would
+    average all 128 keys, and with the SIMT kernel's 32-row tiles rows
+    160-255 would give 0: the Pallas kernel at block_q 128, block_k 64
+    decides."""
+    (qj, kj, vj), (qt, kt, vt) = _inputs(9, 1, 384, 128, 2, 1, 256)
+    got = ops.flash_mha(qt, kt, vt, causal=True, window=32)
+    kernel = jax_flash(qj, kj, vj, causal=True, window=32, block_q=128, block_k=64)
+    np.testing.assert_allclose(_f32(got), _f32(kernel), **TOL)
+    mean_v = vt[0, 64:, 0].float().mean(0)
+    assert (mean_v - vt[0, :, 0].float().mean(0)).abs().max() > 0.1
+    for r in (159, 200, 255):
+        for h in range(2):
+            np.testing.assert_allclose(_f32(got[0, r, h]), mean_v.numpy(), **TOL)
+    assert not got[:, 256:].any()
 
 
 @pytest.mark.parametrize("Sq,Sk,causal", [(300, 300, True), (200, 330, False)])

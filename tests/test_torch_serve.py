@@ -217,12 +217,12 @@ def test_entry_point_defaults_to_cuda():
 def test_registry():
     assert list_archs() == [ARCH, "mamba2-370m", "deepseek-v2-lite-16b",
                             "llama4-maverick-400b-a17b", "hymba-1.5b", "starcoder2-7b",
-                            "whisper-large-v3"]
+                            "whisper-large-v3", "gemma3-4b", "gemma2-9b"]
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
             full.d_ff, full.vocab_size) == (36, 2560, 32, 8, 128, 9728, 151_936)
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("gemma2-9b")
+        get_config("qwen2-vl-7b")
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "llama4-maverick-400b-a17b"])
@@ -304,8 +304,6 @@ def test_serve_deepseek_smoke_with_and_without_plans(tmp_path, capsys):
 # encoder-decoder reads: a decoder-only model with it would serve the
 # tokens alone.
 UNPORTED = {
-    "sandwich-norms": {"sandwich_norms": True},
-    "scale-embed": {"scale_embed": True},
     "mrope": {"mrope_sections": (2, 3, 3)},
     "vision-frontend": {"frontend": "vision_stub"},
     "audio-frontend-decoder-only": {"frontend": "audio_stub"},
@@ -317,6 +315,47 @@ def test_unported_layers_raise(change):
     cfg = get_smoke_config(ARCH)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 10"):
         build_model(cfg.reduced(**change), "cpu").init_shapes()
+
+
+# Config fields that raised until the gemmas were ported: qwen3-4b's smoke
+# model with each alone now builds and serves the reference's function
+# (tests/test_torch_gemma.py holds the two gemmas themselves).
+FORMERLY_UNPORTED = {
+    "sandwich-norms": {"sandwich_norms": True},
+    "scale-embed": {"scale_embed": True},
+}
+
+
+@pytest.mark.parametrize("change", list(FORMERLY_UNPORTED.values()),
+                         ids=list(FORMERLY_UNPORTED))
+def test_formerly_unported_fields_match_jax(change):
+    """Prefill of a B2 prompt of 12 and 2 decode steps in fp32 against the JAX
+    model within 1e-5, on random norm scales (so that ``ln1_post`` and
+    ``ln2_post`` weigh), with the greedy tokens equal."""
+    jcfg = jax_smoke_config(ARCH).reduced(dtype="float32", **change)
+    tcfg = get_smoke_config(ARCH).reduced(dtype="float32", **change)
+    jmodel = jax_build_model(jcfg)
+    rng = np.random.default_rng(11)
+    jparams = jax.tree_util.tree_map_with_path(
+        lambda path, a: (1.0 + 0.3 * rng.standard_normal(a.shape)).astype(np.float32)
+        if jax.tree_util.keystr(path).endswith("['scale']") else np.asarray(a),
+        jmodel.init(jax.random.PRNGKey(0)))
+    tmodel = build_model(tcfg, "cpu")
+    tparams = params_from_jax(jparams, tcfg, "cpu")
+    assert ("ln1_post" in tparams["blocks"][0]) == bool(tcfg.sandwich_norms)
+    B, P, steps = 2, 12, 2
+    tokens = np.random.default_rng(3).integers(0, tcfg.vocab_size, (B, P))
+    jlogits, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens, jnp.int32)},
+                                     max_seq=P + steps)
+    tlogits, tcache = tmodel.prefill(tparams, {"tokens": torch.from_numpy(tokens)}, P + steps)
+    for i in range(steps):
+        assert _rel(tlogits, jlogits) < 1e-5, f"step {i}"
+        jtok = np.array(jnp.argmax(jlogits[:, -1], axis=-1))[:, None]
+        np.testing.assert_array_equal(tlogits[:, -1].argmax(-1, keepdim=True).numpy(), jtok)
+        jlogits, jcache = jmodel.decode_step(jparams, jcache, jnp.asarray(jtok, jnp.int32),
+                                             jnp.int32(P + i))
+        tlogits, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(jtok), P + i)
+    assert _rel(tlogits, jlogits) < 1e-5
 
 
 # ------------------------------------------------------------ import hygiene
