@@ -55,9 +55,14 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               the simt kernel, which ran that head dim before, timed beside
               each on the same inputs, the LSE case at hd 256, and the
               padding probe at 1100 keys (17 tiles of 64 and one of 12);
+              and qwen2-vl-7b's prefill (B4 S520 H28 KV4 hd128 causal: 8
+              patches before a prompt of 512, groups of 7, a last 128-row
+              tile of 8 rows) with its RMSNorm rows [2080, 3584] and
+              [4, 3584];
   4. parity   qwen3-4b's, mamba2-370m's, deepseek-v2-lite-16b's,
               hymba-1.5b's, starcoder2-7b's, whisper-large-v3's, gemma3-4b's
-              and gemma2-9b's widths in fp32 (one layer of each program
+              gemma2-9b's and qwen2-vl-7b's widths in fp32 (one layer of
+              each program
               segment,
               or the one segment's unit twice: deepseek's dense layer, then an
               MoE layer; hymba's five hybrid layers, global and window in
@@ -65,7 +70,11 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               the SSD; whisper's two encoder and two decoder layers over the
               full 1500 frames; each gemma's window layer, then a global
               one, gemma3 at prompt 1100, which wraps its ring of 1024,
-              gemma2 at 256): prefill + 4 decode steps through the kernels on the
+              gemma2 at 256; qwen2-vl's two layers over 8 patches and 256
+              text tokens, at M-RoPE positions whose channels differ:
+              patch i at (t, h, w) = (0, i // 4, i % 4), text token j at
+              its own index in all three, decode after them): prefill + 4
+              decode steps through the kernels on the
               card against the plain path on the CPU, logits and every
               layer's cache (whisper's cross K/V too), and at each MoE call the routing equal (expert
               ids and ranks), its smallest top-k margin above NEAR_TIE
@@ -89,7 +98,11 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               batch 4, prompt 2048, 32 tokens, and on the full gemma2-9b (42
               layers, window 4096 in every other one, softcap 50) at batch
               4, prompt 512, 32 tokens, each with its cache's bytes beside
-              the arithmetic; with the kernels'
+              the arithmetic, and on the full qwen2-vl-7b (28 layers, M-RoPE,
+              8 patch embeddings before the prompt) at batch 4, prompt 512,
+              32 tokens, with its cache of 1568 slots (512 + 32 + 1024
+              patch tokens, the reference's) beside the arithmetic; with
+              the kernels'
               launch counts set to 0
               just before each run and read just after it, exactly, by
               variant (every flash launch ``wgmma``, every SSD launch
@@ -99,13 +112,15 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               own, beside the weights' bytes;
   6. profile  where the time goes: each served model's prefill and decode
               steps, warm, timed untraced (16 decode steps) and then traced
-              with torch.profiler (prefill and 4 decode steps; the top kernels, and each of the port's own kernels by name:
+              with torch.profiler (prefill and TRACED_DECODE_STEPS decode
+              steps; the top kernels, and each of the port's own kernels by name:
               the tc SSD is two, its C B^T prepass and the scan; the device
               time by op, the port's ``repro_torch`` operators among them;
               for deepseek the MoE dispatch's sort, scatter and gather ops
               against its expert GEMMs; hymba's, starcoder2's, whisper's
-              and the gemmas' too, whisper's encoder also timed alone; the seconds each part
-              of the phase took, the profiler's parse included);
+              and the gemmas' and qwen2-vl's too, whisper's encoder also
+              timed alone; the seconds each part of the phase took, the
+              profiler's parse included);
   7. planner  the figures the port's ``H100_SXM`` HardwareSpec prices swaps
               with, measured: pinned host<->device copy rates of 256 MiB,
               one direction at a time and both at once on two streams (the
@@ -159,7 +174,7 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               batch (the drop must be at least 90% of the 36 layer inputs);
               and a warm step traced with the plan, beside phase 10's: the
               copies' time each way and how much of it lies beside compute;
- 12. serve plans  ``serve.main --plan --plan-cache`` on phase 5's eight cells:
+ 12. serve plans  ``serve.main --plan --plan-cache`` on phase 5's nine cells:
               launch counts by variant and greedy tokens equal to phase 5's
               (planning launches nothing; decode takes 0-d device positions),
               each step's vars, w, chi/w and AutoSwap@80%; w against the
@@ -194,12 +209,14 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               1024, the SSM states and conv tails) against the arithmetic and
               the allocator's count, then 4 decode steps at its last
               positions: exact launch counts, finite logits, ms a step, the
-              peak.
+              peak;
+ 15. example  ``examples/serve_batched_torch.py`` on the card: three smoke
+              models, each served twice, the tokens equal.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the main paths, the serve runs, plain
 and planned, the train runs, plain and with the offload plan, the CNN
-phase and the long decode, with each path's own count in
+phase, the long decode and the example, with each path's own count in
 ``launches_by_path``), the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
 """
@@ -827,8 +844,10 @@ def phase_kernels():
         rmsnorm_case((8192, 2560), bf16, gen, "vector"),
         rmsnorm_case((65536, 256), bf16, gen, "vector"),
         rmsnorm_case((2048, 3584), bf16, gen, "vector"),
-        rmsnorm_case((4, 3584), bf16, gen, "vector"),
+        rmsnorm_case((4, 3584), bf16, gen, "vector"),      # and qwen2-vl-7b's decode
         rmsnorm_case((32, 256), bf16, gen, "vector"),
+        # qwen2-vl-7b at prefill B4, 8 patches and a prompt of 512: ln1, ln2
+        rmsnorm_case((2080, 3584), bf16, gen, "vector"),
     ]
     flash = [
         flash_case(4, 512, 512, 32, 8, 128, bf16, gen),            # qwen3-4b prefill
@@ -874,6 +893,9 @@ def phase_kernels():
                    scale=224.0**-0.5),
         flash_case(1, 200, 200, 4, 1, 256, bf16, gen),
         flash_case(1, 384, 128, 2, 1, 256, bf16, gen, window=32),
+        # qwen2-vl-7b prefill B4, 8 patches before a prompt of 512: 28 heads in
+        # 4 groups of 7, S 520, whose last 128-row tile holds 8 rows
+        flash_case(4, 520, 520, 28, 4, 128, bf16, gen),
     ]
     ssd = [
         ssd_case(4, 2048, 32, 64, 1, 128, bf16, gen, "tc", "views"),  # mamba2 prefill
@@ -975,12 +997,25 @@ def _routed(record):
     return ids.tolist(), record["rank"].cpu().gather(-1, perm).tolist(), record["capacity"]
 
 
+def grid_positions(B: int, P: int, npatch: int) -> torch.Tensor:
+    """[3, B, npatch + P] int64 M-RoPE positions whose channels differ: patch
+    i at (t, h, w) = (0, i // 4, i % 4), text token j at npatch + j in all
+    three channels, so that decode continues at its cache slot.  With
+    ``serve_batch``'s arange in every channel M-RoPE is plain RoPE, and a
+    section taken from the wrong channel could not show."""
+    i = torch.arange(npatch)
+    pos = torch.cat([torch.stack([0 * i, i // 4, i % 4]),
+                     torch.arange(npatch, npatch + P).expand(3, P)], dim=1)
+    return pos[:, None].expand(3, B, npatch + P).contiguous()
+
+
 def phase_parity(arch: str, P: int, tail: int | None = None):
     """``depth_cut(arch, tail)`` on the card against the CPU: prefill of a B1
-    prompt of ``P`` tokens (and an encoder-decoder's frames), then 4 greedy
-    decode steps."""
+    prompt of ``P`` tokens (after a vision model's patches, at
+    ``grid_positions``, and beside an encoder-decoder's frames), then 4
+    greedy decode steps."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.serve import serve_batch, serve_lengths, serve_patches
     from repro_torch.models import build_model, moe
     from repro_torch.models.convert import to_device
 
@@ -991,11 +1026,15 @@ def phase_parity(arch: str, P: int, tail: int | None = None):
     p_gpu = to_device(p_cpu, "cuda")
     steps = 4
     batch = serve_batch(cfg, 1, P, 0, "cpu")
+    npatch = serve_patches(cfg)
+    if npatch:
+        batch["positions"] = grid_positions(1, P, npatch)
+    max_seq, pos0 = serve_lengths(cfg, P, steps)
     routing = {"cpu": [], "cuda": []}
     with moe.routing_hook(routing["cpu"].append):
-        l_cpu, c_cpu = cpu.prefill(p_cpu, batch, max_seq=P + steps)
+        l_cpu, c_cpu = cpu.prefill(p_cpu, batch, max_seq=max_seq)
     with moe.routing_hook(routing["cuda"].append):
-        l_gpu, c_gpu = gpu.prefill(p_gpu, to_device(batch, "cuda"), max_seq=P + steps)
+        l_gpu, c_gpu = gpu.prefill(p_gpu, to_device(batch, "cuda"), max_seq=max_seq)
 
     def rel(a, b):
         return ((a.cpu().float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -1005,9 +1044,9 @@ def phase_parity(arch: str, P: int, tail: int | None = None):
         tok_cpu = l_cpu[:, -1].argmax(-1, keepdim=True)
         same += int(torch.equal(l_gpu[:, -1].argmax(-1, keepdim=True).cpu(), tok_cpu))
         with moe.routing_hook(routing["cpu"].append):
-            l_cpu, c_cpu = cpu.decode_step(p_cpu, c_cpu, tok_cpu, P + i)
+            l_cpu, c_cpu = cpu.decode_step(p_cpu, c_cpu, tok_cpu, pos0 + i)
         with moe.routing_hook(routing["cuda"].append):
-            l_gpu, c_gpu = gpu.decode_step(p_gpu, c_gpu, tok_cpu.cuda(), P + i)
+            l_gpu, c_gpu = gpu.decode_step(p_gpu, c_gpu, tok_cpu.cuda(), pos0 + i)
         worst = max(worst, rel(l_gpu, l_cpu))
     # every leaf of every layer's cache: kv {k, v}, MLA kv {c_kv, k_rope}, ssm
     # {state, conv} or enc_kv {k, v}
@@ -1035,6 +1074,9 @@ def phase_parity(arch: str, P: int, tail: int | None = None):
     if cfg.is_encoder_decoder:
         kinds = (f"encoder {sum(len(u) * r for u, r in cfg.enc_program)} unmasked layers over "
                  f"{cfg.enc_seq} frames; decoder {kinds}")
+    if npatch:
+        kinds += (f"; M-RoPE {cfg.mrope_sections}, {npatch} patches on a 2x4 (h, w) grid "
+                  f"first, decode from position {pos0}")
     print(f"[4] parity {arch} widths, {cfg.num_layers} layers ({kinds}), "
           f"fp32, B1 P{P} + {steps} decode steps: "
           f"max rel logit diff {worst:.3e}, max rel cache diff {cache_err:.3e} "
@@ -1199,8 +1241,10 @@ def phase_serve(arch: str, B: int, P: int, G: int, want: dict[str, int]):
           f"launches {counts}, "
           f"main() wall {wall:.1f}s (init included)")
     require(counts == want, f"{arch}: launch counts {counts}, want {want}")
-    if cfg.is_encoder_decoder or any(spec.window for spec in layer_specs(cfg.program)):
-        print_cache_bytes("5", cfg, B, P + G, served, "the cache prefill returned on the card")
+    if cfg.is_encoder_decoder or cfg.frontend or any(spec.window
+                                                     for spec in layer_specs(cfg.program)):
+        print_cache_bytes("5", cfg, B, serve.serve_lengths(cfg, P, G)[0], served,
+                          "the cache prefill returned on the card")
     require(tuple(gen.shape) == (B, G), f"generated shape {tuple(gen.shape)}")
     require(int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size, "token out of range")
     return counts, gen, decode_s / (G - 1) * 1e3
@@ -1601,14 +1645,15 @@ def phase_serve_plans(arch: str, B: int, P: int, G: int, want: dict[str, int], p
 
     # w beside the card's peak for one warm call of each step.
     model = build_model(cfg, "cuda")
-    planners = {role: serve.serve_step_planner(model, arch, role, B, P, P + G, False,
+    max_seq, pos0 = serve.serve_lengths(cfg, P, G)
+    planners = {role: serve.serve_step_planner(model, arch, role, B, P, max_seq, False,
                                                str(PLAN_DIR)) for role in ("prefill", "decode")}
     params = model.init(torch.Generator("cuda").manual_seed(0))
     batch = serve.serve_batch(cfg, B, P, 0, "cuda")
-    positions = torch.arange(P, P + G, device="cuda")
+    positions = torch.arange(pos0, pos0 + G, device="cuda")
 
     def prefill():
-        logits, cache = model.prefill(params, batch, max_seq=P + G)
+        logits, cache = model.prefill(params, batch, max_seq=max_seq)
         return logits[:, -1].argmax(-1, keepdim=True), cache
 
     def real_peak(fn, *args):
@@ -1649,10 +1694,10 @@ def phase_serve_plans(arch: str, B: int, P: int, G: int, want: dict[str, int], p
                                       f"{peaks[role]} B")
 
     # The decode step traced at two positions (0-d CUDA tensors).
-    kv = init_program_cache(cfg, cfg.program, B, P + G, dtype_of(cfg), "meta")
+    kv = init_program_cache(cfg, cfg.program, B, max_seq, dtype_of(cfg), "meta")
     tok_meta = torch.empty((B, 1), dtype=torch.long, device="meta")
     traced = []
-    for pos in (P, P + G - 2):
+    for pos in (pos0, pos0 + G - 2):
         t0 = time.perf_counter()
         tr = trace_step_fn(build_serve_step(model, cfg), model.init_shapes(), kv, tok_meta,
                            torch.tensor(pos, device="cuda"))
@@ -2018,6 +2063,10 @@ def moe_breakdown(prof, cfg, tokens: int) -> str:
     return "; ".join(f"{g} {ms:.2f}ms ({n} calls)" for g, (ms, n) in by.items()) or "none"
 
 
+# Phase 6's traced decode steps a model (``phase_profile``).
+TRACED_DECODE_STEPS = 2
+
+
 def phase_profile(arch: str, B: int, P: int, G: int):
     """Where the time goes in the served model: a warm prefill and warm decode
     steps at the serve phase's shapes, timed untraced over ``steps`` decode
@@ -2027,23 +2076,24 @@ def phase_profile(arch: str, B: int, P: int, G: int):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.serve import serve_batch, serve_lengths
     from repro_torch.models import build_model
 
     cfg = get_config(arch)
-    steps, traced_steps = 16, 4
+    steps, traced_steps = 16, TRACED_DECODE_STEPS
     t0 = time.perf_counter()
     model = build_model(cfg, "cuda")
     params = model.init(torch.Generator("cuda").manual_seed(0))
     batch = serve_batch(cfg, B, P, 0, "cuda")
+    max_seq, pos0 = serve_lengths(cfg, P, G)
 
     def prefill():
-        logits, cache = model.prefill(params, batch, max_seq=P + G)
+        logits, cache = model.prefill(params, batch, max_seq=max_seq)
         return logits[:, -1].argmax(-1, keepdim=True), cache
 
     def decode(tok, cache, steps=steps):
         for i in range(steps):
-            logits, cache = model.decode_step(params, cache, tok, P + i)
+            logits, cache = model.decode_step(params, cache, tok, pos0 + i)
             tok = logits[:, -1].argmax(-1, keepdim=True)
         return tok
 
@@ -2448,6 +2498,39 @@ def zero_byte_nodes(gm) -> Counter:
     return out
 
 
+EXAMPLE = Path(__file__).resolve().parent / "examples" / "serve_batched_torch.py"
+
+
+def phase_example() -> dict[str, int]:
+    """``examples/serve_batched_torch.py`` on the card, as a user runs it:
+    qwen3-4b's, gemma3-4b's and mamba2-370m's smoke models (fp32: flash and
+    the SSD ``simt``, RMSNorm ``vector``) each served twice, its own
+    assertion that the two runs' tokens are equal.  -> launch counts."""
+    import importlib.util
+
+    from repro_torch.kernels import ops
+
+    spec = importlib.util.spec_from_file_location("serve_batched_torch", EXAMPLE)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    release_memory("15")
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        gens = example.main([])
+    counts = ops.launch_counts()
+    print("[15] example serve_batched_torch.py on the card:")
+    for line in out.getvalue().strip().splitlines():
+        print(f"  {line}")
+    print(f"  launches {counts}")
+    require(out.getvalue().strip().endswith("deterministic across repeats: OK"),
+            "example: no determinism line")
+    require(sorted(gens) == sorted(example.ARCHS), f"example served {sorted(gens)}")
+    require(counts["rmsnorm"] > 0 and counts["flash_attention"] > 0 and counts["ssd_scan"] > 0,
+            f"example: a kernel was not launched {counts}")
+    return counts
+
+
 def mma_count(build, lib: str, ops: tuple[str, ...]) -> int:
     """Instructions of the SASS of library ``lib`` whose opcode is one of
     ``ops`` (HGMMA: warpgroup MMA; HMMA: warp MMA), by the cuobjdump of the
@@ -2532,6 +2615,11 @@ def main() -> int:
         t4 = time.perf_counter()
         phase_parity(arch, P, tail=2)
         print(f"[4] {arch} parity took {time.perf_counter() - t4:.1f}s")
+    # qwen2-vl's two layers at half its served prompt, after its 8 patches at
+    # M-RoPE positions whose channels differ.
+    t4 = time.perf_counter()
+    phase_parity("qwen2-vl-7b", 256)
+    print(f"[4] qwen2-vl-7b parity took {time.perf_counter() - t4:.1f}s")
     # Launches over 32 forwards (prefill and 31 decode steps): qwen3-4b runs
     # flash once a layer in prefill, RMSNorm 4 times a layer (ln1, ln2,
     # q-norm, k-norm) plus the final norm in every forward; mamba2-370m runs
@@ -2550,7 +2638,9 @@ def main() -> int:
     # layer in prefill (29 with the window) and RMSNorm 6 times a layer (ln1,
     # q-norm, k-norm, ln1_post, ln2, ln2_post) plus the final norm in every
     # forward, gemma2-9b flash once a layer (softcap 50) and RMSNorm 4 times
-    # a layer (no qk-norm) plus the final norm.  Everything is bf16 with
+    # a layer (no qk-norm) plus the final norm; qwen2-vl-7b flash once a
+    # layer in prefill (over its 8 patches and the prompt) and RMSNorm twice
+    # a layer (ln1, ln2) plus the final norm.  Everything is bf16 with
     # widths that take 16-byte vectors: flash at head dim 64, 128 or 256 is
     # the wgmma variant, the SSD the tc variant, RMSNorm the vector variant.
     def want(rms, flash, ssd, rms_bwd=0, flash_bwd=0):
@@ -2569,7 +2659,8 @@ def main() -> int:
                   "starcoder2-7b": (512, want(0, 32, 0)),
                   "whisper-large-v3": (128, want(0, 32 + 2 * 32, 0)),
                   "gemma3-4b": (2048, want((6 * 34 + 1) * 32, 34, 0)),
-                  "gemma2-9b": (512, want((4 * 42 + 1) * 32, 42, 0))}
+                  "gemma2-9b": (512, want((4 * 42 + 1) * 32, 42, 0)),
+                  "qwen2-vl-7b": (512, want((2 * 28 + 1) * 32, 28, 0))}
     paths, served = {}, {}
     for arch, (P, counts) in serve_want.items():
         t5 = time.perf_counter()
@@ -2662,6 +2753,10 @@ def main() -> int:
     paths["decode hymba-1.5b long_500k"] = phase_long_decode(
         "hymba-1.5b", 524_288, long_steps, want((5 * 32 + 1) * long_steps, 0, 0))
     print(f"[14] long decode phase took {time.perf_counter() - t14:.1f}s")
+
+    t15 = time.perf_counter()
+    paths["example serve_batched"] = phase_example()
+    print(f"[15] example phase took {time.perf_counter() - t15:.1f}s")
 
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA

@@ -1,9 +1,10 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
-The port carries qwen3-4b, mamba2-370m, deepseek-v2-lite-16b,
-llama4-maverick-400b-a17b, hymba-1.5b, starcoder2-7b, whisper-large-v3,
-gemma3-4b and gemma2-9b so far; the other of the JAX package's registry is
-named here so that asking for it says why it is missing.
+The port carries every architecture of the JAX package's registry:
+qwen3-4b, mamba2-370m, deepseek-v2-lite-16b, llama4-maverick-400b-a17b,
+hymba-1.5b, starcoder2-7b, whisper-large-v3, gemma3-4b, gemma2-9b and
+qwen2-vl-7b.  ``NOT_PORTED`` names any that it lacks, so that asking for
+one says why it is missing; it is empty.
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ ARCHS: dict[str, str] = {
     "whisper-large-v3": "whisper_large_v3",
     "gemma3-4b": "gemma3_4b",
     "gemma2-9b": "gemma2_9b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
 }
 
-NOT_PORTED = ("qwen2-vl-7b",)
+NOT_PORTED: tuple[str, ...] = ()
 
 
 def _module(arch: str):

@@ -3,12 +3,15 @@
 Counterpart of ``repro/configs/specs.py``: ``input_specs(cfg, shape)``
 returns the keyword arguments of the step a cell runs (the loss for
 ``train``, prefill, or a decode step), as meta tensors: shapes and dtypes,
-no memory.  ``core.trace`` traces a step at them.  Token ids are int64, the
-port's (``repro_torch.data``); the reference's are int32.  The port has
-the dense, MoE, Mamba-2 and hybrid families, which take tokens only, so the
-reference's VLM patch embeddings and encoder frames raise, naming ROADMAP
-queue A item 10.  ``cache_specs`` gives a decode cell's cache: for hymba's
-long_500k, full caches in its 3 global layers, window rings in the rest.
+no memory.  ``core.trace`` traces a step at them.  Token ids and
+positions are int64, the port's (``repro_torch.data``); the reference's
+are int32.  An encoder-decoder's cell takes the frames in the config's
+dtype beside the tokens; a vision cell (qwen2-vl) takes
+``num_patch_tokens`` patch embeddings in the config's dtype, the text
+tokens that fill the rest of the sequence, and the [3, B, S] (t/h/w)
+positions, as the reference's (its ``:42-45``).  ``cache_specs`` gives a
+decode cell's cache: for hymba's long_500k, full caches in its 3 global
+layers, window rings in the rest.
 """
 
 from __future__ import annotations
@@ -16,9 +19,6 @@ from __future__ import annotations
 import torch
 
 from .base import SHAPES, ModelConfig, ShapeSpec
-
-NOT_PORTED = "is not yet ported, see ROADMAP.md queue A item 10"
-
 
 def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
@@ -34,20 +34,28 @@ def supports_shape(cfg: ModelConfig, shape: str) -> bool:
 
 
 def input_specs(cfg: ModelConfig, shape: str) -> dict:
-    """{"batch": {["frames", ]"tokens"[, "labels"]}} for train and prefill
-    cells; {"tokens", "pos"} for decode, where ``pos`` is the 0-d integer
-    tensor the port's ``decode_step`` takes (the reference's int32 scalar)."""
+    """{"batch": {["frames", ]"tokens"[, "patch_embeds", "positions"][,
+    "labels"]}} for train and prefill cells; {"tokens", "pos"} for decode,
+    where ``pos`` is the 0-d integer tensor the port's ``decode_step`` takes
+    (the reference's int32 scalar).  A vision cell's labels take the text
+    tokens' shape, [B, S - num_patch_tokens]."""
     sp: ShapeSpec = SHAPES[shape]
     B, S = sp.global_batch, sp.seq_len
-    if cfg.frontend == "vision_stub":
-        raise NotImplementedError(f"{cfg.name}'s inputs ({cfg.frontend}) {NOT_PORTED}")
+    act = getattr(torch, cfg.dtype)
     if sp.kind in ("train", "prefill"):
         batch = {}
         if cfg.is_encoder_decoder:
-            batch["frames"] = _meta((B, cfg.enc_seq, cfg.d_model), getattr(torch, cfg.dtype))
-        batch["tokens"] = _meta((B, S), torch.long)
+            batch["frames"] = _meta((B, cfg.enc_seq, cfg.d_model), act)
+            batch["tokens"] = _meta((B, S), torch.long)
+        elif cfg.frontend == "vision_stub":
+            npatch = cfg.num_patch_tokens
+            batch["tokens"] = _meta((B, S - npatch), torch.long)
+            batch["patch_embeds"] = _meta((B, npatch, cfg.d_model), act)
+            batch["positions"] = _meta((3, B, S), torch.long)
+        else:
+            batch["tokens"] = _meta((B, S), torch.long)
         if sp.kind == "train":
-            batch["labels"] = _meta((B, S), torch.long)
+            batch["labels"] = _meta(tuple(batch["tokens"].shape), torch.long)
         return {"batch": batch}
     return {"tokens": _meta((B, 1), torch.long), "pos": _meta((), torch.long)}
 

@@ -87,7 +87,8 @@ def build_tenant_program(arch: str, role: str, args, cache: PlanCache | None) ->
         return step_planner(model, arch, args.batch, args.seq, args.smoke, cache,
                             size_threshold=serve.SIZE_THRESHOLD)
     B, P = args.batch, args.prompt_len
-    return serve.serve_step_planner(model, arch, role, B, P, P + args.gen, args.smoke, cache)
+    max_seq, _ = serve.serve_lengths(cfg, P, args.gen)
+    return serve.serve_step_planner(model, arch, role, B, P, max_seq, args.smoke, cache)
 
 
 def print_colocation(result: ColocationResult) -> None:

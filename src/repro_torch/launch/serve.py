@@ -6,9 +6,15 @@ random parameters drawn from ``torch.Generator(device)`` seeded with
 the reference draws them with ``jax.random``, whose bits PyTorch cannot
 reproduce, so the two entry points serve different prompts from the same
 seed.  An encoder-decoder (whisper-large-v3) also takes the audio stub's
-frames [B, enc_seq, d_model] fp32: the reference serves zeros; here they
-are standard normal draws from the same generator after the tokens, so the
-batch's rows differ and the encoder computes more than its positions.
+frames [B, enc_seq, d_model] fp32, and a vision model (qwen2-vl-7b) the
+vision stub's patch embeddings [B, min(num_patch_tokens, 8), d_model] fp32
+before the prompt, with [3, B, npatch + P] positions, the reference's
+arange in all three channels.  The reference serves zero frames and
+patches; here they are standard normal draws from the same generator after
+the tokens, so the batch's rows differ and the encoder, or the attention
+over the patches, computes more than its positions.  As the reference's,
+the cache of a vision model holds ``P + gen + num_patch_tokens`` slots and
+decode starts at position ``P + npatch`` (``serve_lengths``).
 Runs on CUDA unless ``--device cpu`` is given, and raises on a host
 without CUDA rather than falling back.  On the card, RMSNorm, prefill
 attention (with the layer's window; the encoder's and cross attention
@@ -51,6 +57,8 @@ Usage:
       --batch 4 --prompt-len 2048 --gen 32 [--plan] [--plan-cache build/plans]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
       --batch 4 --prompt-len 512 --gen 32 [--plan] [--plan-cache build/plans]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \\
+      --batch 4 --prompt-len 512 --gen 32 [--plan] [--plan-cache build/plans]
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --batch 2 --prompt-len 16 --gen 4 --plan-cache /tmp/plans --colocate
 """
@@ -74,17 +82,36 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def serve_patches(cfg) -> int:
+    """The patch embeddings a serving batch holds before the prompt: the
+    reference's min(num_patch_tokens, 8) for the vision stub, else 0."""
+    return min(cfg.num_patch_tokens, 8) if cfg.frontend == "vision_stub" else 0
+
+
+def serve_lengths(cfg, P: int, G: int) -> tuple[int, int]:
+    """(the cache's max_seq, the first decode position) of a serve of a
+    prompt of ``P`` tokens and ``G`` new ones: (P + G, P); for the vision
+    stub (P + G + num_patch_tokens, P + serve_patches(cfg)), the first
+    position after the patches and the prompt, as the reference's (its
+    ``:129, 186``)."""
+    if cfg.frontend != "vision_stub":
+        return P + G, P
+    return P + G + cfg.num_patch_tokens, P + serve_patches(cfg)
+
+
 def serve_batch_struct(cfg, B: int, P: int) -> dict:
     """Shape and dtype of one serving batch as meta tensors: the single
     source of truth shared by the planner (fake-tensor trace) and ``main``
-    (real tensors, ``serve_batch``).  The tokens, and for an
-    encoder-decoder the frames [B, enc_seq, d_model] fp32, as the
-    reference's (its ``:42-43``)."""
-    if cfg.frontend == "vision_stub":
-        raise NotImplementedError(
-            f"{cfg.name}'s serving inputs ({cfg.frontend}) are not yet ported: see ROADMAP.md "
-            f"queue A item 10")
+    (real tensors, ``serve_batch``).  The tokens; for the vision stub the
+    patch embeddings [B, serve_patches(cfg), d_model] fp32 and the
+    positions [3, B, npatch + P] int64; for an encoder-decoder the frames
+    [B, enc_seq, d_model] fp32, as the reference's (its ``:38-43``)."""
     batch = {"tokens": torch.empty((B, P), dtype=torch.long, device="meta")}
+    npatch = serve_patches(cfg)
+    if npatch:
+        batch["patch_embeds"] = torch.empty((B, npatch, cfg.d_model), dtype=torch.float32,
+                                            device="meta")
+        batch["positions"] = torch.empty((3, B, npatch + P), dtype=torch.long, device="meta")
     if cfg.is_encoder_decoder:
         batch["frames"] = torch.empty((B, cfg.enc_seq, cfg.d_model), dtype=torch.float32,
                                       device="meta")
@@ -94,14 +121,19 @@ def serve_batch_struct(cfg, B: int, P: int) -> dict:
 def serve_batch(cfg, B: int, P: int, seed: int, device) -> dict:
     """One serving batch of ``serve_batch_struct``'s shapes on ``device``:
     tokens uniform over the vocabulary from ``numpy.random.default_rng(seed
-    + 1)``, then from the same generator the frames, standard normal."""
+    + 1)``, then from the same generator the patches or the frames,
+    standard normal; the positions the reference's arange in all three
+    channels (its ``:172-175``)."""
     rng = np.random.default_rng(seed + 1)
     batch = {}
     for name, t in serve_batch_struct(cfg, B, P).items():
+        shape = tuple(t.shape)
         if name == "tokens":
-            a = rng.integers(0, cfg.vocab_size, tuple(t.shape))
+            a = rng.integers(0, cfg.vocab_size, shape)
+        elif name == "positions":
+            a = np.broadcast_to(np.arange(shape[-1]), shape).copy()
         else:
-            a = rng.standard_normal(tuple(t.shape), dtype=np.float32)
+            a = rng.standard_normal(shape, dtype=np.float32)
         batch[name] = torch.from_numpy(a).to(device)
     return batch
 
@@ -210,7 +242,7 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, device)
     B, P = args.batch, args.prompt_len
-    max_seq = P + args.gen
+    max_seq, pos0 = serve_lengths(cfg, P, args.gen)
 
     if args.plan or args.plan_cache or args.colocate:
         from repro_torch.plan import PlanCache
@@ -258,7 +290,7 @@ def main(argv=None):
     _sync(device)
     print(f"prefill: {B}x{P} in {time.perf_counter() - t0:.4f}s")
 
-    positions = torch.arange(P, P + args.gen, device=device)
+    positions = torch.arange(pos0, pos0 + args.gen, device=device)
     out_tokens = [next_tok]
     t0 = time.perf_counter()
     for i in range(args.gen - 1):

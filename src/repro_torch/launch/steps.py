@@ -27,8 +27,11 @@ def build_train_step(model, cfg: ModelConfig, *, lr: float = 3e-4, remat: bool =
                      remat_policy=None, accum_steps: int = 1):
     """(params, opt_state, batch, step) -> (params, opt_state, metrics).
 
-    ``batch`` holds [B, S] int tensors; with ``accum_steps`` > 1 it is cut
-    into that many micro-batches along B, as the reference's reshape does.
+    ``batch`` holds [B, S] int tensors (and a vision stub's patches [B,
+    npatch, D] and M-RoPE positions [3, B, S]); with ``accum_steps`` > 1 it
+    is cut into that many micro-batches along B, as the reference's reshape
+    does, the positions along their axis 1 (the reference's reshape cuts
+    their axis 0, the three channels, which fails).
     ``remat_policy`` (``OffloadPlan.policy()``, or None for plain remat)
     goes to ``Model.loss``, which applies it per layer under ``remat``.
     metrics: the last micro-batch's model metrics, the mean ``loss`` and
@@ -38,13 +41,14 @@ def build_train_step(model, cfg: ModelConfig, *, lr: float = 3e-4, remat: bool =
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
-        B = next(iter(batch.values())).shape[0]
+        B = batch["tokens"].shape[0]
         if B % accum_steps:
             raise ValueError(f"batch {B} does not split into {accum_steps} micro-batches")
         mb = B // accum_steps
         loss_sum = None
         for i in range(accum_steps):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            rows = slice(i * mb, (i + 1) * mb)
+            micro = {k: v[:, rows] if k == "positions" else v[rows] for k, v in batch.items()}
             loss, metrics = model.loss(params, micro, remat=remat, remat_policy=remat_policy)
             loss.backward()
             loss = loss.detach()

@@ -71,13 +71,30 @@ from repro_torch.models import build_model
 from repro_torch.optim import adamw_init
 
 
+def vision_inputs(cfg, batch: int, seq: int, device) -> dict:
+    """The vision stub's inputs of a training batch, as the reference's
+    ``make_batch_fn`` (its ``:53-58``): zero patch embeddings [batch,
+    min(num_patch_tokens, 8), d_model] fp32 and the arange over the patches
+    and the text in all three channels [3, batch, npatch + seq] int64;
+    nothing for another frontend."""
+    if cfg.frontend != "vision_stub":
+        return {}
+    npatch = min(cfg.num_patch_tokens, 8)
+    S = npatch + seq
+    return {"patch_embeds": torch.zeros(batch, npatch, cfg.d_model, device=device),
+            "positions": torch.arange(S, device=device).expand(3, batch, S)}
+
+
 def make_batch_fn(cfg, batch: int, seq: int, seed: int, device):
-    """step -> {"tokens", "labels"} [batch, seq] int64 on ``device``."""
+    """step -> {"tokens", "labels"} [batch, seq] int64 on ``device``, with
+    ``vision_inputs`` where the config has the vision stub."""
     ds = SyntheticTokens(cfg.vocab_size, seq, batch, seed=seed)
+    extra = vision_inputs(cfg, batch, seq, device)
 
     def at(step: int) -> dict:
-        return {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
-                for k, v in ds.batch_at(step).items()}
+        b = {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
+             for k, v in ds.batch_at(step).items()}
+        return dict(b, **extra)
 
     return at
 
@@ -95,6 +112,7 @@ def step_planner(model, arch: str, batch: int, seq: int, smoke: bool, plan_cache
 
     probe = {k: torch.empty(batch, seq, dtype=torch.long, device="meta")
              for k in ("tokens", "labels")}
+    probe.update(vision_inputs(model.cfg, batch, seq, "meta"))
     pshapes = model.init_shapes(torch.float32)
 
     def step_probe(params, batch):

@@ -1,6 +1,8 @@
-"""Rotary position embeddings (counterpart of ``repro/models/rope.py``).
+"""Rotary position embeddings: standard RoPE and M-RoPE (qwen2-vl)
+(counterpart of ``repro/models/rope.py``).
 
-M-RoPE (qwen2-vl) arrives with the VLM slice.
+Positions are explicit everywhere so that decode (single position), prefill
+(arange) and M-RoPE (3-channel t/h/w positions) share one code path.
 """
 
 from __future__ import annotations
@@ -28,6 +30,24 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.T
     """positions [...] -> angles [..., head_dim/2] (fp32)."""
     inv = rope_freqs(head_dim, theta, positions.device)
     return positions.float()[..., None] * inv
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, int, int]) -> torch.Tensor:
+    """M-RoPE: positions [3, ...] (t/h/w) -> angles [..., head_dim/2] (fp32).
+
+    The frequency spectrum is partitioned into ``sections`` (in units of
+    freq pairs, summing to head_dim/2); each section takes its position from
+    the corresponding channel (reference ``rope.py:25-44``).  Text tokens
+    carry identical t/h/w positions, which makes M-RoPE coincide with RoPE
+    for them."""
+    assert sum(sections) == head_dim // 2, (sections, head_dim)
+    full = rope_angles(positions, head_dim, theta)  # [3, ..., half]
+    chunks, start = [], 0
+    for ch, width in enumerate(sections):
+        chunks.append(full[ch, ..., start:start + width])
+        start += width
+    return torch.cat(chunks, dim=-1)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,11 @@ prefill and decode, after full or window attention only (never after MLA,
 Mamba-2 or the hybrid mixer), as the reference's ``prefill_layer`` and
 ``decode_layer`` do.  With ``cfg.scale_embed`` the token embeddings are
 multiplied by sqrt(d_model) rounded to their dtype first (``embed_scale``).
+With ``cfg.mrope_sections`` (qwen2-vl) the rotary angles are M-RoPE's,
+each section of the spectrum taken from its channel of the [3, B, S]
+(t/h/w) positions; with ``cfg.frontend="vision_stub"`` the batch's patch
+embeddings come before the text's, as the reference's ``_embed_inputs``
+puts them, and the loss pads the labels with -1 over them.
 ``models/encdec.py`` runs these layers as
 whisper's encoder (``causal=False``) and decoder.  A hybrid
 layer (hymba) runs attention and a Mamba-2 mixer on the same normed input
@@ -61,18 +66,13 @@ from .layers import (
     lm_logits,
     rmsnorm,
 )
-from .rope import position_tensor, rope_angles
+from .rope import mrope_angles, position_tensor, rope_angles
 
 
 NOT_TRAINED = ("is not yet ported: it needs the SSD scan's gradient, see ROADMAP.md queue B "
                "item 3 (B3b)")
 # Layer kinds that run a Mamba-2 mixer.
 SSM_KINDS = ("mamba", "hybrid")
-# Config fields whose function the port does not compute yet (qwen2-vl's
-# M-RoPE, the vision frontend): a config that sets one raises rather than
-# serving another function.  The audio stub's frames are ``EncDecModel``'s
-# input, so only that class lets ``frontend="audio_stub"`` through.
-UNPORTED_FIELDS = ("mrope_sections", "frontend")
 NOT_TRAINED_ZOO = ("is not yet ported: MLA and MoE training (with the aux loss) come with "
                    "ROADMAP.md queue A item 10")
 
@@ -90,14 +90,18 @@ def layer_specs(program: tuple[Segment, ...]) -> list[LayerSpec]:
 
 
 def check_config(cfg: ModelConfig, program: tuple[Segment, ...],
-                 frontend: str | None = None) -> None:
+                 frontend: str | None = None, mrope: bool = False) -> None:
     """Raise NotImplementedError on a config field or a layer of ``program``
-    that the port does not compute; ``frontend`` names the one frontend the
-    caller consumes."""
-    for name in UNPORTED_FIELDS:
-        value = getattr(cfg, name)
-        if value and not (name == "frontend" and value == frontend):
-            raise NotImplementedError(f"{cfg.name}: {name}={value!r} {NOT_PORTED}")
+    that the caller does not compute, rather than serve another function:
+    ``frontend`` names the one frontend the caller consumes (the vision
+    stub's patches ``Model``'s, the audio stub's frames ``EncDecModel``'s),
+    ``mrope`` says whether it computes M-RoPE (``EncDecModel``'s sinusoids
+    take no rotary angles)."""
+    if cfg.mrope_sections and not mrope:
+        raise NotImplementedError(f"{cfg.name}: mrope_sections={cfg.mrope_sections!r} "
+                                  f"{NOT_PORTED}")
+    if cfg.frontend and cfg.frontend != frontend:
+        raise NotImplementedError(f"{cfg.name}: frontend={cfg.frontend!r} {NOT_PORTED}")
     for spec in layer_specs(program):
         _check_spec(spec)
 
@@ -277,7 +281,7 @@ class Model:
 
     def __post_init__(self):
         self.device = torch.device(self.device)
-        check_config(self.cfg, self.cfg.program)
+        check_config(self.cfg, self.cfg.program, frontend="vision_stub", mrope=True)
         if any(spec.cross_attn for spec in layer_specs(self.cfg.program)):
             raise ValueError(f"{self.cfg.name}: cross-attention layers read an encoder's "
                              f"output; build an encoder-decoder (models.build_model)")
@@ -307,27 +311,56 @@ class Model:
         ``jax.eval_shape(self.init, ...)``), for tracing a step."""
         return self.init(ShapeOnly(), dtype)
 
-    def _embed(self, params, tokens):
-        """Token embeddings in the activations' dtype, scaled by
-        ``embed_scale`` where the config says so."""
+    def _embed(self, params, tokens, patches=None):
+        """Token embeddings in the activations' dtype, after the vision
+        stub's ``patches`` [B, npatch, D] where given (cast to that dtype),
+        all scaled by ``embed_scale`` where the config says so, as the
+        reference's ``_embed_inputs`` (``repro/models/transformer.py:
+        413-421``)."""
         x = embed_tokens(params["embed"], tokens, self.cfg)
+        if patches is not None:
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
         return x * embed_scale(self.cfg) if self.cfg.scale_embed else x
 
+    def _patches(self, batch):
+        """The batch's patch embeddings where the config's vision stub reads
+        them, else None."""
+        return batch.get("patch_embeds") if self.cfg.frontend == "vision_stub" else None
+
+    def _embed_inputs(self, params, batch):
+        """tokens (+ the vision stub's patch embeddings) -> (x [B, S, D],
+        positions): the batch's ``positions`` ([3, B, S] for M-RoPE) where
+        it has them, else the arange over the whole sequence, [B, S], or in
+        all three channels for M-RoPE as ``decode_step`` puts its position
+        (the reference's [B, S] would index the batch as the channels)."""
+        x = self._embed(params, batch["tokens"], self._patches(batch))
+        positions = batch.get("positions")
+        if positions is None:
+            shape = x.shape[:2] if self.cfg.mrope_sections is None else (3, *x.shape[:2])
+            positions = torch.arange(x.shape[1], device=x.device).expand(shape)
+        return x, positions
+
     def _angles(self, positions):
-        """RoPE angles at the rotated head dim: MLA's qk_rope, else head_dim."""
+        """RoPE angles at the rotated head dim: MLA's qk_rope, else head_dim;
+        M-RoPE's from [3, ...] positions where the config has sections."""
         cfg = self.cfg
         if cfg.num_heads == 0:  # attention-free (mamba2)
             return None
         hd = cfg.qk_rope_head_dim if cfg.kv_lora_rank else cfg.head_dim
+        if cfg.mrope_sections is not None:
+            return mrope_angles(positions, hd, cfg.rope_theta, cfg.mrope_sections)
         return rope_angles(positions, hd, cfg.rope_theta)
 
     # ---- training ----
     def loss(self, params, batch, remat: bool = True, remat_policy=None):
-        """Mean next-token CE of ``batch`` {"tokens", "labels"} [B, S] int ->
-        (loss, {"ce", "aux"}).  As the reference's, position i is scored
-        against labels[i + 1], and the data's labels are already the tokens
-        shifted by one, so position i learns token i + 2 (ROADMAP queue C).
-        ``remat`` recomputes each layer in backward
+        """Mean next-token CE of ``batch`` {"tokens", "labels"} [B, S] int
+        (with a vision stub's "patch_embeds" and "positions", as prefill
+        takes them) -> (loss, {"ce", "aux"}).  The labels are padded with
+        -1, which the loss ignores, over the patches, as the reference's
+        (``repro/models/transformer.py:440-444``).  As the reference's,
+        position i is scored against labels[i + 1], and the data's labels
+        are already the tokens shifted by one, so position i learns token
+        i + 2 (ROADMAP queue C).  ``remat`` recomputes each layer in backward
         (``torch.utils.checkpoint``), so only its input is kept.  With
         ``remat``, a ``remat_policy`` (``OffloadPlan.policy()``, an
         ``OffloadPolicy``) runs each layer instead, offloading and saving
@@ -340,10 +373,8 @@ class Model:
                                       f"{NOT_TRAINED}")
         if any(spec.attn == "mla" or spec.ffn == "moe" for spec in specs):
             raise NotImplementedError(f"{cfg.name} training {NOT_TRAINED_ZOO}")
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        B, S = tokens.shape
-        angles = self._angles(torch.arange(S, device=tokens.device).expand(B, S))
+        x, positions = self._embed_inputs(params, batch)
+        angles = self._angles(positions)
         for p, spec in zip(params["blocks"], specs):
             if remat and remat_policy is not None:
                 x = remat_policy.run_layer(partial(train_layer, p, cfg=cfg, spec=spec,
@@ -354,7 +385,12 @@ class Model:
             else:
                 x = train_layer(p, x, cfg, spec, angles)
         x = apply_norm(params["final_norm"], x, cfg)
-        ce = chunked_softmax_xent(x[:, :-1], params["embed"], batch["labels"][:, 1:], cfg)
+        labels = batch["labels"]
+        patches = self._patches(batch)
+        if patches is not None:
+            labels = torch.cat([labels.new_full((labels.shape[0], patches.shape[1]), -1),
+                                labels], dim=1)
+        ce = chunked_softmax_xent(x[:, :-1], params["embed"], labels[:, 1:], cfg)
         # The dense family has no auxiliary loss: the reference's ce + 0.01 * 0.
         return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
@@ -365,14 +401,13 @@ class Model:
         )
 
     def prefill(self, params, batch, max_seq: int | None = None):
-        """Forward the prompt, return (last-position logits [B,1,V], filled cache)."""
+        """Forward the prompt (the vision stub's patches first, where the
+        batch has them), return (last-position logits [B,1,V], filled
+        cache)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
-        B, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        x, positions = self._embed_inputs(params, batch)
         angles = self._angles(positions)
-        max_seq = max_seq or S
+        max_seq = max_seq or x.shape[1]
         cache = []
         for p, spec in zip(params["blocks"], layer_specs(cfg.program)):
             x, c = prefill_layer(p, x, cfg, spec, angles, max_seq)
@@ -386,11 +421,14 @@ class Model:
         """tokens [B,1] int, pos a 0-d integer tensor (or an int, made one on
         tokens' device) -> (logits [B,1,V], cache updated in place).  Nothing
         reads ``pos`` on the host, so a step costs no sync and traces once
-        for every position, as the reference's does with an int32 scalar."""
+        for every position, as the reference's does with an int32 scalar.
+        For M-RoPE the one position stands in all three channels ([3, B,
+        1]), as the reference's (``repro/models/transformer.py:479-481``)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         pos = position_tensor(pos, tokens.device)
-        angles = self._angles(pos.expand(tokens.shape))
+        shape = tokens.shape if cfg.mrope_sections is None else (3, *tokens.shape)
+        angles = self._angles(pos.expand(shape))
         for p, c, spec in zip(params["blocks"], cache, layer_specs(cfg.program)):
             x, _ = decode_layer(p, x, c, pos, cfg, spec, angles)
         x = apply_norm(params["final_norm"], x, cfg)

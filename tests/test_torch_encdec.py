@@ -169,7 +169,10 @@ def test_serving_cache_bytes_by_kind():
 def test_specs_match_the_reference():
     """A prefill cell takes the frames in the activation dtype beside the
     tokens, as the reference's specs say; a decode cell's cache holds the
-    cross K/V."""
+    cross K/V.  A vision cell (qwen2-vl-7b) takes 1024 patch embeddings in
+    the activation dtype, the text tokens that fill the rest of the
+    sequence and [3, B, S] positions, int64 where the reference's are
+    int32, its train cell labels of the tokens' shape."""
     cfg, jcfg = get_config(ARCH), jax_config(ARCH)
     got = specs.input_specs(cfg, "prefill_32k")["batch"]
     want = jax_specs.input_specs(jcfg, "prefill_32k")["batch"]
@@ -181,8 +184,19 @@ def test_specs_match_the_reference():
     cache = specs.cache_specs(build_model(smoke, "cpu"), smoke, "decode_32k")
     assert all(tuple(t.shape) == (128, smoke.num_kv_heads, smoke.enc_seq, smoke.head_dim)
                for layer in cache for t in layer["enc_kv"].values())
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        specs.input_specs(cfg.reduced(frontend="vision_stub"), "prefill_32k")
+    vl, jvl = get_config("qwen2-vl-7b"), jax_config("qwen2-vl-7b")
+    for shape in ("prefill_32k", "train_4k"):
+        got = specs.input_specs(vl, shape)["batch"]
+        want = jax_specs.input_specs(jvl, shape)["batch"]
+        assert got.keys() == want.keys()
+        assert {k: tuple(t.shape) for k, t in got.items()} == \
+            {k: tuple(t.shape) for k, t in want.items()}
+        B, S = specs.SHAPES[shape].global_batch, specs.SHAPES[shape].seq_len
+        assert tuple(got["tokens"].shape) == (B, S - 1024)
+        assert tuple(got["patch_embeds"].shape) == (B, 1024, 3584)
+        assert tuple(got["positions"].shape) == (3, B, S)
+        assert {k: t.dtype for k, t in got.items()} == {
+            k: torch.bfloat16 if k == "patch_embeds" else torch.long for k in want}
 
 
 # ------------------------------------------------------ module by module

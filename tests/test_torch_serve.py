@@ -215,14 +215,26 @@ def test_entry_point_defaults_to_cuda():
 
 
 def test_registry():
+    """Every architecture of the reference's registry, in its order of
+    porting, none left in ``NOT_PORTED``; qwen3-4b's and qwen2-vl-7b's
+    widths."""
+    from repro.configs import list_archs as jax_list_archs
+    from repro_torch.configs import NOT_PORTED
+
     assert list_archs() == [ARCH, "mamba2-370m", "deepseek-v2-lite-16b",
                             "llama4-maverick-400b-a17b", "hymba-1.5b", "starcoder2-7b",
-                            "whisper-large-v3", "gemma3-4b", "gemma2-9b"]
+                            "whisper-large-v3", "gemma3-4b", "gemma2-9b", "qwen2-vl-7b"]
+    assert sorted(list_archs()) == sorted(jax_list_archs()) and NOT_PORTED == ()
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
             full.d_ff, full.vocab_size) == (36, 2560, 32, 8, 128, 9728, 151_936)
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_config("qwen2-vl-7b")
+    vl = get_config("qwen2-vl-7b")
+    assert (vl.num_layers, vl.d_model, vl.num_heads, vl.num_kv_heads, vl.head_dim, vl.d_ff,
+            vl.vocab_size, vl.mrope_sections, vl.rope_theta, vl.frontend, vl.num_patch_tokens,
+            vl.tie_embeddings) == (28, 3584, 28, 4, 128, 18944, 152_064, (16, 24, 24), 1e6,
+                                   "vision_stub", 1024, False)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("qwen2-vl-72b")
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "llama4-maverick-400b-a17b"])
@@ -298,14 +310,11 @@ def test_serve_deepseek_smoke_with_and_without_plans(tmp_path, capsys):
     assert len(list(tmp_path.glob("*.json"))) == 2
 
 
-# Layer kinds and config fields the port does not compute yet: each must
-# raise (at build, or at init where the layer's weights are made) rather
-# than serve another function.  The audio stub's frames only an
-# encoder-decoder reads: a decoder-only model with it would serve the
-# tokens alone.
+# Layer kinds and config fields the port does not compute: each must raise
+# (at build, or at init where the layer's weights are made) rather than
+# serve another function.  The audio stub's frames only an encoder-decoder
+# reads: a decoder-only model with it would serve the tokens alone.
 UNPORTED = {
-    "mrope": {"mrope_sections": (2, 3, 3)},
-    "vision-frontend": {"frontend": "vision_stub"},
     "audio-frontend-decoder-only": {"frontend": "audio_stub"},
 }
 
@@ -317,13 +326,30 @@ def test_unported_layers_raise(change):
         build_model(cfg.reduced(**change), "cpu").init_shapes()
 
 
-# Config fields that raised until the gemmas were ported: qwen3-4b's smoke
-# model with each alone now builds and serves the reference's function
-# (tests/test_torch_gemma.py holds the two gemmas themselves).
+# Config fields that raised until the gemmas, then qwen2-vl, were ported:
+# qwen3-4b's smoke model with each alone now builds and serves the
+# reference's function (tests/test_torch_gemma.py and
+# tests/test_torch_qwen2vl.py hold the models themselves).
 FORMERLY_UNPORTED = {
     "sandwich-norms": {"sandwich_norms": True},
     "scale-embed": {"scale_embed": True},
+    "mrope": {"mrope_sections": (2, 3, 3)},
+    "vision-frontend": {"frontend": "vision_stub"},
 }
+
+
+def _field_inputs(cfg, B: int, P: int, rng):
+    """The batch entries that a formerly unported field reads, as numpy,
+    and the sequence's length S: for the vision stub 8 patch embeddings
+    drawn standard normal before the P tokens, for M-RoPE random [3, B, S]
+    positions whose channels differ."""
+    extra, S = {}, P
+    if cfg.frontend == "vision_stub":
+        extra["patch_embeds"] = rng.standard_normal((B, 8, cfg.d_model), dtype=np.float32)
+        S += 8
+    if cfg.mrope_sections:
+        extra["positions"] = rng.integers(0, 64, (3, B, S))
+    return extra, S
 
 
 @pytest.mark.parametrize("change", list(FORMERLY_UNPORTED.values()),
@@ -331,7 +357,11 @@ FORMERLY_UNPORTED = {
 def test_formerly_unported_fields_match_jax(change):
     """Prefill of a B2 prompt of 12 and 2 decode steps in fp32 against the JAX
     model within 1e-5, on random norm scales (so that ``ln1_post`` and
-    ``ln2_post`` weigh), with the greedy tokens equal."""
+    ``ln2_post`` weigh), with the greedy tokens equal.  The vision stub's
+    8 patches, drawn standard normal, come before the prompt (positions
+    the arange over both); M-RoPE's prefill positions are random in each
+    of the three channels, so a section taken from the wrong channel
+    shows.  Decode continues after the patches and the prompt."""
     jcfg = jax_smoke_config(ARCH).reduced(dtype="float32", **change)
     tcfg = get_smoke_config(ARCH).reduced(dtype="float32", **change)
     jmodel = jax_build_model(jcfg)
@@ -344,17 +374,23 @@ def test_formerly_unported_fields_match_jax(change):
     tparams = params_from_jax(jparams, tcfg, "cpu")
     assert ("ln1_post" in tparams["blocks"][0]) == bool(tcfg.sandwich_norms)
     B, P, steps = 2, 12, 2
-    tokens = np.random.default_rng(3).integers(0, tcfg.vocab_size, (B, P))
-    jlogits, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens, jnp.int32)},
-                                     max_seq=P + steps)
-    tlogits, tcache = tmodel.prefill(tparams, {"tokens": torch.from_numpy(tokens)}, P + steps)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, tcfg.vocab_size, (B, P))
+    extra, S = _field_inputs(tcfg, B, P, rng)
+    jlogits, jcache = jmodel.prefill(
+        jparams, {"tokens": jnp.asarray(tokens, jnp.int32),
+                  **{k: jnp.asarray(v, jnp.int32 if k == "positions" else jnp.float32)
+                     for k, v in extra.items()}}, max_seq=S + steps)
+    tlogits, tcache = tmodel.prefill(
+        tparams, {"tokens": torch.from_numpy(tokens),
+                  **{k: torch.from_numpy(v) for k, v in extra.items()}}, S + steps)
     for i in range(steps):
         assert _rel(tlogits, jlogits) < 1e-5, f"step {i}"
         jtok = np.array(jnp.argmax(jlogits[:, -1], axis=-1))[:, None]
         np.testing.assert_array_equal(tlogits[:, -1].argmax(-1, keepdim=True).numpy(), jtok)
         jlogits, jcache = jmodel.decode_step(jparams, jcache, jnp.asarray(jtok, jnp.int32),
-                                             jnp.int32(P + i))
-        tlogits, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(jtok), P + i)
+                                             jnp.int32(S + i))
+        tlogits, tcache = tmodel.decode_step(tparams, tcache, torch.from_numpy(jtok), S + i)
     assert _rel(tlogits, jlogits) < 1e-5
 
 

@@ -122,13 +122,14 @@ def _decode_events(cfg, model, pos, device="cpu"):
     return [(int(e.kind), e.var, e.size, e.index) for e in em.events], ops
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("qwen2-vl-7b",))
 def test_traced_decode_does_not_depend_on_the_position(arch):
     """The decode step traced at two positions (real 0-d tensors, which the
     tracer makes fake) gives the same events as at a position of no value
     (a meta tensor), on fake CPU and fake CUDA tensors alike (a host
     without CUDA traces the latter too), and its graph holds no host read
-    of a tensor (``aten._local_scalar_dense``)."""
+    of a tensor (``aten._local_scalar_dense``); qwen2-vl's M-RoPE expands
+    the position to [3, B, 1] on the device."""
     cfg = get_smoke_config(arch)
     model = build_model(cfg, "cpu")
     first, ops = _decode_events(cfg, model, torch.tensor(P))
@@ -281,12 +282,32 @@ def test_serve_without_cuda_raises_unless_asked_for_the_cpu(plan, monkeypatch):
 
 
 def test_unported_frontends_raise_naming_the_roadmap():
-    """The vision stub's patch embeddings raise; an encoder-decoder's batch
-    holds the audio stub's frames fp32 beside the tokens, as the
-    reference's does."""
-    cfg = get_smoke_config("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        serve.serve_batch_struct(cfg.reduced(frontend="vision_stub", num_patch_tokens=8), B, P)
+    """A vision model's batch holds the vision stub's patch embeddings fp32
+    and the [3, B, npatch + P] int64 positions beside the tokens, and an
+    encoder-decoder's the audio stub's frames fp32, as the reference's
+    ``serve_batch_struct`` (int32 there) says; the batch ``serve_batch``
+    makes has those shapes, the positions the arange in every channel."""
+    from repro_torch.configs import get_config
+
+    for cfg, npatch in ((get_smoke_config("qwen2-vl-7b"), 8),
+                        (get_config("qwen2-vl-7b"), 8),
+                        (get_smoke_config("qwen3-4b").reduced(frontend="vision_stub",
+                                                              num_patch_tokens=3), 3)):
+        batch = serve.serve_batch_struct(cfg, B, P)
+        want = {"tokens": ((B, P), torch.long),
+                "patch_embeds": ((B, npatch, cfg.d_model), torch.float32),
+                "positions": ((3, B, npatch + P), torch.long)}
+        assert {k: (tuple(t.shape), t.dtype) for k, t in batch.items()} == want
+        ref = R_serve.serve_batch_struct(cfg, B, P)
+        assert {k: tuple(t.shape) for k, t in ref.items()} == {k: w[0] for k, w in want.items()}
+    smoke = get_smoke_config("qwen2-vl-7b")
+    made = serve.serve_batch(smoke, B, P, 0, "cpu")
+    assert {k: (tuple(t.shape), t.dtype) for k, t in made.items()} == \
+        {k: (tuple(t.shape), t.dtype) for k, t in serve.serve_batch_struct(smoke, B, P).items()}
+    assert torch.equal(made["positions"], torch.arange(8 + P).expand(3, B, 8 + P))
+    assert serve.serve_lengths(smoke, P, GEN) == (P + GEN + 8, P + 8)
+    assert serve.serve_lengths(get_config("qwen2-vl-7b"), 512, 32) == (1568, 520)
+    assert serve.serve_lengths(get_smoke_config("qwen3-4b"), P, GEN) == (P + GEN, P)
     whisper = get_smoke_config("whisper-large-v3")
     batch = serve.serve_batch_struct(whisper, B, P)
     assert {k: (tuple(t.shape), t.dtype) for k, t in batch.items()} == {
