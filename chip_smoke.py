@@ -116,8 +116,8 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               steps; the top kernels, and each of the port's own kernels by name:
               the tc SSD is two, its C B^T prepass and the scan; the device
               time by op, the port's ``repro_torch`` operators among them;
-              for deepseek the MoE dispatch's sort, scatter and gather ops
-              against its expert GEMMs; hymba's, starcoder2's, whisper's
+              for deepseek the MoE dispatch's ops (found by their input
+              shapes) against its expert GEMMs; hymba's, starcoder2's, whisper's
               and the gemmas' and qwen2-vl's too, whisper's encoder also
               timed alone; the seconds each part of the phase took, the
               profiler's parse included);
@@ -152,7 +152,8 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               printed beside them, held to no limit: AdamW's first update
               is nearly lr sign(g), so gradients near 0 that the two sums
               round apart may move 2 lr apart, the whole range of the
-              update);
+              update; ``phase_train_parity``, which phase 16 (a) runs on
+              deepseek-v2-lite-16b's widths);
   9. train    ``repro_torch.launch.train.main`` on the full qwen3-4b (36
               layers, fp32 masters, bf16 compute, per-layer remat, chunked
               loss, AdamW) at batch 4, seq 512, 5 steps, after the memory
@@ -160,7 +161,9 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               tokens/s, the peak beside the 64.36 GB of fp32 state and
               under the card's memory, and exact launch counts by variant;
  10. profile  a warm train step timed, then traced (top kernels, the port's
-              kernels by name, the device's idle share);
+              kernels by name, the device's idle share), then timed in two
+              parts with CUDA events (the loss with its backward, then
+              ``adamw_step``);
  11. offload  AutoSwap's plan executed: the loss step of phase 9's shape
               traced and planned under ``H100_SXM`` at half its peak load w
               (rounded down to 0.01 GiB), where ``OffloadLowering`` must
@@ -213,12 +216,49 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
  15. example  ``examples/serve_batched_torch.py`` on the card: three smoke
               models, each served twice, the tokens equal.
 
+ 16. train deepseek  deepseek-v2-lite-16b trained at every published width
+              (64 experts top-6, 2 shared, MLA with kv_lora 512, vocab
+              102,400, the untied head), each part after the memory of the
+              earlier ones is dropped:
+              (a) one train step of its dense layer and one MoE layer in
+              fp32 (B1 S128) on the card against the CPU, as phase 8, with
+              the aux loss, and the routing of the MoE call equal on the
+              two sides, its smallest top-k margin above NEAR_TIE times
+              their largest router probability difference;
+              (b) the dense layer and MOE_LAYERS MoE layers (3,424,678,912
+              parameters, 54.79 GB of fp32 state) through the training
+              launcher's own loop (``train.train``) at B4 S512 for 5
+              steps: finite losses with ce and aux, ms a step, tokens/s,
+              the peak beside the
+              state's arithmetic and under the card's memory, exact launch
+              counts by variant (RMSNorm 37 forward and 19 backward a step,
+              all ``vector``; no flash, no SSD);
+              (c) a warm step timed, traced (top kernels, the port's
+              kernels, the idle share; the MoE dispatch's forward and
+              backward ops against the expert GEMMs; MLA's dense softmax
+              path) and timed in two parts, the loss with its backward and
+              ``adamw_step``;
+              (d) the loss, and the loss with its gradient under remat,
+              traced on fake tensors and planned under H100_SXM (w,
+              SmartPool chi/w, CnMem/w; the verifier and the artifact's
+              round trip fatal), each beside the real peak around one warm
+              call (the loss's w above it fails); then the training launcher's plan at
+              half the loss's w, rounded down to 0.01 GiB, which must name
+              a label, executed for (b)'s steps, seed and batches: losses
+              within 1e-6 relative of (b)'s, the same launch counts, and
+              exactly the layers x the names x one bf16 activation moved
+              each way a step;
+              (e) determinism: (a)'s gradients bit for bit in a second run
+              on the card, and the routing of every MoE layer's recompute
+              in backward equal to its forward's, under remat in (a) and
+              (b) and under the offload policy in (d).
+
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the main paths, the serve runs, plain
 and planned, the train runs, plain and with the offload plan, the CNN
-phase, the long decode and the example, with each path's own count in
-``launches_by_path``), the nvidia-smi
-line, and ``{"ok": true, "device": {...}}``.
+phase, the long decode, the example and deepseek's train runs, with each
+path's own count in ``launches_by_path``), the nvidia-smi line, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -924,6 +964,10 @@ def phase_kernels():
         rmsnorm_bwd_case((8192, 2048), bf16, gen, "vector"),  # mamba2's widths
         rmsnorm_bwd_case((8192, 1024), bf16, gen, "vector"),
         rmsnorm_bwd_case((8, 6144), f32, gen, "vector"),     # rows wider than a warp
+        # deepseek-v2-lite-16b training at B4 S512: ln1, ln2, the final norm;
+        # MLA's kv_norm over the 512-wide latent
+        rmsnorm_bwd_case((2048, 2048), bf16, gen, "vector"),
+        rmsnorm_bwd_case((2048, 512), bf16, gen, "vector"),
     ]
     flash_lse = [
         flash_lse_case(4, 512, 32, 8, 128, bf16, gen),       # qwen3-4b training forward
@@ -1098,47 +1142,67 @@ def phase_parity(arch: str, P: int, tail: int | None = None):
     require(torch.isfinite(l_gpu).all().item(), f"{arch}: non-finite logits in the parity run")
 
 
-def phase_train_parity(S: int):
-    """One train step of qwen3-4b's widths at depth 2 in fp32 (B1): the loss
-    and its gradients through ``Model.loss`` and ``torch.autograd.grad``,
+def phase_train_parity(arch: str, S: int):
+    """One train step of ``depth_cut(arch)`` in fp32 (B1; qwen3-4b: two of its
+    layers; deepseek-v2-lite-16b: its dense layer, then an MoE layer): the
+    loss and its gradients through ``Model.loss`` and ``torch.autograd.grad``,
     then ``adamw_step``, as ``build_train_step`` runs them; through the
     kernels on the card (forward and backward) against the plain path on the
     CPU, from the same fp32 masters and batch.  Each number is relative to
-    its leaf's max and held to PARITY_TOL: the loss; every gradient leaf;
-    and every parameter after the card's AdamW against the CPU's AdamW run
-    on the card's own gradients.  The parameters after the two devices'
-    whole steps are printed but held to no limit, since none would be
-    usable: AdamW's first update is lr g / (|g| + eps), nearly lr sign(g),
-    so an element whose gradient lies within the two sums' disagreement of
-    0 (most of the tied embedding's, ~1e-8) may move up to 2 lr apart, and
-    2 lr is the whole range of any first update."""
+    its leaf's max and held to PARITY_TOL: the loss (an MoE model's aux too);
+    every gradient leaf; and every parameter after the card's AdamW against
+    the CPU's AdamW run on the card's own gradients.  The parameters after
+    the two devices' whole steps are printed but held to no limit, since
+    none would be usable: AdamW's first update is lr g / (|g| + eps), nearly
+    lr sign(g), so an element whose gradient lies within the two sums'
+    disagreement of 0 (most of the tied embedding's, ~1e-8) may move up to
+    2 lr apart, and 2 lr is the whole range of any first update.
+
+    For an MoE model also: the routing of every MoE call equal on the two
+    sides (ids and ranks), its smallest top-k margin above NEAR_TIE times
+    their largest router probability difference (as phase 4); the routing
+    of each layer's recompute in backward (remat) equal to its forward's on
+    each side; and a second run on the card giving every gradient bit for
+    bit: the kept expert slots are distinct, so ``index_select``'s
+    ``index_add`` backward adds once to each kept row (the dropped pairs all
+    land on the spare row, which is discarded)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
     from repro_torch.models.convert import to_device
+    from repro_torch.models.transformer import layer_specs
     from repro_torch.optim import adamw_init, adamw_step
     from repro_torch.tree import map_tree, tree_leaves
 
-    full = get_config("qwen3-4b")
-    unit, _ = full.program[0]
-    cfg = full.reduced(num_layers=2, program=((unit, 2),), dtype="float32")
+    cfg = depth_cut(get_config(arch))
+    n_moe = sum(spec.ffn == "moe" for spec in layer_specs(cfg.program))
     lr = 3e-4  # build_train_step's default
     t0 = time.perf_counter()
     batch = {k: torch.from_numpy(v).long()
              for k, v in SyntheticTokens(cfg.vocab_size, S, 1, seed=0).batch_at(0).items()}
     p_init = build_model(cfg, "cpu").init(torch.Generator("cpu").manual_seed(0), torch.float32)
-    start = {"cpu": map_tree(torch.clone, p_init), "cuda": to_device(p_init, "cuda")}
-    out = {}
-    for dev, params in start.items():
+    runs = [("cpu", map_tree(torch.clone, p_init)), ("cuda", to_device(p_init, "cuda"))]
+    if n_moe:
+        runs.append(("cuda again", to_device(p_init, "cuda")))
+    out, routing = {}, {}
+    for tag, params in runs:
+        dev = tag.split()[0]
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
-        loss, _ = build_model(cfg, dev).loss(params, {k: v.to(dev) for k, v in batch.items()})
-        grads = list(torch.autograd.grad(loss, leaves))
+        routing[tag] = []
+        with moe.routing_hook(routing[tag].append):
+            loss, metrics = build_model(cfg, dev).loss(params,
+                                                       {k: v.to(dev) for k, v in batch.items()})
+            grads = list(torch.autograd.grad(loss, leaves))
         seen = [g.clone() for g in grads]  # adamw_step clips grads in place
-        _, _, om = adamw_step(leaves, grads, adamw_init(leaves), lr)
-        out[dev] = (loss.detach(), om["grad_norm"], seen, [t.detach() for t in leaves])
-    (loss_c, norm_c, g_c, p_c), (loss_g, norm_g, g_g, p_g) = out["cpu"], out["cuda"]
+        norm = None
+        if tag != "cuda again":  # the second card run checks the gradients only
+            norm = adamw_step(leaves, grads, adamw_init(leaves), lr)[2]["grad_norm"]
+        out[tag] = (loss.detach(), norm, seen, [t.detach() for t in leaves],
+                    metrics["aux"].detach())
+        del params, leaves, grads
+    (loss_c, norm_c, g_c, p_c, aux_c), (loss_g, norm_g, g_g, p_g, aux_g) = out["cpu"], out["cuda"]
 
     def rel(a, b):
         return ((a.cpu().float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -1151,19 +1215,63 @@ def phase_train_parity(S: int):
     direct_abs = max((p.cpu() - w).abs().max().item() for p, w in zip(p_g, p_c))
     near_zero = sum(int((gw.abs() <= (g.cpu() - gw).abs().max()).sum())
                     for g, gw in zip(g_g, g_c))
-    print(f"[8] train parity qwen3-4b widths, 2 layers, fp32, B1 S{S}, one step (Model.loss, "
-          f"autograd, adamw_step): loss {float(loss_g):.6f} (cpu {float(loss_c):.6f}), rel loss "
-          f"diff {loss_err:.3e}, max rel grad diff {grad_err:.3e} over {len(g_c)} leaves, max "
-          f"rel param diff after the card's AdamW against the CPU's AdamW on the card's "
-          f"gradients {update_err:.3e} (tol {PARITY_TOL:g} each); grad norm {float(norm_g):.4f} "
-          f"(cpu {float(norm_c):.4f}); for information, held to no limit: the two whole steps' "
-          f"params differ by {direct_abs:.3e} at most (AdamW's first update spans 2 lr = "
-          f"{2 * lr:g}), {near_zero} element(s) have a CPU gradient within its leaf's "
-          f"disagreement of 0; {time.perf_counter() - t0:.1f}s")
+    kinds = ", ".join(f"{spec.attn}+{spec.ffn}" for spec in layer_specs(cfg.program))
+    aux = ""
+    if n_moe:
+        aux_err = rel(aux_g, aux_c)
+        aux = (f"aux {float(aux_g):.6f} (cpu {float(aux_c):.6f}), rel aux diff {aux_err:.3e}, ")
+    print(f"[{'16a' if n_moe else '8'}] train parity {arch} widths, {cfg.num_layers} layers "
+          f"({kinds}), fp32, B1 S{S}, one step (Model.loss, autograd, adamw_step): loss "
+          f"{float(loss_g):.6f} (cpu {float(loss_c):.6f}), rel loss diff {loss_err:.3e}, {aux}max "
+          f"rel grad diff {grad_err:.3e} over {len(g_c)} leaves, max rel param diff after the "
+          f"card's AdamW against the CPU's AdamW on the card's gradients {update_err:.3e} (tol "
+          f"{PARITY_TOL:g} each); grad norm {float(norm_g):.4f} (cpu {float(norm_c):.4f}); for "
+          f"information, held to no limit: the two whole steps' params differ by "
+          f"{direct_abs:.3e} at most (AdamW's first update spans 2 lr = {2 * lr:g}), "
+          f"{near_zero} element(s) have a CPU gradient within its leaf's disagreement of 0; "
+          f"{time.perf_counter() - t0:.1f}s")
     require(math.isfinite(float(loss_g)), "train parity: non-finite loss on the card")
     require(loss_err < PARITY_TOL, f"train parity: loss differs by {loss_err:.3e}")
     require(grad_err < PARITY_TOL, f"train parity: a gradient differs by {grad_err:.3e}")
     require(update_err < PARITY_TOL, f"train parity: the card's AdamW differs by {update_err:.3e}")
+    if not n_moe:
+        return
+    require(aux_err < PARITY_TOL, f"train parity: the aux loss differs by {aux_err:.3e}")
+    k = cfg.top_k
+    fwd = {tag: recs[:n_moe] for tag, recs in routing.items()}
+    tops = [torch.topk(r["probs"], k + 1).values for r in fwd["cpu"]]
+    gaps = torch.cat([top[:, k - 1] - top[:, k] for top in tops])
+    margin = gaps.min().item()
+    drift = max((g["probs"].cpu() - c["probs"]).abs().max().item()
+                for g, c in zip(fwd["cuda"], fwd["cpu"]))
+    equal = [_routed(g) == _routed(c) for g, c in zip(fwd["cuda"], fwd["cpu"])]
+    recompute = {tag: [_routed(f) == _routed(r) for f, r in zip(recs[:n_moe],
+                                                                reversed(recs[n_moe:]))]
+                 for tag, recs in routing.items()}
+    g_again = out["cuda again"][2]
+    bitwise = sum(torch.equal(a, b) for a, b in zip(g_g, g_again))
+    kept = sum(int((r["rank"] < r["capacity"]).sum()) for r in fwd["cpu"])
+    pairs = sum(r["rank"].numel() for r in fwd["cpu"])
+    print(f"[16a] routing of {len(equal)} MoE call(s) equal on the card and the CPU "
+          f"{sum(equal)}/{len(equal)} ({kept} of {pairs} pairs kept), smallest top-{k} margin "
+          f"{margin:.3e} against the largest card-CPU router probability difference "
+          f"{drift:.3e} (must exceed {NEAR_TIE:g}x it; {int((gaps <= ROUTING_MARGIN).sum())} of "
+          f"{gaps.numel()} tokens within {ROUTING_MARGIN:g})")
+    same_loss = "equal" if torch.equal(out["cuda again"][0], loss_g) else "NOT equal"
+    print(f"[16e] determinism: the card's second run gives {bitwise} of {len(g_g)} gradient "
+          f"leaves bit for bit (loss {same_loss}); "
+          f"each MoE layer's recompute (remat) routes as its forward: "
+          + ", ".join(f"{tag} {sum(v)}/{len(v)}" for tag, v in recompute.items()))
+    require(all(len(recs) == 2 * n_moe for recs in routing.values()),
+            f"train parity: MoE calls {[len(r) for r in routing.values()]}, want {2 * n_moe}")
+    require(margin > NEAR_TIE * drift,
+            f"train parity: a near-tie in the router's top-{k} (margin {margin:.3e} against a "
+            f"card-CPU difference of {drift:.3e})")
+    require(all(equal), "train parity: the card routes differently from the CPU")
+    require(all(all(v) for v in recompute.values()),
+            f"train parity: a recompute routed differently from its forward {recompute}")
+    require(bitwise == len(g_g) and same_loss == "equal",
+            f"train parity: {len(g_g) - bitwise} gradient leaves differ between two card runs")
 
 
 def release_memory(phase: str = "5") -> int:
@@ -1410,20 +1518,25 @@ def phase_train(B: int, S: int, steps: int, want: dict[str, int], extra=(), phas
     return counts, losses, peak, step_ms, text
 
 
-def phase_train_profile(B: int, S: int, policy=None, phase="10"):
+def phase_train_profile(B: int, S: int, policy=None, phase="10", cfg=None):
     """Where a warm training step's time goes: one step timed untraced, then
     one traced with torch.profiler; with ``policy``, under that offload
-    policy.  -> the traced step's device figures (``copy_overlap``)."""
+    policy; of qwen3-4b, or of ``cfg``; then a warm step timed in two parts
+    with CUDA events, the loss with its backward, then ``adamw_step``.  For
+    an MoE model also the MoE dispatch's forward and backward ops against
+    the expert GEMMs, for MLA its dense softmax path.  -> the traced step's
+    device figures (``copy_overlap``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import build_train_step
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.models import build_model
-    from repro_torch.optim import adamw_init
+    from repro_torch.optim import adamw_init, adamw_step
+    from repro_torch.tree import map_tree, tree_leaves
 
     release_memory(phase)
-    cfg = get_config("qwen3-4b")
+    cfg = cfg or get_config("qwen3-4b")
     model = build_model(cfg, "cuda")
     params = model.init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
     opt = adamw_init(params)
@@ -1441,7 +1554,7 @@ def phase_train_profile(B: int, S: int, policy=None, phase="10"):
     step(0)  # warm
     loss, ms = step(1)
     what = "" if policy is None else f" offloading {sorted(policy.offload_names)}"
-    print(f"[{phase}] profile train qwen3-4b B{B} S{S}{what}, warm, untraced: {ms:.1f} ms a "
+    print(f"[{phase}] profile train {cfg.name} B{B} S{S}{what}, warm, untraced: {ms:.1f} ms a "
           f"step ({B * S / ms * 1e3:.0f} tokens/s), loss {loss:.4f}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -1454,6 +1567,28 @@ def phase_train_profile(B: int, S: int, policy=None, phase="10"):
           f"{figures['overlap_ms']:.3f} ms of it beside compute; compute (kernels and "
           f"memsets) busy {figures['compute_ms']:.2f} ms of {wall:.2f} ms wall")
     require(math.isfinite(loss), "train profile: non-finite loss")
+    if cfg.num_experts:
+        print(f"  MoE dispatch, forward and backward, against the expert GEMMs (self device "
+              f"time): {moe_breakdown(prof, cfg, B * S)}")
+    if cfg.kv_lora_rank:
+        print(f"  MLA's dense attention on [B, H, S, S] scores (self device time): "
+              f"{shape_breakdown(prof, [B, cfg.num_heads, S, S])}")
+    leaves = tree_leaves(params)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    batch = batch_fn(3)
+    torch.cuda.synchronize()
+    events[0].record()
+    model.loss(params, batch, remat_policy=policy)[0].backward()
+    events[1].record()
+    adamw_step(params, map_tree(lambda t: t.grad, params), opt, 3e-4)
+    events[2].record()
+    torch.cuda.synchronize()
+    for t in leaves:
+        t.grad = None
+    print(f"  a warm step by part (CUDA events on the step's stream): the loss and its "
+          f"backward {events[0].elapsed_time(events[1]):.2f} ms, adamw_step "
+          f"{events[1].elapsed_time(events[2]):.2f} ms over {len(leaves)} leaves, "
+          f"{sum(t.numel() for t in leaves):,} parameters")
     return dict(figures, untraced_ms=ms, wall_ms=wall)
 
 
@@ -2026,45 +2161,66 @@ def op_breakdown(prof, top: int = 6) -> str:
         f"; the port's ops: {own or 'none'}"
 
 
-# The ops of the MoE dispatch (``models/moe.py:135-158``), which nothing
-# else on the served paths runs, by the op the port calls (its device time
-# includes the ops it calls in turn: ``argsort`` a ``sort``, ``new_zeros`` a
-# fill, ``pad`` a fill and a copy): the sort of the token-expert pairs, their
-# ranks and slots, the zeroed buffer and the scatter into it, the zero row
-# padded onto the experts' output and the gather from it.
-MOE_DISPATCH = {"sort": ("aten::argsort",),
-                "ranks": ("aten::searchsorted", "aten::gather", "aten::scatter_"),
-                "scatter": ("aten::new_zeros", "aten::index_put_"),
-                "gather": ("aten::pad", "aten::index_select")}
-
-
 def moe_breakdown(prof, cfg, tokens: int) -> str:
-    """Device time (inclusive) of the MoE dispatch's ops (``MOE_DISPATCH``),
-    of the router's top-k and of the combine
-    (the gated rows [T, k, D] multiplied and summed), against the expert
-    GEMMs (``aten::bmm`` on [E, d, f] or [E, f, d] weights); ``tokens`` T
-    of one call."""
+    """Self device time of a traced step's MoE ops by the op that ran them,
+    found by their input shapes (one group of ``tokens`` T a call): the
+    dispatch's (``models/moe.py``), forward and, in a train step, backward,
+    on the token-expert pairs [1, T k] or [T, k], the
+    dispatch buffer [E C + 1, d] (``index_put_`` into it, ``index_select``
+    from it, and their backwards, ``index`` and ``index_add``) and the
+    experts' padded output [1, E C, d]; the combine on [T, k, d]; the
+    router's top-k; against the expert GEMMs (``aten::bmm`` with E leading
+    and d or f among the other dims, forward and backward)."""
+    from repro_torch.models.moe import capacity
+
     E, d, f, k = cfg.num_experts, cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    C = capacity(tokens, cfg)
+    dispatch = ([1, tokens * k], [tokens, k], [E * C + 1, d], [1, E * C, d])
     by: dict[str, list] = {}
     for e in prof.key_averages(group_by_input_shape=True):
-        t = e.device_time_total / 1e3
-        shapes = [list(x) for x in (e.input_shapes or [])]
-        group = next((g for g, keys in MOE_DISPATCH.items() if e.key in keys), None)
-        if e.key == "aten::bmm" and len(shapes) > 1 and shapes[1] in ([E, d, f], [E, f, d]):
+        t = e.self_device_time_total / 1e3
+        shapes = [list(x) for x in (e.input_shapes or []) if isinstance(x, (list, tuple))]
+        if t <= 0:
+            continue
+        if e.key == "aten::bmm" and any(s[:1] == [E] and (d in s[1:] or f in s[1:])
+                                        for s in shapes):
             group = "expert GEMMs"
         elif e.key == "aten::topk":
             group = "top-k"
-        elif e.key in ("aten::mul", "aten::sum") and shapes[:1] == [[tokens, k, d]]:
-            group = "combine"
-        if group and t > 0:
-            by.setdefault(group, [0.0, 0])
-            by[group][0] += t
-            by[group][1] += e.count
-    return "; ".join(f"{g} {ms:.2f}ms ({n} calls)" for g, (ms, n) in by.items()) or "none"
+        elif [tokens, k, d] in shapes:
+            group = f"combine {e.key}"
+        elif any(s in dispatch for s in shapes):
+            group = f"dispatch {e.key}"
+        else:
+            continue
+        by.setdefault(group, [0.0, 0])
+        by[group][0] += t
+        by[group][1] += e.count
+    total = sum(ms for g, (ms, _) in by.items() if g.startswith(("dispatch", "combine")))
+    rows = sorted(by.items(), key=lambda kv: -kv[1][0])
+    return (f"dispatch and combine {total:.2f} ms in all, expert GEMMs "
+            f"{by.get('expert GEMMs', [0.0])[0]:.2f} ms; " +
+            "; ".join(f"{g} {ms:.2f}ms ({n} calls)" for g, (ms, n) in rows))
 
 
-# Phase 6's traced decode steps a model (``phase_profile``).
-TRACED_DECODE_STEPS = 2
+def shape_breakdown(prof, shape) -> str:
+    """Self device time of the ops with an input of ``shape``, by op."""
+    by: dict[str, list] = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        shapes = [list(x) for x in (e.input_shapes or []) if isinstance(x, (list, tuple))]
+        if e.self_device_time_total > 0 and list(shape) in shapes:
+            by.setdefault(e.key, [0.0, 0])
+            by[e.key][0] += e.self_device_time_total / 1e3
+            by[e.key][1] += e.count
+    total = sum(ms for ms, _ in by.values())
+    return f"{total:.2f} ms in all; " + "; ".join(
+        f"{key} {ms:.2f}ms ({n} calls)" for key, (ms, n) in sorted(by.items(),
+                                                                   key=lambda kv: -kv[1][0]))
+
+
+# Phase 6's traced decode steps a model (``phase_profile``): one, so that the
+# whole script, phase 16 included, stays near its length before that phase.
+TRACED_DECODE_STEPS = 1
 
 
 def phase_profile(arch: str, B: int, P: int, G: int):
@@ -2345,19 +2501,19 @@ def phase_planner():
         print_swaps(prog, limits, hw.name)
 
 
-def plan_and_check(trace, key, hw):
+def plan_and_check(trace, key, hw, swaps: bool = True):
     """The plan pipeline on ``trace`` under ``hw``: SmartPool and the baseline
-    pools, AutoSwap's four scores at LIMIT_FRACS of the peak load, and
-    OffloadLowering; fatal unless the static verifier passes and the
-    artifact round-trips byte for byte.  -> (program, limits, solve s,
-    verifier checks, artifact bytes)."""
+    pools, and with ``swaps`` AutoSwap's four scores at LIMIT_FRACS of the
+    peak load and OffloadLowering; fatal unless the static verifier passes
+    and the artifact round-trips byte for byte.  -> (program, limits, solve
+    s, verifier checks, artifact bytes)."""
     from repro_torch.analyze import verify_program
     from repro_torch.plan import (MemoryProgram, OffloadLowering, PassContext, Pipeline,
                                   PoolPlacement, SwapSelection, TimingAssign, dumps_canonical,
                                   program_from_json)
 
     peak = trace.peak_load()
-    limits = [int(peak * f) for f in LIMIT_FRACS]
+    limits = [int(peak * f) for f in LIMIT_FRACS] if swaps else []
     passes = [TimingAssign(), PoolPlacement(("best_fit", "first_fit", "cnmem", "exact"))]
     passes += [SwapSelection(limit=lim, scorer=s) for lim in limits for s in SCORERS]
     passes += [OffloadLowering(limit=lim, scorer=s) for lim in limits for s in SCORERS]
@@ -2384,19 +2540,21 @@ def print_swaps(prog, limits, hw_name: str) -> None:
         print(f"  limit {frac:.0%} of w ({lim:,} B): " + "; ".join(cells))
 
 
-def phase_captured_plans(B: int, S: int):
-    """The full qwen3-4b train step captured by the port's graph tracer (on
-    fake CUDA tensors: no memory, no launch) two ways, each planned under
-    H100_SXM: (a) ``model.loss(params, batch)[0]``, the step ``train --plan``
-    plans; (b) the loss and ``torch.autograd.grad`` of it with respect to
-    the params, under per-layer remat.  Then both run for real at the same
-    fp32 masters and batch, which are resident first, and the card's peak
-    stands beside the trace's peak load w.  (a)'s w above its real peak is
-    fatal: the trace frees each variable at its last use, the earliest any
-    run can, so a larger w counts memory that never existed.  (b)'s is
-    printed only: eager autograd accumulates the tied embedding's gradient
-    in place, where the graph adds out of place (up to one fp32 table,
-    151,936 x 2,560 x 4 B)."""
+def phase_captured_plans(B: int, S: int, cfg=None, phase: str = "7", swaps: bool = True):
+    """The full qwen3-4b train step (or ``cfg``'s) captured by the port's
+    graph tracer (on fake CUDA tensors: no memory, no launch) two ways, each
+    planned under H100_SXM by ``plan_and_check`` (with AutoSwap where
+    ``swaps``): (a) ``model.loss(params, batch)[0]``, the step
+    ``train --plan`` plans; (b) the loss and ``torch.autograd.grad`` of it
+    with respect to the params, under per-layer remat.  Then both run for
+    real at the same fp32 masters and batch, which are resident first, and
+    the card's peak stands beside the trace's peak load w.  (a)'s w above
+    its real peak is fatal: the trace frees each variable at its last use,
+    the earliest any run can, so a larger w counts memory that never
+    existed.  (b)'s is printed only: the real run holds every gradient
+    until the step ends, and eager autograd accumulates a tied embedding's
+    gradient in place, where the graph adds out of place (qwen3-4b: up to
+    one fp32 table, 151,936 x 2,560 x 4 B).  -> {tag: (w, real peak)}."""
     from repro_torch.configs import get_config
     from repro_torch.core.simulator import H100_SXM
     from repro_torch.core.trace import _leaf_paths, capture_graph, trace_graph
@@ -2405,7 +2563,7 @@ def phase_captured_plans(B: int, S: int):
     from repro_torch.plan import PlanKey
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("qwen3-4b")
+    cfg = cfg or get_config("qwen3-4b")
     model = build_model(cfg, "cuda")
 
     def loss(params, batch):
@@ -2427,14 +2585,15 @@ def phase_captured_plans(B: int, S: int):
         trace = trace_graph(gm, arg_names=_leaf_paths((shapes, probe)))
         capture_s = time.perf_counter() - t0
         zero = zero_byte_nodes(gm)
-        key = PlanKey("qwen3-4b", f"train:b{B}s{S}:{'loss' if tag == 'a' else 'grad'}",
+        key = PlanKey(cfg.name, f"train:b{B}s{S}:{'loss' if tag == 'a' else 'grad'}",
                       H100_SXM.name)
-        prog, limits, solve_s, checks, nbytes = plan_and_check(trace, key, H100_SXM)
+        prog, limits, solve_s, checks, nbytes = plan_and_check(trace, key, H100_SXM, swaps)
         peak = trace.peak_load()
         omega[tag] = peak
         labels = {n: sum(v.name == n for v in trace.variables)
                   for n in ("block_in", "attn_out", "ffn_out")}
-        print(f"[7] captured ({tag}) {'loss' if tag == 'a' else 'loss + grad (remat)'} qwen3-4b "
+        print(f"[{phase}] captured ({tag}) {'loss' if tag == 'a' else 'loss + grad (remat)'} "
+              f"{cfg.name} "
               f"B{B} S{S} fp32 masters under {H100_SXM.name}: capture {capture_s:.2f}s, "
               f"{len(trace.variables)} variables (labels {labels}), iteration "
               f"{trace.op_times[-1] * 1e3:.3f} ms simulated, peak load w {peak:,} B; "
@@ -2446,7 +2605,7 @@ def phase_captured_plans(B: int, S: int):
         print_swaps(prog, limits, H100_SXM.name)
         print(f"  0-byte nodes of the graph (no variable, no event): "
               f"{sum(zero.values())} {dict(zero)}")
-        if tag == "a":
+        if tag == "a" and swaps and cfg.name == "qwen3-4b":
             got = (len(trace.variables),
                    tuple(round(prog.swap_summaries[f"swdoa@{lim}"].selected_bytes / 1e9, 2)
                          for lim in limits))
@@ -2454,9 +2613,10 @@ def phase_captured_plans(B: int, S: int):
                   f"of the same code under torch 2.13 {CPU_CAPTURE_A}: "
                   f"{'equal' if got == CPU_CAPTURE_A else 'NOT equal'}")
 
-    held = release_memory("7")
+    held = release_memory(phase)
     params = model.init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
     batch = make_batch_fn(cfg, B, S, 0, "cuda")(0)
+    peaks = {}
     for tag, fn in (("a", loss), ("b", loss_and_grad)):
         gc.collect()
         torch.cuda.synchronize()
@@ -2469,7 +2629,8 @@ def phase_captured_plans(B: int, S: int):
         del out
         for t in tree_leaves(params):
             t.requires_grad_(False)
-        print(f"[7] captured ({tag}) run for real: loss {value:.4f}, peak "
+        peaks[tag] = (omega[tag], real)
+        print(f"[{phase}] captured ({tag}) run for real: loss {value:.4f}, peak "
               f"{real:,} B on the card ({resident - held:,} B of params and batch resident "
               f"first) beside the trace's w {omega[tag]:,} B (w / peak "
               f"{omega[tag] / real:.4f})")
@@ -2478,6 +2639,7 @@ def phase_captured_plans(B: int, S: int):
             require(omega[tag] <= real, f"captured (a): w {omega[tag]} B exceeds the real peak "
                                         f"{real} B")
     del params, batch
+    return peaks
 
 
 # Capture (a) on fake CPU tensors under torch 2.13: variables and the GB
@@ -2528,6 +2690,155 @@ def phase_example() -> dict[str, int]:
     require(sorted(gens) == sorted(example.ARCHS), f"example served {sorted(gens)}")
     require(counts["rmsnorm"] > 0 and counts["flash_attention"] > 0 and counts["ssd_scan"] > 0,
             f"example: a kernel was not launched {counts}")
+    return counts
+
+
+# Phase 16: deepseek-v2-lite-16b trained at every published width on one
+# card.  Its 27 layers need about 251 GB of fp32 state (16 B a parameter:
+# masters, gradients, AdamW's m and v), so the card trains a depth cut: the
+# dense layer and MOE_LAYERS MoE layers, 3,424,678,912 parameters, 54.79 GB
+# of state.
+DEEPSEEK = "deepseek-v2-lite-16b"
+MOE_LAYERS = 5
+# deepseek's parameters by part: the token table and the untied head; the
+# final norm; the dense layer (MLA, the 10,944-wide SwiGLU, two norms); an
+# MoE layer (MLA, 64 experts and 2 shared of 1,408, the fp32 router).
+DEEPSEEK_PARAMS = {"embed": 2 * 102_400 * 2048, "final_norm": 2048, "dense": 81_007_104,
+                   "moe": 584_847_872}
+
+
+def deepseek_cut(moe_layers: int):
+    """deepseek-v2-lite-16b at every published width (64 experts top-6, 2
+    shared, MLA with kv_lora 512, vocab 102,400, the untied head), bf16, cut
+    to its dense layer and ``moe_layers`` MoE layers, and named apart from
+    the full model, so that its plans are its own."""
+    from repro_torch.configs import get_config
+
+    full = get_config(DEEPSEEK)
+    (dense,), _ = full.program[0]
+    (moe_spec,), _ = full.program[1]
+    return full.reduced(name=f"{DEEPSEEK}-cut{1 + moe_layers}", num_layers=1 + moe_layers,
+                        program=(((dense,), 1), ((moe_spec,), moe_layers)))
+
+
+def recompute_routing(records, n_moe: int) -> list[bool]:
+    """From a run's routing records (each step: the n_moe MoE layers'
+    forwards, then, in backward, their recomputes, top layer first): for
+    each layer of each step, whether the recompute routed as the forward."""
+    per = 2 * n_moe
+    out = []
+    for i in range(0, len(records), per):
+        step = records[i:i + per]
+        out += [_routed(f) == _routed(r) for f, r in zip(step[:n_moe], reversed(step[n_moe:]))]
+    return out
+
+
+def phase_train_cut(B: int, S: int, steps: int, want: dict[str, int], extra=None,
+                    phase="16b", what="remat"):
+    """Train ``deepseek_cut(MOE_LAYERS)`` through the training launcher's own loop
+    (``train.train``: fp32 masters, bf16 compute, per-layer remat, chunked
+    loss, AdamW), ``extra`` its keyword arguments, with the routing of every
+    MoE call recorded: finite losses, ce and aux, ms a step, tokens/s, the
+    peak beside the state's arithmetic and under the card's memory, each
+    layer's recompute routed as its forward, and exact launch counts by
+    variant.  -> (launch counts, the ``TrainRun``, peak bytes, output)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model, moe
+    from repro_torch.tree import tree_leaves
+
+    cfg = deepseek_cut(MOE_LAYERS)
+    n = sum(t.numel() for t in tree_leaves(build_model(cfg, "cpu").init_shapes(torch.float32)))
+    want_n = (DEEPSEEK_PARAMS["embed"] + DEEPSEEK_PARAMS["final_norm"] + DEEPSEEK_PARAMS["dense"]
+              + MOE_LAYERS * DEEPSEEK_PARAMS["moe"])
+    require(n == want_n, f"{cfg.name}: {n:,} parameters, the arithmetic gives {want_n:,}")
+    held = release_memory(phase)
+    out, records = io.StringIO(), []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), moe.routing_hook(records.append):
+        run = train.train(cfg, steps=steps, batch=B, seq=S, seed=0, log_every=1,
+                          **(extra or {}))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    text = out.getvalue()
+    recompute = recompute_routing(records, MOE_LAYERS)
+    warm = run.step_ms[1:]
+    print(f"[{phase}] train {cfg.name} (the dense layer and {MOE_LAYERS} MoE layers at full "
+          f"width, {n:,} parameters, fp32 masters, bf16 compute, {what}) B{B} S{S}, {steps} "
+          f"steps:")
+    for line in text.strip().splitlines():
+        print(f"  {line}")
+    print(f"  losses {run.losses}; ce {[m['ce'] for m in run.metrics]}; aux "
+          f"{[m['aux'] for m in run.metrics]}; grad norm {[m['grad_norm'] for m in run.metrics]}")
+    print(f"  host ms a step (synchronised) {[round(t, 1) for t in run.step_ms]}; warm median "
+          f"{float(np.median(warm)):.1f} ms, {B * S / float(np.median(warm)) * 1e3:.0f} "
+          f"tokens/s; peak memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB) beside "
+          f"{16 * n / 1e9:.2f} GB of fp32 state (16 B x {n:,}: masters, gradients, m, v) and "
+          f"{card / 2**30:.2f} GiB on the card, {(card - peak) / 1e9:.2f} GB free at the peak "
+          f"({held / 2**30:.3f} GiB held before the run); each layer's recompute routed as its "
+          f"forward {sum(recompute)}/{len(recompute)} ({len(records)} MoE calls); launches "
+          f"{counts}; wall {wall:.1f}s (init included)")
+    require(len(run.losses) == steps and all(math.isfinite(x) for x in run.losses),
+            f"train cut: losses {run.losses}")
+    require(all(math.isfinite(m["ce"]) and math.isfinite(m["aux"]) for m in run.metrics),
+            f"train cut: metrics {run.metrics}")
+    require(peak < card, f"train cut: peak {peak} B exceeds the card's {card} B")
+    require(len(records) == 2 * MOE_LAYERS * steps and all(recompute),
+            f"train cut: {len(records)} MoE calls, recomputes routed as forwards {recompute}")
+    require(counts == want, f"train cut: launch counts {counts}, want {want}")
+    return counts, run, peak, text
+
+
+def phase_train_cut_offload(B: int, S: int, steps: int, want: dict[str, int], plain):
+    """The cut's loss step planned by the training launcher's planner under H100_SXM
+    (``train.step_planner`` under the cut's own key, solved into PLAN_DIR)
+    at half its peak load w, rounded down to 0.01 GiB, which must name a
+    label; then ``train.train`` at that limit, the plan restored from its
+    cache, for phase 16b's steps, seed and batches: losses within 1e-6
+    relative of ``plain``'s (16b's ``TrainRun``), launch counts equal to
+    16b's, each layer's recompute under the policy routed as its forward,
+    and the bytes moved each way a step exactly the layers x the names
+    offloaded x one activation [B, S, d] in bf16."""
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    cfg = deepseek_cut(MOE_LAYERS)
+    t0 = time.perf_counter()
+    planner = train.step_planner(build_model(cfg, "cuda"), cfg.name, B, S, False,
+                                 str(PLAN_DIR))
+    rep = planner.report()
+    omega = rep.peak_load
+    gb = math.floor(omega / 2 / 2**30 * 100) / 100
+    limit = int(gb * 2**30)
+    plan = planner.offload_plan(limit)
+    sw = planner.swap_report(limit)
+    print(f"[16d] plan: loss step of {cfg.name} B{B} S{S} (fp32 masters) traced and planned "
+          f"under H100_SXM in {time.perf_counter() - t0:.1f}s: {rep.num_variables} variables, w "
+          f"{omega:,} B, SmartPool chi/w {rep.smartpool_ratio:.4f}, CnMem/w "
+          f"{rep.cnmem_ratio:.4f}; limit {gb} GiB ({limit:,} B, {limit / omega:.4f} w): "
+          f"offload_names {plan.offload_names}, save_names {plan.save_names}, "
+          f"predicted_savings {plan.predicted_savings:,} B, transfer_bytes "
+          f"{plan.transfer_bytes:,} B; swdoa selects {sw.num_selected} variables, "
+          f"{sw.selected_bytes:,} B, simulated overhead {sw.overhead * 100:.2f}%, stalls "
+          f"{sw.stalls}")
+    require(plan.offload_names, f"the plan at {gb} GiB names no label")
+    counts, run, peak, text = phase_train_cut(
+        B, S, steps, want, extra=dict(hbm_limit_gb=gb, plan_cache=str(PLAN_DIR)),
+        phase="16d", what=f"remat, offloading {plan.offload_names}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run.losses, plain.losses))
+    per_step = cfg.num_layers * len(plan.offload_names) * B * S * cfg.d_model * 2
+    print(f"[16d] offload against 16b: largest relative loss difference {rel:.3e} "
+          f"({'equal bits' if run.losses == plain.losses else 'not equal bits'}); bytes a step "
+          f"to host and back {run.moved} (want {per_step:,} each); peak {peak / 1e9:.2f} GB; "
+          f"host ms a step {[round(t, 1) for t in run.step_ms]} against "
+          f"{[round(t, 1) for t in plain.step_ms]}")
+    require("(restored from cache)" in text, "train cut offload: the plan was not restored")
+    require(rel <= 1e-6, f"train cut offload: losses {run.losses} against {plain.losses}")
+    require(run.moved == [(per_step, per_step)] * steps,
+            f"train cut offload: bytes {run.moved}; want {per_step} each way a step")
     return counts
 
 
@@ -2676,7 +2987,7 @@ def main() -> int:
     phase_captured_plans(4, 512)
     print(f"[7] planner phase took {time.perf_counter() - t7:.1f}s")
 
-    phase_train_parity(128)
+    phase_train_parity("qwen3-4b", 128)
     # A train step of qwen3-4b under per-layer remat runs each layer's forward
     # twice (the step's, then its recompute in backward) and the final norm
     # once: RMSNorm forward 2 * 4 * 36 + 1 (ln1, ln2, q-norm, k-norm), flash
@@ -2757,6 +3068,34 @@ def main() -> int:
     t15 = time.perf_counter()
     paths["example serve_batched"] = phase_example()
     print(f"[15] example phase took {time.perf_counter() - t15:.1f}s")
+
+    # Phase 16: deepseek-v2-lite-16b trained at full width.  (a) and (e)
+    # at depth 2 in fp32 against the CPU; (b)-(d) the dense layer and
+    # MOE_LAYERS MoE layers, B4 S512.  A step under per-layer remat runs
+    # each layer's forward twice and the final norm once: RMSNorm forward
+    # 2 * 3 * 6 + 1 = 37 (ln1, MLA's kv_norm, ln2), backward 3 * 6 + 1 =
+    # 19, all `vector` (bf16, d 2048 and 512); no flash (MLA's attention is
+    # the reference's dense softmax) and no SSD.
+    t16 = time.perf_counter()
+    phase_train_parity(DEEPSEEK, 128)
+    print(f"[16a] train parity and determinism took {time.perf_counter() - t16:.1f}s")
+    layers = 1 + MOE_LAYERS
+    cut_want = want((2 * 3 * layers + 1) * steps, 0, 0, (3 * layers + 1) * steps, 0)
+    t = time.perf_counter()
+    cut = deepseek_cut(MOE_LAYERS)
+    paths[f"train {cut.name}"], cut_run, _, _ = phase_train_cut(4, 512, steps, cut_want)
+    print(f"[16b] train took {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    phase_train_profile(4, 512, phase="16c", cfg=cut)
+    print(f"[16c] profile took {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    captured = phase_captured_plans(4, 512, cfg=cut, phase="16d", swaps=False)
+    print(f"[16d] w / real peak: loss {captured['a'][0] / captured['a'][1]:.4f}, loss + grad "
+          f"{captured['b'][0] / captured['b'][1]:.4f}")
+    paths[f"train {cut.name} (offload)"] = phase_train_cut_offload(4, 512, steps, cut_want,
+                                                                   cut_run)
+    print(f"[16d] plans and the offload run took {time.perf_counter() - t:.1f}s")
+    print(f"[16] deepseek training phase took {time.perf_counter() - t16:.1f}s")
 
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA

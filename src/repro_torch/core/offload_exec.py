@@ -22,6 +22,13 @@ between torch versions.  For one layer:
             saved copy where the recompute reaches a label of that name,
             and returns the gradients of its input and its parameters.
 
+A layer may return a tuple, as ``transformer.train_layer`` returns (x,
+aux): every output is carried out of the forward, and the backward takes
+the gradient of the recomputed outputs against the gradients that reach
+them, skipping those with none (a None output, such as a dense layer's
+aux) and those the recompute does not differentiate.  A single-output layer
+takes exactly the path it took before.
+
 Everything else is recomputed, as under plain remat, so each kernel
 launches as often as there: each forward twice, each backward once.  This
 is the paper's swap execution (§IV): swap out after the last forward access
@@ -98,8 +105,9 @@ class OffloadPolicy:
 
     def run_layer(self, fn, x, params):
         """``fn(x)``: one layer whose parameters are ``params``, recomputed in
-        backward, with this policy's offloads.  Without a gradient to take it
-        is ``fn(x)`` alone."""
+        backward, with this policy's offloads; ``fn`` returns a tensor or a
+        tuple of tensors and Nones.  Without a gradient to take it is
+        ``fn(x)`` alone."""
         if not torch.is_grad_enabled() or not (x.requires_grad
                                                or any(p.requires_grad for p in params)):
             return fn(x)
@@ -203,10 +211,11 @@ class _OffloadedLayer(torch.autograd.Function):
             y = fn(x)
         ctx.policy, ctx.fn, ctx.stash, ctx.params = policy, fn, stash, params
         ctx.save_for_backward(x if stash.input_host is None else None)
+        ctx.set_materialize_grads(False)  # an unused output's gradient stays None
         return y
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, *dys):
         policy, stash = ctx.policy, ctx.stash
         policy._fetch(stash)
         if stash.below is not None:
@@ -217,11 +226,16 @@ class _OffloadedLayer(torch.autograd.Function):
         stash.fetched, stash.below, stash.done = None, None, True
         x = x.detach().requires_grad_(ctx.needs_input_grad[2])
         with torch.enable_grad(), label_hook(partial(policy._replay, kept)):
-            y = ctx.fn(x)
+            ys = ctx.fn(x)
+        ys = ys if isinstance(ys, tuple) else (ys,)
+        pairs = [(y, dy) for y, dy in zip(ys, dys)
+                 if dy is not None and y is not None and y.requires_grad]
         inputs = (x, *ctx.params)
-        wanted = [i for i, need in enumerate(ctx.needs_input_grad[2:]) if need]
-        grads = torch.autograd.grad(y, [inputs[i] for i in wanted], dy, allow_unused=True)
         out = [None] * len(inputs)
-        for i, g in zip(wanted, grads):
-            out[i] = g
+        wanted = [i for i, need in enumerate(ctx.needs_input_grad[2:]) if need]
+        if pairs:
+            grads = torch.autograd.grad([y for y, _ in pairs], [inputs[i] for i in wanted],
+                                        [dy for _, dy in pairs], allow_unused=True)
+            for i, g in zip(wanted, grads):
+                out[i] = g
         return (None, None, *out)

@@ -34,8 +34,10 @@ def build_train_step(model, cfg: ModelConfig, *, lr: float = 3e-4, remat: bool =
     their axis 0, the three channels, which fails).
     ``remat_policy`` (``OffloadPlan.policy()``, or None for plain remat)
     goes to ``Model.loss``, which applies it per layer under ``remat``.
-    metrics: the last micro-batch's model metrics, the mean ``loss`` and
-    the ``grad_norm`` before clipping."""
+    metrics: the last micro-batch's model metrics (``ce``, and ``aux``, the
+    MoE layers' summed aux loss, 0 for a dense model), the mean ``loss``
+    (each micro-batch's ``ce + 0.01 * aux``) and the ``grad_norm`` before
+    clipping, as the reference's."""
 
     def train_step(params, opt_state, batch, step):
         leaves = tree_leaves(params)

@@ -4,12 +4,21 @@ Builds the model from ``--arch`` (full, or ``--smoke`` reduced), draws
 random fp32 master parameters from ``torch.Generator(device)`` seeded with
 ``--seed``, and trains with AdamW on the synthetic token pipeline
 (``repro_torch.data``, batches equal to the reference's for the same seed),
-per-layer remat and the chunked cross-entropy.  Computation runs in
+per-layer remat and the chunked cross-entropy.  Any model whose layers
+``Model.loss`` trains: full-attention dense models (qwen3-4b, starcoder2-7b,
+qwen2-vl-7b, ...) and the MoE models (deepseek-v2-lite-16b with MLA,
+llama4-maverick), whose loss adds 0.01 times the layers' summed aux loss
+(the reference's); Mamba-2, hybrid, window, softcap and encoder-decoder
+training raise, naming the ROADMAP item they wait for.  Computation runs in
 ``cfg.dtype`` (bf16 for the full configs): each use casts the masters, as
 the reference's ``.astype`` does.  Runs on CUDA unless ``--device cpu`` is
 given, and raises on a host without CUDA rather than falling back.  On the
 card, RMSNorm and attention run through the port's Hopper kernels forward
-and backward; matrix products stay in full fp32 for fp32 models (TF32 off).
+and backward (MLA's attention is the reference's dense softmax, as the MoE
+dispatch is PyTorch's indexing ops); matrix products stay in full fp32 for
+fp32 models (TF32 off).  ``main`` parses the flags and runs ``train``, the
+loop itself, which takes any config: a depth cut of a full model
+(``cfg.reduced(...)``, named apart) trains through it unchanged.
 
 Kept from the reference: the per-step and ``done:`` lines, the injected
 failure (``--fail-at``), the straggler watchdog (``--step-timeout``) and
@@ -31,11 +40,11 @@ the paper's memory planner:
                        activations of each layer to pinned host memory
                        after its forward and back before its backward.  The
                        limit is not the card's: the traced loss frees each
-                       master at its last use, so its peak load is 15.0 GiB
-                       for qwen3-4b at B4 S512, where the real step peaks at
-                       67.95 GB with masters, gradients and AdamW's moments
-                       resident.  At that shape, labels are named only at
-                       about half of it or less (about 7.5 GiB); above, the
+                       master at its last use, so its peak load (15.0 GiB
+                       for qwen3-4b at B4 S512) lies far below the real
+                       step's, which holds masters, gradients and AdamW's
+                       moments resident (67.95 GB there).  Labels are named
+                       only at about half of it or less; above, the
                        selection is masters, which no label covers, and the
                        step runs as plain remat.  The simulated overhead
                        prices AutoSwap's per-variable selection, masters
@@ -48,9 +57,13 @@ observability flags that watch its mesh run (item 12).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 5
-  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 2 \
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --smoke \\
+      --device cpu --steps 5 [--plan --plan-cache /tmp/plans]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama4-maverick-400b-a17b --smoke \\
+      --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 2 \\
       --batch 2 --seq 32 --plan --plan-cache /tmp/plans
-  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 2 \
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 2 \\
       --batch 4 --seq 1024 --hbm-limit-gb 0.003
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --batch 4 --seq 512 \\
       --steps 5 --log-every 1 [--hbm-limit-gb 7.5]
@@ -60,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -102,10 +116,11 @@ def make_batch_fn(cfg, batch: int, seq: int, seed: int, device):
 def step_planner(model, arch: str, batch: int, seq: int, smoke: bool, plan_cache=None,
                  size_threshold: int = 1 << 20):
     """The ``MemoryPlanner`` of the loss step at these shapes, under
-    ``H100_SXM``, keyed as the reference keys it: traced on fake tensors,
-    or restored from ``plan_cache`` (a directory or a ``PlanCache``)
-    without tracing.  The colocate launcher's train tenant is this planner
-    at its own ``size_threshold``."""
+    ``H100_SXM``, keyed as the reference keys it, by ``arch`` (the name the
+    plan is filed under: the registry's arch, or a cut config's own name):
+    traced on fake tensors, or restored from ``plan_cache`` (a directory or
+    a ``PlanCache``) without tracing.  The colocate launcher's train tenant
+    is this planner at its own ``size_threshold``."""
     from repro_torch.core.planner import MemoryPlanner
     from repro_torch.core.simulator import H100_SXM
     from repro_torch.plan import PlanKey
@@ -123,29 +138,99 @@ def step_planner(model, arch: str, batch: int, seq: int, smoke: bool, plan_cache
                          key=key, size_threshold=size_threshold)
 
 
-def plan_report(model, args):
-    """Plan the loss step at this run's shapes (or restore its plan from
-    ``--plan-cache``) and print the reference's ``[plan]`` line; with
-    ``--hbm-limit-gb``, also its ``[plan] AutoSwap@`` line.  -> the offload
+def plan_report(model, name: str, batch: int, seq: int, smoke: bool, plan_cache=None,
+                hbm_limit_gb: float | None = None):
+    """Plan the loss step at these shapes (or restore its plan from
+    ``plan_cache``) and print the reference's ``[plan]`` line; with
+    ``hbm_limit_gb``, also its ``[plan] AutoSwap@`` line.  -> the offload
     policy to train with, or None."""
-    planner = step_planner(model, args.arch, args.batch, args.seq, args.smoke, args.plan_cache)
+    planner = step_planner(model, name, batch, seq, smoke, plan_cache)
     rep = planner.report()
     src = " (restored from cache)" if planner.from_cache else ""
     print(
         f"[plan] vars={rep.num_variables} peak={rep.peak_load/2**20:.1f}MiB "
         f"smartpool x{rep.smartpool_ratio:.4f} cnmem x{rep.cnmem_ratio:.4f}{src}"
     )
-    if args.hbm_limit_gb is None:
+    if hbm_limit_gb is None:
         return None
-    limit = int(args.hbm_limit_gb * 2**30)
+    limit = int(hbm_limit_gb * 2**30)
     plan = planner.offload_plan(limit)
     sw = planner.swap_report(limit)
     print(
-        f"[plan] AutoSwap@{args.hbm_limit_gb}GB: offload {plan.offload_names} "
+        f"[plan] AutoSwap@{hbm_limit_gb}GB: offload {plan.offload_names} "
         f"(~{plan.predicted_savings/2**20:.1f}MiB relief, "
         f"simulated overhead {sw.overhead*100:.2f}%)"
     )
     return plan.policy()
+
+
+@dataclass
+class TrainRun:
+    """What ``train`` returns: per step, the loss, the model's metrics
+    (``ce``, ``aux``) and ``grad_norm``, the host ms around the synchronised
+    step, and the bytes the offload policy moved to host and back (empty
+    without one)."""
+
+    losses: list[float] = field(default_factory=list)
+    metrics: list[dict[str, float]] = field(default_factory=list)
+    step_ms: list[float] = field(default_factory=list)
+    moved: list[tuple[int, int]] = field(default_factory=list)
+
+
+def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4, seed: int = 0,
+          device="cuda", plan: bool = False, plan_cache=None,
+          hbm_limit_gb: float | None = None, plan_name: str | None = None, smoke: bool = False,
+          fail_at: int = -1, step_timeout: float = 10.0, log_every: int = 10) -> TrainRun:
+    """The training loop for any config ``cfg``: ``main``'s for the registry's
+    configs, and a depth cut's (``cfg.reduced(...)``) for a caller that
+    trains one.  Plans are filed under ``plan_name`` (``main`` gives the
+    arch), by default under ``cfg.name``, so a cut config, named apart from
+    its full model, never restores or overwrites the full model's plan."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to train on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    model = build_model(cfg, device)
+    batch_fn = make_batch_fn(cfg, batch, seq, seed, device)
+    policy = None
+    if plan or plan_cache or hbm_limit_gb is not None:
+        policy = plan_report(model, plan_name or cfg.name, batch, seq, smoke, plan_cache,
+                             hbm_limit_gb)
+    train_step = build_train_step(model, cfg, lr=lr, remat_policy=policy)
+    params = model.init(torch.Generator(device).manual_seed(seed), dtype=torch.float32)
+    opt = adamw_init(params)
+
+    run = TrainRun()
+    stragglers = 0
+    for step in range(steps):
+        if step == fail_at:
+            raise RuntimeError(f"injected failure at step {step}")
+        t0 = time.time()
+        before = (policy.bytes_d2h, policy.bytes_h2d) if policy else (0, 0)
+        params, opt, metrics = train_step(params, opt, batch_fn(step), step)
+        loss = float(metrics["loss"])  # waits for the step's device work
+        dt = time.time() - t0
+        if policy:
+            run.moved.append((policy.bytes_d2h - before[0], policy.bytes_h2d - before[1]))
+        times = run.step_ms
+        if len(times) >= 5 and dt * 1e3 > step_timeout * float(np.median(times)):
+            stragglers += 1
+            print(f"[watchdog] step {step} took {dt:.2f}s "
+                  f"(median {np.median(times) / 1e3:.2f}s)")
+        times.append(dt * 1e3)
+        run.losses.append(loss)
+        run.metrics.append({k: float(metrics[k]) for k in ("ce", "aux", "grad_norm")})
+        if step % log_every == 0 or step == steps - 1:
+            print(f"step {step:5d}  loss {loss:.4f}  {dt*1000:.0f} ms")
+    if policy:
+        print(f"[offload] bytes a step to host {[d for d, _ in run.moved]}, "
+              f"back {[h for _, h in run.moved]}")
+    print(
+        f"done: first-loss {run.losses[0]:.4f} last-loss {run.losses[-1]:.4f} "
+        f"stragglers={stragglers}"
+    )
+    return run
 
 
 def main(argv=None):
@@ -169,51 +254,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass --device cpu to train on the CPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = build_model(cfg, device)
-    batch_fn = make_batch_fn(cfg, args.batch, args.seq, args.seed, device)
-    policy = None
-    if args.plan or args.plan_cache or args.hbm_limit_gb is not None:
-        policy = plan_report(model, args)
-    train_step = build_train_step(model, cfg, lr=args.lr, remat_policy=policy)
-    params = model.init(torch.Generator(device).manual_seed(args.seed), dtype=torch.float32)
-    opt = adamw_init(params)
-
-    losses = []
-    times: list[float] = []
-    moved: list[tuple[int, int]] = []  # bytes offloaded and fetched back, a step
-    stragglers = 0
-    for step in range(args.steps):
-        if step == args.fail_at:
-            raise RuntimeError(f"injected failure at step {step}")
-        t0 = time.time()
-        batch = batch_fn(step)
-        before = (policy.bytes_d2h, policy.bytes_h2d) if policy else (0, 0)
-        params, opt, metrics = train_step(params, opt, batch, step)
-        loss = float(metrics["loss"])  # waits for the step's device work
-        dt = time.time() - t0
-        if policy:
-            moved.append((policy.bytes_d2h - before[0], policy.bytes_h2d - before[1]))
-        if len(times) >= 5 and dt > args.step_timeout * float(np.median(times)):
-            stragglers += 1
-            print(f"[watchdog] step {step} took {dt:.2f}s (median {np.median(times):.2f}s)")
-        times.append(dt)
-        losses.append(loss)
-        if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d}  loss {loss:.4f}  {dt*1000:.0f} ms")
-    if policy:
-        print(f"[offload] bytes a step to host {[d for d, _ in moved]}, "
-              f"back {[h for _, h in moved]}")
-    print(
-        f"done: first-loss {losses[0]:.4f} last-loss {losses[-1]:.4f} "
-        f"stragglers={stragglers}"
-    )
-    return losses
+    run = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+                seed=args.seed, device=args.device, plan=args.plan, plan_cache=args.plan_cache,
+                hbm_limit_gb=args.hbm_limit_gb, plan_name=args.arch, smoke=args.smoke,
+                fail_at=args.fail_at, step_timeout=args.step_timeout,
+                log_every=args.log_every)
+    return run.losses
 
 
 if __name__ == "__main__":

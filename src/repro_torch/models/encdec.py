@@ -116,7 +116,7 @@ class EncDecModel:
         x = frames.to(dtype_of(cfg))
         x = x + sinusoid(0, x.shape[1], cfg.d_model, x.dtype, x.device)[None]
         for p, spec in zip(params["encoder"], layer_specs(cfg.enc_program)):
-            x = train_layer(p, x, cfg, spec, None, causal=False)
+            x, _ = train_layer(p, x, cfg, spec, None, causal=False)
         return apply_norm(params["enc_norm"], x, cfg)
 
     def _embed_dec(self, params, tokens):

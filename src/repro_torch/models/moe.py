@@ -7,7 +7,12 @@ their expert, and dropped beyond the capacity C = ceil(T k / E cf), rounded
 up to a multiple of 8 and at least 8.  Routers: softmax top-k with
 renormalised gates (deepseek) or sigmoid top-1 (llama4); the router is
 stored and applied in fp32, as the reference's.  The Switch-style aux loss
-is returned, as the reference's, although serving drops it.
+is returned, as the reference's: serving drops it, and training adds 0.01
+times the layers' sum to the loss (``transformer.Model.loss``).  In the
+backward, ``index_select``'s gradient adds each pair's row into its slot
+with ``index_add``; the kept slots are distinct and the dropped pairs' rows
+all land on the spare row, which is discarded, so each kept row is added
+once and the gradient does not depend on the order of atomic adds.
 
 Every shape is static, so that a step traces on fake tensors and reads
 nothing back to the host:
@@ -32,7 +37,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import threading
 
 import torch
 import torch.nn.functional as F
@@ -85,24 +89,27 @@ def _route(p, xt, cfg: ModelConfig):
     return gates, idx, aux, probs
 
 
-# The hook ``apply_moe`` hands each call's routing to on this thread.
-_HOOK = threading.local()
+# The hook ``apply_moe`` hands each call's routing to, on any thread.
+_HOOK = [None]
 
 
 @contextlib.contextmanager
 def routing_hook(hook):
-    """While active on the current thread, each ``apply_moe`` calls
-    ``hook(record)`` with its routing: ``probs`` [T, E],
-    ``idx`` [T, k], ``rank`` [T, k] (each pair's place among its expert's
-    pairs in its group, in token order) and ``capacity``; a pair is kept
-    when its rank is below the capacity.  How a comparison of two runs
-    holds their routing equal."""
-    prev = getattr(_HOOK, "fn", None)
-    _HOOK.fn = hook
+    """While active, each ``apply_moe`` calls ``hook(record)`` with its
+    routing: ``probs`` [T, E], ``idx`` [T, k], ``rank`` [T, k] (each pair's
+    place among its expert's pairs in its group, in token order) and
+    ``capacity``; a pair is kept when its rank is below the capacity.  How a
+    comparison of two runs holds their routing equal.  The hook is the
+    process's, not the thread's: on the card the autograd engine runs a
+    layer's recompute (remat, an offload policy) on its own device thread,
+    and a training run's records hold each MoE layer's forward, then, in
+    backward, its recompute, top layer first."""
+    prev = _HOOK[0]
+    _HOOK[0] = hook
     try:
         yield
     finally:
-        _HOOK.fn = prev
+        _HOOK[0] = prev
 
 
 def apply_moe(p, x, cfg: ModelConfig):
@@ -129,10 +136,14 @@ def apply_moe(p, x, cfg: ModelConfig):
     slot = torch.empty_like(slot_sorted).scatter_(1, order, slot_sorted)
     slot = (slot + torch.arange(G, device=dev)[:, None] * rows).reshape(T, k)
 
-    hook = getattr(_HOOK, "fn", None)
+    hook = _HOOK[0]
     if hook is not None:
         rank = torch.empty_like(rank_sorted).scatter_(1, order, rank_sorted)
-        hook({"probs": probs, "idx": idx, "rank": rank.reshape(T, k), "capacity": C})
+        # Detached: a record kept past the step must not hold the autograd
+        # graph behind probs, which for a remat recompute is the layer's
+        # whole recomputed graph with its saved tensors.
+        hook({"probs": probs.detach(), "idx": idx, "rank": rank.reshape(T, k),
+              "capacity": C})
 
     # Dispatch: each token's row into its k slots (the kept slots are distinct).
     buf = x.new_zeros(G * rows, D)

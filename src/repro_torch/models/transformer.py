@@ -30,10 +30,12 @@ fp32 scale, in the activations' dtype.
 The reference scans stacked segment parameters with ``lax.scan``; here
 ``params["blocks"]`` and the cache hold one entry per layer, in program
 order, and a Python loop runs them (``models/convert.py`` unstacks a JAX
-pytree into this form).  ``Model.loss`` trains full-attention layers with
-dense FFNs only: Mamba-2 and hybrid training wait for the SSD scan's
-gradient (ROADMAP queue B item 3, B3b), MLA and MoE training for ROADMAP
-queue A item 10.
+pytree into this form).  ``Model.loss`` trains attention (full, or MLA's)
+with dense or MoE FFNs; each MoE layer's Switch aux loss is carried out of
+the layer (through remat and an offload policy alike) and summed in fp32,
+and the loss is ``ce + 0.01 * aux``, as the reference's.  Mamba-2 and
+hybrid training wait for the SSD scan's gradient (ROADMAP queue B item 3,
+B3b).
 """
 
 from __future__ import annotations
@@ -73,8 +75,9 @@ NOT_TRAINED = ("is not yet ported: it needs the SSD scan's gradient, see ROADMAP
                "item 3 (B3b)")
 # Layer kinds that run a Mamba-2 mixer.
 SSM_KINDS = ("mamba", "hybrid")
-NOT_TRAINED_ZOO = ("is not yet ported: MLA and MoE training (with the aux loss) come with "
-                   "ROADMAP.md queue A item 10")
+# The weight of the summed MoE aux loss in the training loss: the
+# reference's ``ce + 0.01 * aux`` (``repro/models/transformer.py:447``).
+AUX_WEIGHT = 0.01
 
 
 def _check_spec(spec: LayerSpec) -> None:
@@ -144,17 +147,24 @@ def _post_norm(p, name: str, h, cfg: ModelConfig):
     return apply_norm(p[name], h, cfg) if cfg.sandwich_norms else h
 
 
-def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
-    """The FFN sublayer, its sandwich norm and its residual; serving drops the
-    MoE's aux loss."""
+def _ffn_aux(p, x, cfg: ModelConfig, spec: LayerSpec):
+    """The FFN sublayer, its sandwich norm and its residual -> (x, aux): the
+    MoE's fp32 aux loss, or None for a layer without one (the reference's
+    zero, which adds nothing)."""
     if spec.ffn == "none":
-        return x
+        return x, None
     h = apply_norm(p["ln2"], x, cfg)
+    aux = None
     if spec.ffn == "dense":
         h = apply_dense_ffn(p["ffn"], h, cfg)
     else:
-        h, _ = moe_mod.apply_moe(p["moe"], h, cfg)
-    return x + _post_norm(p, "ln2_post", label(h, "ffn_out"), cfg)
+        h, aux = moe_mod.apply_moe(p["moe"], h, cfg)
+    return x + _post_norm(p, "ln2_post", label(h, "ffn_out"), cfg), aux
+
+
+def _ffn(p, x, cfg: ModelConfig, spec: LayerSpec):
+    """``_ffn_aux``'s output alone: serving drops the MoE's aux loss."""
+    return _ffn_aux(p, x, cfg, spec)[0]
 
 
 def _cross(p, x, cfg: ModelConfig, enc_kv):
@@ -166,20 +176,25 @@ def _cross(p, x, cfg: ModelConfig, enc_kv):
 
 def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, enc_out=None,
                 causal: bool = True):
-    """Forward one attention layer over the whole sequence, for the loss or
-    as an encoder layer (``causal=False``), with the reference's activation
-    labels (``block_in``, ``attn_out``, ``ffn_out``:
-    ``repro/models/transformer.py:106,118,319``), which name variables for
-    the planner and, under an offload policy, the activations it offloads or
+    """Forward one attention (or MLA) layer over the whole sequence, for the
+    loss or as an encoder layer (``causal=False``) -> (x, aux), as the
+    reference's ``apply_layer``: ``aux`` is the MoE FFN's fp32 aux loss, or
+    None for a layer without one.  The reference's activation labels
+    (``block_in``, ``attn_out``, ``ffn_out``:
+    ``repro/models/transformer.py:106,118,319``) name variables for the
+    planner and, under an offload policy, the activations it offloads or
     saves; otherwise they cost nothing on real tensors.  A decoder layer
     with cross attention reads the encoder's output ``enc_out``."""
     x = label(x, "block_in")
-    h = attn_mod.apply_attention(p["attn"], apply_norm(p["ln1"], x, cfg), cfg, spec, angles,
-                                 causal)
+    h = apply_norm(p["ln1"], x, cfg)
+    if spec.attn == "mla":
+        h = mla_mod.apply_mla(p["attn"], h, cfg, spec, angles, causal=causal)
+    else:
+        h = attn_mod.apply_attention(p["attn"], h, cfg, spec, angles, causal)
     x = x + _post_norm(p, "ln1_post", label(h, "attn_out"), cfg)
     if spec.cross_attn:
         x = _cross(p, x, cfg, attn_mod.encode_cross_kv(p["cross"], enc_out, cfg))
-    return _ffn(p, x, cfg, spec)
+    return _ffn_aux(p, x, cfg, spec)
 
 
 def _merge_branches(p, a, m, cfg: ModelConfig):
@@ -355,9 +370,12 @@ class Model:
     def loss(self, params, batch, remat: bool = True, remat_policy=None):
         """Mean next-token CE of ``batch`` {"tokens", "labels"} [B, S] int
         (with a vision stub's "patch_embeds" and "positions", as prefill
-        takes them) -> (loss, {"ce", "aux"}).  The labels are padded with
-        -1, which the loss ignores, over the patches, as the reference's
-        (``repro/models/transformer.py:440-444``).  As the reference's,
+        takes them) plus ``AUX_WEIGHT`` times the MoE layers' aux losses,
+        summed in fp32 in layer order -> (loss, {"ce", "aux"}), as the
+        reference's; a model without MoE layers has aux 0 and its loss is
+        the CE itself (the reference's ``ce + 0.01 * 0``).  The labels are
+        padded with -1, which the loss ignores, over the patches, as the
+        reference's (``repro/models/transformer.py:440-444``).  As the reference's,
         position i is scored against labels[i + 1], and the data's labels
         are already the tokens shifted by one, so position i learns token
         i + 2 (ROADMAP queue C).  ``remat`` recomputes each layer in backward
@@ -371,19 +389,20 @@ class Model:
         if any(spec.attn in SSM_KINDS for spec in specs):
             raise NotImplementedError(f"{cfg.name} training (Mamba-2 and hybrid layers) "
                                       f"{NOT_TRAINED}")
-        if any(spec.attn == "mla" or spec.ffn == "moe" for spec in specs):
-            raise NotImplementedError(f"{cfg.name} training {NOT_TRAINED_ZOO}")
         x, positions = self._embed_inputs(params, batch)
         angles = self._angles(positions)
+        aux = None
         for p, spec in zip(params["blocks"], specs):
             if remat and remat_policy is not None:
-                x = remat_policy.run_layer(partial(train_layer, p, cfg=cfg, spec=spec,
-                                                   angles=angles), x, tree_leaves(p))
+                x, a = remat_policy.run_layer(partial(train_layer, p, cfg=cfg, spec=spec,
+                                                      angles=angles), x, tree_leaves(p))
             elif remat:  # no layer draws random numbers, so no RNG state is saved
-                x = checkpoint(train_layer, p, x, cfg, spec, angles, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, a = checkpoint(train_layer, p, x, cfg, spec, angles, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = train_layer(p, x, cfg, spec, angles)
+                x, a = train_layer(p, x, cfg, spec, angles)
+            if a is not None:
+                aux = a if aux is None else aux + a
         x = apply_norm(params["final_norm"], x, cfg)
         labels = batch["labels"]
         patches = self._patches(batch)
@@ -391,8 +410,9 @@ class Model:
             labels = torch.cat([labels.new_full((labels.shape[0], patches.shape[1]), -1),
                                 labels], dim=1)
         ce = chunked_softmax_xent(x[:, :-1], params["embed"], labels[:, 1:], cfg)
-        # The dense family has no auxiliary loss: the reference's ce + 0.01 * 0.
-        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+        if aux is None:  # no MoE layer: the reference's ce + 0.01 * 0 is ce
+            return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+        return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
     # ---- serving ----
     def init_cache(self, batch: int, max_seq: int):

@@ -277,17 +277,6 @@ def test_untied_head_in_logits_and_loss():
     assert abs(float(ce) - float(want)) <= TOL * abs(float(want))
 
 
-@pytest.mark.parametrize("arch", [DEEPSEEK, LLAMA4])
-def test_moe_and_mla_training_raise(arch):
-    cfg = get_smoke_config(arch)
-    model = build_model(cfg, "cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
-             "labels": torch.zeros((1, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 10"):
-        model.loss(params, batch)
-
-
 def test_init_keeps_routers_fp32():
     """Experts in cfg.dtype, the router fp32, the shared experts'
     width f * num_shared_experts, as the reference's ``init_moe``."""

@@ -4,7 +4,9 @@
 Under each policy the loss and every gradient are bit-equal to plain remat's
 (the copies are exact and the recompute is deterministic), and they match
 the JAX model's under the reference's ``save_and_offload_only_these_names``
-policy at the tolerances of ``tests/test_torch_train.py``.  The policy
+policy at the tolerances of ``tests/test_torch_train.py``: for qwen3-4b
+smoke, and for deepseek-v2-lite smoke (MLA and MoE layers, whose aux loss
+leaves each layer beside its output), its aux loss too.  The policy
 counts the bytes it moves each way, and the recompute continues from the
 fetched copy where it reaches an offloaded label.
 """
@@ -42,9 +44,9 @@ PLANS = [(["block_in"], []), (["attn_out"], []), (["ffn_out"], []), (list(KNOWN_
 PLAN_IDS = ["block_in", "attn_out", "ffn_out", "all", "save-attn_out"]
 
 
-def _setup(seed: int = 0):
-    jcfg = jax_smoke_config(ARCH).reduced(dtype="float32")
-    tcfg = get_smoke_config(ARCH).reduced(dtype="float32")
+def _setup(seed: int = 0, arch: str = ARCH):
+    jcfg = jax_smoke_config(arch).reduced(dtype="float32")
+    tcfg = get_smoke_config(arch).reduced(dtype="float32")
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(seed))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, "cpu", torch.float32)
@@ -60,8 +62,8 @@ def _loss_and_grads(model, params, batch, policy):
     leaves = tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
-    loss, _ = model.loss(params, batch, remat_policy=policy)
-    return [loss.detach(), *torch.autograd.grad(loss, leaves)]
+    loss, metrics = model.loss(params, batch, remat_policy=policy)
+    return [loss.detach(), metrics["aux"].detach(), *torch.autograd.grad(loss, leaves)]
 
 
 # -------------------------------------------------------------- the policy
@@ -88,9 +90,8 @@ def test_offload_policy_builds_and_applies():
     assert pol.bytes_d2h == pol.bytes_h2d == x.numel() * 4
 
 
-@pytest.mark.parametrize("offload,save", PLANS, ids=PLAN_IDS)
-def test_policy_is_bit_equal_to_plain_remat(offload, save):
-    _, _, model, params, _, batch = _setup()
+def _bit_equal_to_plain_remat(offload, save, arch):
+    _, _, model, params, _, batch = _setup(arch=arch)
     batch = _tb(batch)
     plain = _loss_and_grads(model, params, batch, None)
     got = _loss_and_grads(model, params, batch,
@@ -99,27 +100,56 @@ def test_policy_is_bit_equal_to_plain_remat(offload, save):
     assert all(torch.equal(a, b) for a, b in zip(got, plain))
 
 
+@pytest.mark.parametrize("offload,save", PLANS, ids=PLAN_IDS)
+def test_policy_is_bit_equal_to_plain_remat(offload, save):
+    _bit_equal_to_plain_remat(offload, save, ARCH)
+
+
+# deepseek-v2-lite smoke: MLA in every layer, a dense FFN then two MoE FFNs,
+# whose aux losses leave each layer beside its output (``train_layer``'s
+# (x, aux)) and take their gradient in the policy's backward.
+MOE_ARCH = "deepseek-v2-lite-16b"
+
+
+@pytest.mark.parametrize("offload,save", PLANS, ids=PLAN_IDS)
+def test_moe_policy_is_bit_equal_to_plain_remat(offload, save):
+    _bit_equal_to_plain_remat(offload, save, MOE_ARCH)
+
+
 # Tolerances of tests/test_torch_train.py's JAX comparison at smoke fp32.
 LOSS_TOL, GRAD_TOL = 1e-5, 1e-4
 
 
-@pytest.mark.parametrize("offload,save", PLANS, ids=PLAN_IDS)
-def test_policy_matches_jax_under_the_reference_policy(offload, save):
-    jmodel, jparams, model, params, tcfg, batch = _setup()
+def _matches_jax_under_the_reference_policy(offload, save, arch):
+    jmodel, jparams, model, params, tcfg, batch = _setup(arch=arch)
     jpol = JaxOffloadPlan(offload_names=offload, save_names=save).policy()
     jbatch = {k: jax.numpy.asarray(v) for k, v in batch.items()}
     # The reference's offload policy moves residuals with TransferToMemoryKind,
     # which JAX permits only under jit (as its own test runs it).
-    jloss, jgrads = jax.jit(jax.value_and_grad(
-        lambda p: jmodel.loss(p, jbatch, remat=True, remat_policy=jpol)[0]))(jparams)
+    (jloss, jm), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.loss(p, jbatch, remat=True, remat_policy=jpol), has_aux=True))(jparams)
     got = _loss_and_grads(model, params, _tb(batch),
                           OffloadPlan(offload_names=offload, save_names=save).policy())
     assert abs(float(got[0]) - float(jloss)) <= LOSS_TOL * abs(float(jloss))
+    assert abs(float(got[1]) - float(jm["aux"])) <= LOSS_TOL * abs(float(jm["aux"]))
     want = tree_leaves(params_from_jax(jax.tree.map(np.asarray, jgrads), tcfg, "cpu",
                                        torch.float32))
     rel = [((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
-           for g, w in zip(got[1:], want)]
+           for g, w in zip(got[2:], want)]
     assert len(rel) == len(want) and max(rel) < GRAD_TOL, max(rel)
+
+
+@pytest.mark.parametrize("offload,save", PLANS, ids=PLAN_IDS)
+def test_policy_matches_jax_under_the_reference_policy(offload, save):
+    _matches_jax_under_the_reference_policy(offload, save, ARCH)
+
+
+# The batch of seed 0 routes the deepseek smoke model with its smallest
+# top-2 margin 6.1e-4 (tests/test_torch_moe_train.py holds the routing equal
+# to the reference's at this batch and these parameters).
+@pytest.mark.parametrize("offload,save", PLANS, ids=PLAN_IDS)
+def test_moe_policy_matches_jax_under_the_reference_policy(offload, save):
+    _matches_jax_under_the_reference_policy(offload, save, MOE_ARCH)
 
 
 @pytest.mark.parametrize("names", [["block_in"], list(KNOWN_NAMES)], ids=["block_in", "all"])

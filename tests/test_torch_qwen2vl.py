@@ -349,7 +349,7 @@ def test_loss_scores_the_padded_labels():
     x, positions = model._embed_inputs(params, batch)
     angles = model._angles(positions)
     for p, spec in zip(params["blocks"], [s for u, r in cfg.program for _ in range(r) for s in u]):
-        x = train_layer(p, x, cfg, spec, angles)
+        x, _ = train_layer(p, x, cfg, spec, angles)
     logits = lm_logits(params["embed"], apply_norm(params["final_norm"], x, cfg), cfg).float()
     # padded label NPATCH + j is labels[j], scored at position NPATCH + j - 1
     scored = logits[:, NPATCH - 1:-1]

@@ -2,13 +2,14 @@
 package's jaxpr tracer (``repro.core.trace``), on the CPU.
 
 Two functions with one aten op for each jaxpr eqn give the same event
-stream, event for event.  On qwen3-4b smoke and the quickstart config,
-forward loss and gradient, the two traces agree exactly on the parameter
-bytes and on the count and bytes of each activation label, and within
-stated tolerances on the peak load and SmartPool's footprint: the two
-frameworks do not emit the same ops (the reference's jnp attention and
-cross-entropy hold more fp32 temporaries at once; the port's tokens are
-int64), and the port frees a view with its base.
+stream, event for event.  On qwen3-4b smoke, the quickstart config and
+deepseek-v2-lite smoke (MLA, MoE), forward loss and gradient, the two
+traces agree exactly on the parameter bytes and on the count and bytes of
+each activation label, and within stated tolerances on the peak load and
+SmartPool's footprint: the two frameworks do not emit the same ops (the
+reference's jnp attention and cross-entropy hold more fp32 temporaries at
+once; the port's tokens are int64), and the port frees a view with its
+base.
 """
 
 import time
@@ -131,6 +132,9 @@ def test_views_and_in_place_ops_are_one_variable():
 def _configs(which):
     if which == "smoke":
         return jax_smoke_config("qwen3-4b"), get_smoke_config("qwen3-4b"), 2, 32
+    if which == "deepseek":
+        return (jax_smoke_config("deepseek-v2-lite-16b"), get_smoke_config("deepseek-v2-lite-16b"),
+                2, 32)
     prog = (((JaxLayerSpec(attn="full", ffn="dense"),), 4),)
     return (jax_smoke_config("qwen3-4b").reduced(program=prog, **QUICKSTART),
             get_smoke_config("qwen3-4b").reduced(
@@ -178,11 +182,22 @@ def _labels(trace):
 #   (exp, its broadcast, the softmax), the port's two (mul, new_zeros);
 # - quickstart forward 0.5002: the reference's cross-entropy holds two fp32
 #   [8, 255, 8192] tensors (logits and logits - max, 66,846,720 B each), the
-#   port's logsumexp one.
+#   port's logsumexp one;
+# - deepseek-v2-lite smoke forward 0.9981: both peaks come in MLA's
+#   attention with nearly every master live (902,912 B in the port, 929,664
+#   in the reference); beside them the port holds its two fp32 [2, 4, 32,
+#   32] score products before their sum, the reference one;
+# - deepseek-v2-lite smoke gradient 0.8530: the reference's peak holds every
+#   master (954,496 B), per-trip copies of the scanned MoE layers' three
+#   expert matrices (3 x 65,536 B; the port has no scan) and fp32 broadcasts
+#   of the [192, 64] dispatch buffer; the port's comes in an MoE layer's
+#   backward, with 774,016 B of masters live (those used for the last time
+#   freed) beside the layer's own temporaries.
 OMEGA_RATIO = {("smoke", False): 1.0342, ("smoke", True): 0.7695,
-               ("quickstart", False): 0.5002, ("quickstart", True): 0.6881}
-# chi/omega: SmartPool packs both within 4% of the peak (port smoke
-# gradient 1.0324, the largest; the reference's at most 1.0002).
+               ("quickstart", False): 0.5002, ("quickstart", True): 0.6881,
+               ("deepseek", False): 0.9981, ("deepseek", True): 0.8530}
+# chi/omega: SmartPool packs both within 4% of the peak (port deepseek smoke
+# gradient 1.0398, the largest; the reference's at most 1.0021).
 CHI_GAP = 0.04
 
 
