@@ -131,10 +131,11 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (SmartPool, the baseline pools, AutoSwap's four scores at 90,
               70 and 50% of the peak load, OffloadLowering) on a synthetic
               trace of qwen3-4b's layer structure under ``H100_SXM`` and
-              under ``TPU_V5E``; then the full qwen3-4b train step (B4
-              S512, fp32 masters) captured by the port's graph tracer on
-              fake tensors, (a) the loss and (b) the loss with its
-              gradient under remat, each planned under ``H100_SXM`` and run
+              under ``TPU_V5E``; then the qwen3-4b train step (B4 S512,
+              fp32 masters) captured by the port's graph tracer on fake
+              tensors, (a) the full model's loss and (b) the loss with its
+              gradient under remat of a 12-layer cut at every width, each
+              planned under ``H100_SXM`` and run
               for real, its peak beside the trace's peak load w ((a)'s w
               above its peak fails), with the graph's 0-byte nodes (which
               the tracer gives no variable) listed by target and (a)'s
@@ -182,8 +183,9 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (planning launches nothing; decode takes 0-d device positions),
               each step's vars, w, chi/w and AutoSwap@80%; w against the
               card's real peak around one warm call with the params resident
-              (w above it fails), the traced decode step's events at two
-              positions (equal), the verifier and the artifact's round trip,
+              (w above it fails), the decode step of phase 4's depth cut
+              traced at two positions (its events equal), the verifier and
+              the artifact's round trip,
               and a second run that restores both plans; then
               ``launch.colocate`` with prefill, decode@2.0 and train tenants
               of qwen3-4b, every plan restored (train's from phase 11),
@@ -252,12 +254,31 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               on the card, and the routing of every MoE layer's recompute
               in backward equal to its forward's, under remat in (a) and
               (b) and under the offload policy in (d).
+ 17. checkpoint  fault-tolerant training (``repro_torch.checkpoint``,
+              ``train.train(ckpt_dir=, ckpt_every=)``):
+              (a) a qwen3-4b cut of 2 layers at every published width
+              (590,820,352 parameters, 7,089,844,224 B a checkpoint: masters,
+              m and v) at B4 S512, 8 steps, after a check of the disk's free
+              space for three checkpoints: U uninterrupted, F saving async at
+              step 4 and failing at step 6 (injected), R relaunched, resuming
+              at step 5 and saving at step 7; F's and R's losses equal to
+              U's bit for bit, R's resume line, the last checkpoint restored
+              onto CPU tensors equal to U's final masters, m and v bit for
+              bit with count 8, its bytes the arithmetic, the directory
+              holding steps 4 and 7 and no ``.tmp``, exact launch counts by
+              variant a step in each run; the snapshot's blocking ms, each
+              save's seconds, the restore's, and the step with a save in
+              flight beside the median;
+              (b) ``examples/train_100m_torch.py`` (fp32) with ``--steps
+              60`` and then ``--steps 70`` in the same directory, which must
+              resume at step 60; exact launch counts (flash ``simt``).
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the main paths, the serve runs, plain
 and planned, the train runs, plain and with the offload plan, the CNN
-phase, the long decode, the example and deepseek's train runs, with each
-path's own count in ``launches_by_path``), the nvidia-smi line, and
+phase, the long decode, the example, deepseek's train runs and phase 17's
+runs, with each path's own count in ``launches_by_path``), the nvidia-smi
+line, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -269,7 +290,9 @@ import gc
 import io
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1740,7 +1763,8 @@ def phase_serve_plans(arch: str, B: int, P: int, G: int, want: dict[str, int], p
     decode loop passes 0-d device positions).  Then, for each step: its
     peak load w beside the card's real peak around one warm call with the
     params resident (w above the peak fails, as in phase 7 (a)), the
-    traced decode step's events at two positions (must be equal), the
+    decode step of phase 4's depth cut traced at two positions (its
+    events must be equal), the
     static verifier and the artifact's byte-for-byte round trip; and a
     second ``serve.main`` that must restore both plans.  -> launch counts."""
     from repro_torch.analyze import verify_program
@@ -1828,18 +1852,24 @@ def phase_serve_plans(arch: str, B: int, P: int, G: int, want: dict[str, int], p
         require(omega <= peaks[role], f"{arch} {role}: w {omega} B exceeds the real peak "
                                       f"{peaks[role]} B")
 
-    # The decode step traced at two positions (0-d CUDA tensors).
-    kv = init_program_cache(cfg, cfg.program, B, max_seq, dtype_of(cfg), "meta")
+    # The decode step traced at two positions (0-d CUDA tensors), on phase
+    # 4's depth cut in the model's dtype: whether the trace depends on the
+    # position is a property of each layer, and the full depth's two traces
+    # took 5-10 s a model.
+    cut = depth_cut(cfg).reduced(dtype=cfg.dtype)
+    cut_model = build_model(cut, "cuda")
+    kv = init_program_cache(cut, cut.program, B, max_seq, dtype_of(cut), "meta")
     tok_meta = torch.empty((B, 1), dtype=torch.long, device="meta")
     traced = []
     for pos in (pos0, pos0 + G - 2):
         t0 = time.perf_counter()
-        tr = trace_step_fn(build_serve_step(model, cfg), model.init_shapes(), kv, tok_meta,
-                           torch.tensor(pos, device="cuda"))
+        tr = trace_step_fn(build_serve_step(cut_model, cut), cut_model.init_shapes(), kv,
+                           tok_meta, torch.tensor(pos, device="cuda"))
         traced.append((pos, tr.num_indices, len(tr.variables), tr.peak_load(),
                        time.perf_counter() - t0))
-    print(f"[12] {arch} decode traced at two positions: " + "; ".join(
-        f"pos {p}: {n} events, {v} variables, w {w:,} B ({s:.1f}s)" for p, n, v, w, s in traced))
+    print(f"[12] {arch} decode of the {cut.num_layers}-layer cut traced at two positions: "
+          + "; ".join(f"pos {p}: {n} events, {v} variables, w {w:,} B ({s:.1f}s)"
+                      for p, n, v, w, s in traced))
     require(len({t[1:4] for t in traced}) == 1, f"{arch}: the decode trace depends on pos")
 
     # Warm start: a second serving process restores both plans.
@@ -2540,13 +2570,15 @@ def print_swaps(prog, limits, hw_name: str) -> None:
         print(f"  limit {frac:.0%} of w ({lim:,} B): " + "; ".join(cells))
 
 
-def phase_captured_plans(B: int, S: int, cfg=None, phase: str = "7", swaps: bool = True):
+def phase_captured_plans(B: int, S: int, cfg=None, phase: str = "7", swaps: bool = True,
+                         grad_cfg=None):
     """The full qwen3-4b train step (or ``cfg``'s) captured by the port's
     graph tracer (on fake CUDA tensors: no memory, no launch) two ways, each
     planned under H100_SXM by ``plan_and_check`` (with AutoSwap where
     ``swaps``): (a) ``model.loss(params, batch)[0]``, the step
     ``train --plan`` plans; (b) the loss and ``torch.autograd.grad`` of it
-    with respect to the params, under per-layer remat.  Then both run for
+    with respect to the params, under per-layer remat, of ``grad_cfg``
+    (by default ``cfg``).  Then both run for
     real at the same fp32 masters and batch, which are resident first, and
     the card's peak stands beside the trace's peak load w.  (a)'s w above
     its real peak is fatal: the trace frees each variable at its last use,
@@ -2564,28 +2596,29 @@ def phase_captured_plans(B: int, S: int, cfg=None, phase: str = "7", swaps: bool
     from repro_torch.tree import tree_leaves
 
     cfg = cfg or get_config("qwen3-4b")
-    model = build_model(cfg, "cuda")
+    models = {"a": build_model(cfg, "cuda"), "b": build_model(grad_cfg or cfg, "cuda")}
 
     def loss(params, batch):
-        return model.loss(params, batch)[0]
+        return models["a"].loss(params, batch)[0]
 
     def loss_and_grad(params, batch):
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
-        value = model.loss(params, batch)[0]
+        value = models["b"].loss(params, batch)[0]
         return (value, *torch.autograd.grad(value, leaves))
 
-    shapes = model.init_shapes(torch.float32)
     probe = {k: torch.empty(B, S, dtype=torch.long, device="meta") for k in ("tokens", "labels")}
     omega = {}
     for tag, fn in (("a", loss), ("b", loss_and_grad)):
+        name = models[tag].cfg.name
+        shapes = models[tag].init_shapes(torch.float32)
         t0 = time.perf_counter()
         gm = capture_graph(fn, shapes, probe, device="cuda")
         trace = trace_graph(gm, arg_names=_leaf_paths((shapes, probe)))
         capture_s = time.perf_counter() - t0
         zero = zero_byte_nodes(gm)
-        key = PlanKey(cfg.name, f"train:b{B}s{S}:{'loss' if tag == 'a' else 'grad'}",
+        key = PlanKey(name, f"train:b{B}s{S}:{'loss' if tag == 'a' else 'grad'}",
                       H100_SXM.name)
         prog, limits, solve_s, checks, nbytes = plan_and_check(trace, key, H100_SXM, swaps)
         peak = trace.peak_load()
@@ -2593,7 +2626,7 @@ def phase_captured_plans(B: int, S: int, cfg=None, phase: str = "7", swaps: bool
         labels = {n: sum(v.name == n for v in trace.variables)
                   for n in ("block_in", "attn_out", "ffn_out")}
         print(f"[{phase}] captured ({tag}) {'loss' if tag == 'a' else 'loss + grad (remat)'} "
-              f"{cfg.name} "
+              f"{name} "
               f"B{B} S{S} fp32 masters under {H100_SXM.name}: capture {capture_s:.2f}s, "
               f"{len(trace.variables)} variables (labels {labels}), iteration "
               f"{trace.op_times[-1] * 1e3:.3f} ms simulated, peak load w {peak:,} B; "
@@ -2614,10 +2647,10 @@ def phase_captured_plans(B: int, S: int, cfg=None, phase: str = "7", swaps: bool
                   f"{'equal' if got == CPU_CAPTURE_A else 'NOT equal'}")
 
     held = release_memory(phase)
-    params = model.init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
     batch = make_batch_fn(cfg, B, S, 0, "cuda")(0)
     peaks = {}
     for tag, fn in (("a", loss), ("b", loss_and_grad)):
+        params = models[tag].init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
         gc.collect()
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
@@ -2626,9 +2659,7 @@ def phase_captured_plans(B: int, S: int, cfg=None, phase: str = "7", swaps: bool
         torch.cuda.synchronize()
         real = torch.cuda.max_memory_allocated() - held
         value = float((out if tag == "a" else out[0]).detach())
-        del out
-        for t in tree_leaves(params):
-            t.requires_grad_(False)
+        del out, params
         peaks[tag] = (omega[tag], real)
         print(f"[{phase}] captured ({tag}) run for real: loss {value:.4f}, peak "
               f"{real:,} B on the card ({resident - held:,} B of params and batch resident "
@@ -2638,7 +2669,7 @@ def phase_captured_plans(B: int, S: int, cfg=None, phase: str = "7", swaps: bool
         if tag == "a":
             require(omega[tag] <= real, f"captured (a): w {omega[tag]} B exceeds the real peak "
                                         f"{real} B")
-    del params, batch
+    del batch
     return peaks
 
 
@@ -2789,6 +2820,7 @@ def phase_train_cut(B: int, S: int, steps: int, want: dict[str, int], extra=None
     require(len(records) == 2 * MOE_LAYERS * steps and all(recompute),
             f"train cut: {len(records)} MoE calls, recomputes routed as forwards {recompute}")
     require(counts == want, f"train cut: launch counts {counts}, want {want}")
+    run.params = run.opt = None  # the 54.79 GB of state would stay on the card
     return counts, run, peak, text
 
 
@@ -2840,6 +2872,225 @@ def phase_train_cut_offload(B: int, S: int, steps: int, want: dict[str, int], pl
     require(run.moved == [(per_step, per_step)] * steps,
             f"train cut offload: bytes {run.moved}; want {per_step} each way a step")
     return counts
+
+
+# Phase 17: fault-tolerant training.  A qwen3-4b cut of CKPT_LAYERS layers at
+# every published width (vocab 151,936, d 2560, GQA 32/8 x 128, qk-norm, d_ff
+# 9728), fp32 masters: the tied table 151,936 x 2,560, each layer (q, k, v, o,
+# the SwiGLU's three, ln1, ln2, q-norm, k-norm) 100,930,816, the final norm
+# 2,560.  A checkpoint holds masters, m and v, 12 B a parameter, and the count.
+QWEN3_PARAMS = {"embed": 151_936 * 2560, "layer": 100_930_816, "final_norm": 2560}
+CKPT_LAYERS = 2
+# Checkpoints land here, inside the checkout, and are removed after the phase.
+CKPT_ROOT = Path(__file__).resolve().parent / "build" / "ckpt"
+EXAMPLE_100M = Path(__file__).resolve().parent / "examples" / "train_100m_torch.py"
+
+
+def qwen3_cut(layers: int):
+    """qwen3-4b at every published width, cut to ``layers`` layers and named
+    apart from the full model."""
+    from repro_torch.configs import get_config
+
+    full = get_config("qwen3-4b")
+    ((unit, _),) = full.program
+    return full.reduced(name=f"qwen3-4b-cut{layers}", num_layers=layers,
+                        program=((unit, layers),))
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def phase_checkpoint(B: int, S: int, steps: int, per_step: dict[str, int]):
+    """(a) ``qwen3_cut(CKPT_LAYERS)`` through ``train.train`` for ``steps``
+    steps three times: U uninterrupted; F with ``ckpt_dir``, ``ckpt_every=4``
+    and ``fail_at=6`` (an async save at step 4, joined before the injected
+    failure leaves); R, F relaunched, which resumes at step 5 and saves at
+    the last step.  F's losses must equal U's steps 0-5 and R's U's steps
+    5-7 bit for bit, R must print its resume, the last checkpoint restored
+    onto CPU tensors must equal U's final masters, m and v bit for bit with
+    count ``steps``, its bytes the arithmetic, the directory steps 4 and 7
+    and no ``.tmp``, and each run's launch counts ``per_step`` times its
+    steps.  -> {path: launch counts}."""
+    from repro_torch.checkpoint import latest_step, restore_pytree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    cfg = qwen3_cut(CKPT_LAYERS)
+    shapes = build_model(cfg, "cpu").init_shapes(torch.float32)
+    n = sum(t.numel() for t in tree_leaves(shapes))
+    want_n = QWEN3_PARAMS["embed"] + CKPT_LAYERS * QWEN3_PARAMS["layer"] + \
+        QWEN3_PARAMS["final_norm"]
+    state_bytes = 12 * n
+    print(f"[17a] {cfg.name}: {n:,} parameters (arithmetic: {QWEN3_PARAMS['embed']:,} tied "
+          f"embedding + {CKPT_LAYERS} x {QWEN3_PARAMS['layer']:,} + "
+          f"{QWEN3_PARAMS['final_norm']:,} = {want_n:,}); a checkpoint holds masters, m and v, "
+          f"12 B a parameter: {state_bytes:,} B, and the count")
+    require(n == want_n, f"checkpoint: {n:,} parameters, the arithmetic gives {want_n:,}")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    CKPT_ROOT.mkdir(parents=True)
+    free = shutil.disk_usage(CKPT_ROOT).free
+    print(f"[17a] disk: {free:,} B free under {CKPT_ROOT.relative_to(SRC.parent)}, "
+          f"{3 * state_bytes:,} B needed for three checkpoints")
+    require(free >= 3 * state_bytes, f"checkpoint: {free:,} B free on the disk, three "
+            f"checkpoints of {cfg.name} need {3 * state_bytes:,} B")
+    # The disk's own rates beside the saves' and restores': 1 GiB of random
+    # bytes written in one call and fsynced, then read back (warm: the page
+    # cache holds it).
+    probe, blob = CKPT_ROOT / "probe", np.random.default_rng(0).bytes(2**30)
+    t0 = time.perf_counter()
+    with open(probe, "wb") as fh:
+        fh.write(blob)
+        fh.flush()
+        os.fsync(fh.fileno())
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = probe.read_bytes()
+    read_s = time.perf_counter() - t0
+    print(f"[17a] disk: 1 GiB written and fsynced at {2**30 / write_s / 1e9:.2f} GB/s, read "
+          f"back (warm) at {2**30 / read_s / 1e9:.2f} GB/s")
+    require(back == blob, "checkpoint: the disk probe read back other bytes")
+    probe.unlink()
+    del blob, back
+    ckpt = str(CKPT_ROOT / cfg.name)
+    common = dict(steps=steps, batch=B, seq=S, seed=0, log_every=1)
+
+    def counted(label, fn):
+        held = release_memory("17a")
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            run = fn()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[17a] {label}: wall {wall:.1f}s, peak {peak / 1e9:.2f} GB ({held / 2**30:.3f} "
+              f"GiB held before), launches {counts}")
+        for line in out.getvalue().strip().splitlines():
+            print(f"  {line}")
+        return run, counts, out.getvalue()
+
+    def failed():
+        try:
+            train.train(cfg, ckpt_dir=ckpt, ckpt_every=4, fail_at=6, **common)
+        except train.InjectedFailure as e:
+            print(f"  raised: {e}")
+            return e.run
+        raise AssertionError("F did not raise its injected failure")
+
+    u, u_counts, _ = counted("U, uninterrupted", lambda: train.train(cfg, **common))
+    want_leaves = [t.detach().cpu() for t in tree_leaves((u.params, u.opt.m, u.opt.v))]
+    u_count = u.opt.count
+    u.params = u.opt = None
+    f, f_counts, _ = counted("F, ckpt_every 4, fail_at 6", failed)
+    after_f = sorted(os.listdir(ckpt))
+    r, r_counts, r_text = counted("R, F relaunched",
+                                  lambda: train.train(cfg, ckpt_dir=ckpt, ckpt_every=4,
+                                                      **common))
+    r.params = r.opt = None
+    t0 = time.perf_counter()
+    (params, opt), step = restore_pytree((shapes, adamw_init(shapes)), ckpt, device="cpu")
+    restore_cpu_s = time.perf_counter() - t0
+    got_leaves = tree_leaves((params, opt.m, opt.v))
+    equal = [_bits_equal(g, w) for g, w in zip(got_leaves, want_leaves)]
+    got_bytes = sum(t.numel() * t.element_size() for t in got_leaves)
+    listing = sorted(os.listdir(ckpt))
+    shard = Path(ckpt) / f"step_{step:08d}" / "shard_0.npz"
+    manifest = json.loads((shard.parent / "MANIFEST.json").read_text())
+    warm = float(np.median(u.step_ms[1:]))
+    print(f"[17a] U losses {u.losses}")
+    print(f"[17a] F losses {f.losses} ({'equal bits' if f.losses == u.losses[:6] else 'NOT EQUAL'}"
+          f" to U's steps 0-5); R losses {r.losses} ("
+          f"{'equal bits' if r.losses == u.losses[5:] else 'NOT EQUAL'} to U's steps 5-7)")
+    print(f"[17a] directory after F {after_f}, after R {listing}; restored step {step} onto "
+          f"CPU tensors in {restore_cpu_s:.2f}s: {sum(equal)}/{len(equal)} leaves (masters, m, v) "
+          f"equal bits to U's final, count {opt.count} (U {u_count}); {got_bytes:,} B of "
+          f"leaves (arithmetic {state_bytes:,}), shard file {shard.stat().st_size:,} B, "
+          f"manifest {manifest['num_leaves']} leaves")
+    for label, run in (("F", f), ("R", r)):
+        for sv in run.saves:
+            print(f"[17a] {label} save of step {sv['step']} ({'async' if sv['async'] else 'sync'}): "
+                  f"snapshot blocked the caller {sv['snapshot_ms']:.1f} ms, write "
+                  f"{sv['write_s']:.2f}s {'on its thread' if sv['async'] else 'in the caller'} "
+                  f"({state_bytes / sv['write_s'] / 1e9:.2f} GB/s)")
+    print(f"[17a] R restored step 4 onto the card in {r.restore_s:.2f}s "
+          f"({state_bytes / r.restore_s / 1e9:.2f} GB/s); host ms a step: U "
+          f"{[round(t, 1) for t in u.step_ms]} (warm median {warm:.1f}), F "
+          f"{[round(t, 1) for t in f.step_ms]} (step 5, with the save of step 4 in flight: "
+          f"{f.step_ms[5]:.1f}), R {[round(t, 1) for t in r.step_ms]}")
+    want_counts = {k: v * steps for k, v in per_step.items()}
+    require(all(math.isfinite(x) for x in u.losses) and len(u.losses) == steps,
+            f"checkpoint: U's losses {u.losses}")
+    require(f.losses == u.losses[:6], f"checkpoint: F's losses {f.losses}, U's {u.losses[:6]}")
+    require(r.losses == u.losses[5:], f"checkpoint: R's losses {r.losses}, U's {u.losses[5:]}")
+    require("[resume] restored checkpoint, continuing at step 5" in r_text,
+            "checkpoint: R did not print its resume at step 5")
+    require([sv["step"] for sv in f.saves] == [4] and f.saves[0]["async"],
+            f"checkpoint: F's saves {f.saves}")
+    require([sv["step"] for sv in r.saves] == [steps - 1], f"checkpoint: R's saves {r.saves}")
+    require(step == steps - 1 and latest_step(ckpt) == steps - 1, f"checkpoint: last step {step}")
+    require(len(equal) == len(want_leaves) and all(equal) and opt.count == u_count == steps,
+            f"checkpoint: {equal.count(False)} leaves differ from U's, count {opt.count}")
+    require(got_bytes == state_bytes, f"checkpoint: {got_bytes:,} B, want {state_bytes:,}")
+    require(after_f == ["step_00000004"] and listing == ["step_00000004", f"step_{steps - 1:08d}"],
+            f"checkpoint: directory after F {after_f}, after R {listing}")
+    for label, counts, k in (("U", u_counts, steps), ("F", f_counts, 6), ("R", r_counts, 3)):
+        want = {name: v * k for name, v in per_step.items()}
+        require(counts == want, f"checkpoint: {label}'s launches {counts}, want {want}")
+    shutil.rmtree(ckpt)
+    return {f"train {cfg.name} (U)": u_counts, f"train {cfg.name} (F)": f_counts,
+            f"train {cfg.name} (R)": r_counts}
+
+
+def phase_example_100m(per_step: dict[str, int]) -> dict[str, dict[str, int]]:
+    """(b) ``examples/train_100m_torch.py`` on the card, as a user runs it:
+    ``--steps 60`` (an async save at step 50, the final one at 59), then
+    ``--steps 70`` in the same directory, which must resume at step 60 and
+    run steps 60-69; launch counts ``per_step`` times each run's steps.
+    -> {path: launch counts}."""
+    import importlib.util
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.kernels import ops
+
+    spec = importlib.util.spec_from_file_location("train_100m_torch", EXAMPLE_100M)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    ckpt = str(CKPT_ROOT / "100m")
+    paths = {}
+    for steps, done in ((60, 0), (70, 60)):
+        release_memory("17b")
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            losses = example.main(["--steps", str(steps), "--ckpt-dir", ckpt])
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        text = out.getvalue()
+        print(f"[17b] example train_100m_torch.py --steps {steps}: wall {wall:.1f}s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {counts}")
+        for line in text.strip().splitlines():
+            print(f"  {line}")
+        want = {k: v * (steps - done) for k, v in per_step.items()}
+        require(len(losses) == steps - done and all(math.isfinite(x) for x in losses),
+                f"example 100m: losses {losses}")
+        require("params=93.5M" in text, "example 100m: no parameter count line")
+        require(("resumed at step 60" in text) == bool(done),
+                f"example 100m --steps {steps}: resume line")
+        require(counts == want, f"example 100m: launches {counts}, want {want}")
+        paths[f"example train_100m --steps {steps}"] = counts
+    listing = sorted(os.listdir(ckpt))
+    print(f"[17b] directory {listing}")
+    require(latest_step(ckpt) == 69 and listing == ["step_00000059", "step_00000069"],
+            f"example 100m: directory {listing}")
+    shutil.rmtree(CKPT_ROOT)
+    return paths
 
 
 def mma_count(build, lib: str, ops: tuple[str, ...]) -> int:
@@ -2984,7 +3235,10 @@ def main() -> int:
     t7 = time.perf_counter()
     phase_link_and_compute()
     phase_planner()
-    phase_captured_plans(4, 512)
+    # (b), the loss with its gradient, on a 12-layer cut: at 36 layers its
+    # 6,593 variables took 80.55 s of AutoSwap's selections, the largest
+    # host cost of the script.
+    phase_captured_plans(4, 512, grad_cfg=qwen3_cut(12))
     print(f"[7] planner phase took {time.perf_counter() - t7:.1f}s")
 
     phase_train_parity("qwen3-4b", 128)
@@ -3096,6 +3350,28 @@ def main() -> int:
                                                                    cut_run)
     print(f"[16d] plans and the offload run took {time.perf_counter() - t:.1f}s")
     print(f"[16] deepseek training phase took {time.perf_counter() - t16:.1f}s")
+
+    # Phase 17: fault-tolerant training.  (a) The qwen3-4b cut's step under
+    # per-layer remat runs each layer's forward twice and the final norm
+    # once: RMSNorm forward 2 * 4 * 2 + 1 = 17 (ln1, ln2, q-norm, k-norm),
+    # backward 4 * 2 + 1 = 9, all `vector` (bf16, d 2560 and hd 128); flash
+    # 2 * 2 = 4 forward (with the LSE) and 2 backward, `wgmma` (bf16 at hd
+    # 128); no SSD.  (b) The 100M example is fp32 at d 640 and hd 64 with 10
+    # layers: RMSNorm forward 2 * 4 * 10 + 1 = 81 and backward 4 * 10 + 1 =
+    # 41, `vector` (fp32 rows of 640 and 64 take 16-byte vectors); flash
+    # 2 * 10 = 20 forward and 10 backward, `simt` (the wgmma kernels take
+    # bf16 only); no SSD.
+    t17 = time.perf_counter()
+    L = CKPT_LAYERS
+    paths.update(phase_checkpoint(4, 512, 8, want(2 * 4 * L + 1, 2 * L, 0, 4 * L + 1, L)))
+    print(f"[17a] took {time.perf_counter() - t17:.1f}s")
+    fp32 = want(2 * 4 * 10 + 1, 0, 0, 4 * 10 + 1, 0)
+    fp32.update({"flash_attention": 20, "flash_attention/simt": 20, "flash_attention_bwd": 10,
+                 "flash_attention_bwd/simt": 10})
+    t = time.perf_counter()
+    paths.update(phase_example_100m(fp32))
+    print(f"[17b] took {time.perf_counter() - t:.1f}s")
+    print(f"[17] checkpoint phase took {time.perf_counter() - t17:.1f}s")
 
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA

@@ -20,10 +20,25 @@ fp32 models (TF32 off).  ``main`` parses the flags and runs ``train``, the
 loop itself, which takes any config: a depth cut of a full model
 (``cfg.reduced(...)``, named apart) trains through it unchanged.
 
-Kept from the reference: the per-step and ``done:`` lines, the injected
-failure (``--fail-at``), the straggler watchdog (``--step-timeout``) and
-the paper's memory planner:
+Kept from the reference: the per-step and ``done:`` lines, fault
+tolerance, the straggler watchdog (``--step-timeout``) and the paper's
+memory planner:
 
+  * ``--ckpt-dir``     atomic keep-3 checkpoints of (params, AdamW state)
+                       through ``repro_torch.checkpoint``, in the
+                       reference's layout: ``async_save`` every
+                       ``--ckpt-every`` steps (default 50; not at step 0),
+                       then a synchronous save at the last step.  A run
+                       that finds a complete checkpoint there restores the
+                       latest, prints ``[resume] restored checkpoint,
+                       continuing at step N`` and trains on from N with the
+                       batches of steps N, N + 1, ... (``batch_fn(step)``),
+                       so it replays none;
+  * ``--fail-at``      an injected failure (``InjectedFailure``, a
+                       ``RuntimeError``) raised at the start of step N; any
+                       exception that leaves the loop first joins the save
+                       in flight, so a relaunch never meets a half-written
+                       step;
   * ``--plan``         print the SmartPool report of the step the reference
                        plans, ``model.loss(params, batch)[0]``, traced on
                        fake tensors at the params ``main`` trains (fp32
@@ -51,12 +66,13 @@ the paper's memory planner:
                        included; only the label classes execute.  Each
                        step's bytes moved each way are printed.
 
-Left out, each waiting for its ROADMAP queue A item: checkpointing
-``--ckpt-dir``/``--ckpt-every`` (item 11), and ``--dist-plan`` with the
-observability flags that watch its mesh run (item 12).
+Left out, waiting for ROADMAP queue A item 12: ``--dist-plan`` with the
+observability flags that watch its mesh run.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 24 \\
+      --batch 2 --seq 32 --ckpt-dir /tmp/ckpt --ckpt-every 10 [--fail-at 15]
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --smoke \\
       --device cpu --steps 5 [--plan --plan-cache /tmp/plans]
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama4-maverick-400b-a17b --smoke \\
@@ -74,10 +90,12 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data import SyntheticTokens
 from repro_torch.launch.steps import build_train_step
@@ -166,26 +184,45 @@ def plan_report(model, name: str, batch: int, seq: int, smoke: bool, plan_cache=
 
 @dataclass
 class TrainRun:
-    """What ``train`` returns: per step, the loss, the model's metrics
+    """What ``train`` returns: per step run, the loss, the model's metrics
     (``ce``, ``aux``) and ``grad_norm``, the host ms around the synchronised
     step, and the bytes the offload policy moved to host and back (empty
-    without one)."""
+    without one); the checkpoint manager's record of its saves
+    (``CheckpointManager.saves``) and the seconds a resume took to restore
+    (None without one); and the final params and AdamW state."""
 
     losses: list[float] = field(default_factory=list)
     metrics: list[dict[str, float]] = field(default_factory=list)
     step_ms: list[float] = field(default_factory=list)
     moved: list[tuple[int, int]] = field(default_factory=list)
+    saves: list[dict] = field(default_factory=list)
+    restore_s: float | None = None
+    params: Any = None
+    opt: Any = None
+
+
+class InjectedFailure(RuntimeError):
+    """The failure ``fail_at`` injects; ``run`` holds the steps run before it."""
+
+    def __init__(self, step: int, run: TrainRun):
+        super().__init__(f"injected failure at step {step}")
+        self.run = run
 
 
 def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4, seed: int = 0,
           device="cuda", plan: bool = False, plan_cache=None,
           hbm_limit_gb: float | None = None, plan_name: str | None = None, smoke: bool = False,
-          fail_at: int = -1, step_timeout: float = 10.0, log_every: int = 10) -> TrainRun:
+          fail_at: int = -1, step_timeout: float = 10.0, log_every: int = 10,
+          ckpt_dir: str | None = None, ckpt_every: int = 50) -> TrainRun:
     """The training loop for any config ``cfg``: ``main``'s for the registry's
     configs, and a depth cut's (``cfg.reduced(...)``) for a caller that
     trains one.  Plans are filed under ``plan_name`` (``main`` gives the
     arch), by default under ``cfg.name``, so a cut config, named apart from
-    its full model, never restores or overwrites the full model's plan."""
+    its full model, never restores or overwrites the full model's plan.
+    With ``ckpt_dir``, resumes from its latest checkpoint and saves as the
+    module's docstring says; a resume restores straight onto ``device``
+    (the template is the model's meta shapes), so the state is never held
+    twice."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to train on the CPU")
@@ -198,31 +235,58 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4, seed: int 
         policy = plan_report(model, plan_name or cfg.name, batch, seq, smoke, plan_cache,
                              hbm_limit_gb)
     train_step = build_train_step(model, cfg, lr=lr, remat_policy=policy)
-    params = model.init(torch.Generator(device).manual_seed(seed), dtype=torch.float32)
-    opt = adamw_init(params)
-
     run = TrainRun()
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start = 0
+    if mgr and mgr.latest_step() is not None:
+        t0 = time.perf_counter()
+        shapes = model.init_shapes(torch.float32)
+        (params, opt), start = mgr.restore((shapes, adamw_init(shapes)), device=device)
+        run.restore_s = time.perf_counter() - t0
+        start += 1
+        print(f"[resume] restored checkpoint, continuing at step {start}")
+    else:
+        params = model.init(torch.Generator(device).manual_seed(seed), dtype=torch.float32)
+        opt = adamw_init(params)
+
     stragglers = 0
-    for step in range(steps):
-        if step == fail_at:
-            raise RuntimeError(f"injected failure at step {step}")
-        t0 = time.time()
-        before = (policy.bytes_d2h, policy.bytes_h2d) if policy else (0, 0)
-        params, opt, metrics = train_step(params, opt, batch_fn(step), step)
-        loss = float(metrics["loss"])  # waits for the step's device work
-        dt = time.time() - t0
-        if policy:
-            run.moved.append((policy.bytes_d2h - before[0], policy.bytes_h2d - before[1]))
-        times = run.step_ms
-        if len(times) >= 5 and dt * 1e3 > step_timeout * float(np.median(times)):
-            stragglers += 1
-            print(f"[watchdog] step {step} took {dt:.2f}s "
-                  f"(median {np.median(times) / 1e3:.2f}s)")
-        times.append(dt * 1e3)
-        run.losses.append(loss)
-        run.metrics.append({k: float(metrics[k]) for k in ("ce", "aux", "grad_norm")})
-        if step % log_every == 0 or step == steps - 1:
-            print(f"step {step:5d}  loss {loss:.4f}  {dt*1000:.0f} ms")
+    try:
+        for step in range(start, steps):
+            if step == fail_at:
+                raise InjectedFailure(step, run)
+            t0 = time.time()
+            before = (policy.bytes_d2h, policy.bytes_h2d) if policy else (0, 0)
+            params, opt, metrics = train_step(params, opt, batch_fn(step), step)
+            loss = float(metrics["loss"])  # waits for the step's device work
+            dt = time.time() - t0
+            if policy:
+                run.moved.append((policy.bytes_d2h - before[0], policy.bytes_h2d - before[1]))
+            times = run.step_ms
+            if len(times) >= 5 and dt * 1e3 > step_timeout * float(np.median(times)):
+                stragglers += 1
+                print(f"[watchdog] step {step} took {dt:.2f}s "
+                      f"(median {np.median(times) / 1e3:.2f}s)")
+            times.append(dt * 1e3)
+            run.losses.append(loss)
+            run.metrics.append({k: float(metrics[k]) for k in ("ce", "aux", "grad_norm")})
+            if step % log_every == 0 or step == steps - 1:
+                print(f"step {step:5d}  loss {loss:.4f}  {dt*1000:.0f} ms")
+            if mgr and ckpt_every and step and step % ckpt_every == 0:
+                mgr.async_save((params, opt), step)
+        if mgr:
+            mgr.wait()
+            mgr.save((params, opt), steps - 1)
+    except BaseException as e:
+        if mgr:  # join the save in flight before the error leaves, then raise the error
+            try:
+                mgr.wait()
+            except Exception as err:
+                e.add_note(f"the checkpoint save in flight failed too: {err!r}")
+        raise
+    finally:
+        if mgr:
+            run.saves = list(mgr.saves)
+    run.params, run.opt = params, opt
     if policy:
         print(f"[offload] bytes a step to host {[d for d, _ in run.moved]}, "
               f"back {[h for _, h in run.moved]}")
@@ -242,6 +306,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--fail-at", type=int, default=-1, help="inject a crash at step N (tests)")
     ap.add_argument("--step-timeout", type=float, default=10.0, help="straggler factor vs median")
     ap.add_argument("--plan", action="store_true", help="print the SmartPool report")
@@ -259,7 +325,7 @@ def main(argv=None):
                 seed=args.seed, device=args.device, plan=args.plan, plan_cache=args.plan_cache,
                 hbm_limit_gb=args.hbm_limit_gb, plan_name=args.arch, smoke=args.smoke,
                 fail_at=args.fail_at, step_timeout=args.step_timeout,
-                log_every=args.log_every)
+                log_every=args.log_every, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
     return run.losses
 
 

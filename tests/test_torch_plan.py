@@ -334,8 +334,11 @@ def test_port_imports_without_jax():
         "import repro_torch.core, repro_torch.plan, repro_torch.analyze, repro_torch.runtime\n"
         "import repro_torch.core.trace, repro_torch.core.costmodel, repro_torch.core.planner\n"
         "import repro_torch.configs.specs, repro_torch.kernels.ops, repro_torch.launch.train\n"
-        "import repro_torch.core.offload_exec\n"
+        "import repro_torch.core.offload_exec, repro_torch.checkpoint\n"
         "from repro_torch.core import MemoryPlanner\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('ex', 'examples/train_100m_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
         "             and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))))\n"
         "assert not bad, bad\n"
