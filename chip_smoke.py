@@ -6,14 +6,14 @@ card and nvcc (CUDA_HOME or PATH); it imports the port from ``src/`` and
 nothing of JAX or of the JAX package.  Phases, each fatal on failure:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the eight kernel libraries compiled from
+  2. build    the nine kernel libraries compiled from
               ``src/repro_torch/kernels/csrc``, one nvcc each, in parallel,
               with ptxas's register and spill report by kernel, and the
               count of tensor-core instructions in the SASS of the three
               tensor-core libraries, none of which may be 0: HGMMA
               (warpgroup MMA) in the wgmma flash forward and backward
               libraries, HMMA or HGMMA in the tc SSD library;
-  3. kernels  ``torch.library.opcheck`` of the five ``repro_torch``
+  3. kernels  ``torch.library.opcheck`` of the seven ``repro_torch``
               operators on CUDA tensors at a small shape (schema, autograd
               registration, the fake implementation against the kernel's
               outputs, AOT dispatch); then each CUDA kernel, called
@@ -272,12 +272,41 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (b) ``examples/train_100m_torch.py`` (fp32) with ``--steps
               60`` and then ``--steps 70`` in the same directory, which must
               resume at step 60; exact launch counts (flash ``simt``).
+ 18. train mamba2  mamba2-370m trained at every published width, all 48
+              layers (368,338,432 parameters, 5,893,414,912 B of fp32
+              state), each part after the memory of the earlier ones is
+              dropped:
+              (a) the SSD scan's backward kernel (``ssd_scan_bwd``,
+              ``simt``) against its plain version on the card: mamba2's
+              training layout (x [4, 2048, 32, 64], B and C [4, 2048, 1,
+              128], bf16 views into one tensor; a second call bit for bit),
+              fp32 dense [1, 512, 32, 64], a ragged length of 1000, two
+              groups over 8 heads at N 16, a nonzero final-state cotangent,
+              and P = N = 128; each output relative to its max under
+              SSD_TOL, timed beside its bound and the plain backward;
+              (b) one train step of two Mamba-2 layers in fp32 (B1 S300,
+              which pads to two chunks of 256) on the card against the CPU,
+              as phase 8;
+              (c) the 48 layers through ``train.train`` at B4 S2048 for 5
+              steps: finite losses, ms a step, tokens/s, the peak beside the
+              state's arithmetic, exact launch counts by variant (a step:
+              SSD 96 forward ``tc`` and 48 backward, RMSNorm 193 forward and
+              97 backward ``vector``); a warm step profiled (the SSD
+              backward's share, the idle share);
+              (d) the loss step ``train --plan`` plans, traced and planned
+              under H100_SXM, its w beside the real peak of the loss run at
+              resident masters (above it fails), AutoSwap's plan at half w
+              (or a quarter, an eighth, until a label is named) executed for
+              (c)'s steps, seed and batches: losses equal to (c)'s bit for
+              bit, the same launch counts, and the bytes each way a step
+              exactly 48 x the names x one [4, 2048, 1024] bf16 activation.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the main paths, the serve runs, plain
 and planned, the train runs, plain and with the offload plan, the CNN
-phase, the long decode, the example, deepseek's train runs and phase 17's
-runs, with each path's own count in ``launches_by_path``), the nvidia-smi
+phase, the long decode, the example, deepseek's train runs, phase 17's
+runs and mamba2's train runs, with each path's own count in
+``launches_by_path``), the nvidia-smi
 line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -733,27 +762,13 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant):
     }
 
 
-def ssd_flops(b, s, h, p, n) -> int:
-    """Flops of the kernel's chunking on these shapes: for a chunk of c steps,
-    the lower triangle of C B^T and of its product with x dt, c (c + 1) / 2
-    (N + P) multiply-adds, and the inter-chunk term and the state update,
-    2 c P N."""
-    from repro_torch.kernels.ssd_scan import CHUNK
-
-    steps = 0
-    for c0 in range(0, s, CHUNK):
-        c = min(CHUNK, s - c0)
-        steps += c * (c + 1) // 2 * (n + p) + 2 * c * p * n
-    return 2 * b * h * steps
-
-
 def ssd_case(b, s, h, p, g, n, dtype, gen, want_variant, layout="dense"):
     """``layout``: ``"views"``, x, B and C are views into one [b, s, h p + 2 g n]
     tensor, as the model hands them over from its conv output (strided batch
     and sequence axes); ``"offset"``, views into such a tensor one element
     wider that start one element in (not 16-byte aligned, odd sequence
     stride); ``"dense"``, each is contiguous."""
-    from repro_torch.kernels.ssd_scan import _launch, ssd_scan, ssd_scan_plain, variant
+    from repro_torch.kernels.ssd_scan import _launch, flops, ssd_scan, ssd_scan_plain, variant
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -791,7 +806,7 @@ def ssd_case(b, s, h, p, g, n, dtype, gen, want_variant, layout="dense"):
     tol = SSD_TOL[dtype]
     rel_y, rel_state = rel(y, y_want), rel(state, state_want)
     nbytes = sum(t.numel() * t.element_size() for t in (*args, y, state))
-    b_ms, b_by = bound(nbytes, ssd_flops(b, s, h, p, n), dtype)
+    b_ms, b_by = bound(nbytes, flops(b, s, h, p, n), dtype)
     sets = [args] + [make() for _ in range(n_copies(nbytes) - 1)]
     other = None
     if var == "tc":  # the simt kernel on the same inputs, counting no launch
@@ -823,12 +838,14 @@ def print_case(c) -> None:
 
 
 def opcheck_ops(gen) -> None:
-    """``torch.library.opcheck`` of each of the five operators on CUDA tensors
-    at a small shape (the flash forward also at head dim 256, with a window,
-    a softcap and a scale): the schema, the autograd registration (rmsnorm and
-    flash_attention_lse take inputs that need a gradient), the fake
-    implementation against the kernel's real outputs (shapes, dtypes,
-    strides), and AOT dispatch with dynamic shapes."""
+    """``torch.library.opcheck`` of each of the seven operators on CUDA
+    tensors at a small shape (the flash forward also at head dim 256, with a
+    window, a softcap and a scale; the SSD scan also with inputs that need a
+    gradient, which its backward operator computes): the schema, the
+    autograd registration (rmsnorm, flash_attention_lse and ssd_scan take
+    inputs that need a gradient), the fake implementation against the
+    kernel's real outputs (shapes, dtypes, strides), and AOT dispatch with
+    dynamic shapes."""
     from torch.library import opcheck
 
     from repro_torch.kernels import ops  # noqa: F401  (defines the operators)
@@ -844,6 +861,10 @@ def opcheck_ops(gen) -> None:
     o, lse = O.flash_attention_lse(q, k, v, True, None, None, None)
     q256, k256, v256 = randn(1, 192, 4, 256, dtype=bf16), randn(1, 192, 2, 256, dtype=bf16), \
         randn(1, 192, 2, 256, dtype=bf16)
+    ssd_args = (randn(1, 128, 4, 64, dtype=bf16),
+                (torch.rand(1, 128, 4, generator=gen, device="cuda") * 0.1).to(bf16),
+                -torch.linspace(1.0, 4.0, 4, device="cuda").to(bf16),
+                randn(1, 128, 1, 64, dtype=bf16), randn(1, 128, 1, 64, dtype=bf16))
     cases = {
         "rmsnorm": (O.rmsnorm, (randn(64, 256, dtype=bf16, grad=True),
                                 randn(256, grad=True), 1e-6)),
@@ -857,12 +878,10 @@ def opcheck_ops(gen) -> None:
                                  v.detach().requires_grad_(), True, None, None, None)),
         "flash_attention_bwd": (O.flash_attention_bwd,
                                 (q, k, v, o, randn(1, 128, 4, 64, dtype=bf16), lse, None)),
-        "ssd_scan": (O.ssd_scan, (randn(1, 128, 4, 64, dtype=bf16),
-                                  (torch.rand(1, 128, 4, generator=gen, device="cuda") * 0.1
-                                   ).to(bf16),
-                                  -torch.linspace(1.0, 4.0, 4, device="cuda").to(bf16),
-                                  randn(1, 128, 1, 64, dtype=bf16),
-                                  randn(1, 128, 1, 64, dtype=bf16))),
+        "ssd_scan": (O.ssd_scan, ssd_args),
+        "ssd_scan (grad)": (O.ssd_scan, tuple(t.clone().requires_grad_() for t in ssd_args)),
+        "ssd_scan_bwd": (O.ssd_scan_bwd, (*ssd_args, randn(1, 128, 4, 64, dtype=bf16),
+                                          randn(1, 4, 64, 64))),
     }
     t0 = time.perf_counter()
     results = {name: opcheck(op, args) for name, (op, args) in cases.items()}
@@ -1165,9 +1184,12 @@ def phase_parity(arch: str, P: int, tail: int | None = None):
     require(torch.isfinite(l_gpu).all().item(), f"{arch}: non-finite logits in the parity run")
 
 
-def phase_train_parity(arch: str, S: int):
+def phase_train_parity(arch: str, S: int, phase: str | None = None):
     """One train step of ``depth_cut(arch)`` in fp32 (B1; qwen3-4b: two of its
-    layers; deepseek-v2-lite-16b: its dense layer, then an MoE layer): the
+    layers; deepseek-v2-lite-16b: its dense layer, then an MoE layer;
+    mamba2-370m: two Mamba-2 layers, whose SSD runs the simt kernels forward
+    and backward), printed under ``phase`` (by default 8, or 16a for an MoE
+    model): the
     loss and its gradients through ``Model.loss`` and ``torch.autograd.grad``,
     then ``adamw_step``, as ``build_train_step`` runs them; through the
     kernels on the card (forward and backward) against the plain path on the
@@ -1243,7 +1265,7 @@ def phase_train_parity(arch: str, S: int):
     if n_moe:
         aux_err = rel(aux_g, aux_c)
         aux = (f"aux {float(aux_g):.6f} (cpu {float(aux_c):.6f}), rel aux diff {aux_err:.3e}, ")
-    print(f"[{'16a' if n_moe else '8'}] train parity {arch} widths, {cfg.num_layers} layers "
+    print(f"[{phase or ('16a' if n_moe else '8')}] train parity {arch} widths, {cfg.num_layers} layers "
           f"({kinds}), fp32, B1 S{S}, one step (Model.loss, autograd, adamw_step): loss "
           f"{float(loss_g):.6f} (cpu {float(loss_c):.6f}), rel loss diff {loss_err:.3e}, {aux}max "
           f"rel grad diff {grad_err:.3e} over {len(g_c)} leaves, max rel param diff after the "
@@ -1739,7 +1761,7 @@ PORT_KERNELS = ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel", "rmsnorm_bwd_vec_
                 "flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                 "flash_bwd_dot_kernel", "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                "ssd_cb_kernel", "ssd_scan_tc_kernel", "ssd_scan_kernel")
+                "ssd_cb_kernel", "ssd_scan_tc_kernel", "ssd_scan_kernel", "ssd_scan_bwd_kernel")
 
 
 # Phase 12: the serving steps planned (serve --plan --plan-cache PLAN_DIR),
@@ -3093,6 +3115,222 @@ def phase_example_100m(per_step: dict[str, int]) -> dict[str, dict[str, int]]:
     return paths
 
 
+# Phase 18: mamba2-370m trained at every published width on one card: its 48
+# layers hold 368,338,432 parameters, 5,893,414,912 B of fp32 state (16 B a
+# parameter: masters, gradients, AdamW's m and v), so no depth is cut.
+MAMBA = "mamba2-370m"
+MAMBA_PARAMS = 368_338_432
+
+
+def ssd_bwd_case(b, s, h, p, g, n, dtype, gen, layout="dense", dstate=False, again=False):
+    """``repro_torch::ssd_scan_bwd`` (the CUDA kernel) against
+    ``ssd_scan_bwd_plain`` on the card, on the same inputs: dx, ddt, dA, dBm
+    and dCm, each relative to its max|want| under SSD_TOL.  ``layout`` as
+    ``ssd_case``'s (``"views"``: x, B and C views into one tensor, as the
+    model hands them over); ``dstate`` a nonzero cotangent of the final
+    state (zeros otherwise, as training gives); ``again`` a second call,
+    which must give every output bit for bit.  Timed (CUDA-graph replay)
+    beside its bound (the function's bytes, ``bwd_flops``) and the plain
+    backward on the card; no single PyTorch call computes it."""
+    from repro_torch.kernels.ssd_scan import bwd_flops, ssd_scan_bwd, ssd_scan_bwd_plain
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def make():
+        if layout == "views":
+            xbc = randn(b, s, h * p + 2 * g * n)
+            x, Bm, Cm = (t.unflatten(-1, (k, d)) for t, k, d in zip(
+                xbc.split([h * p, g * n, g * n], dim=-1), (h, g, g), (p, n, n)))
+        else:
+            x, Bm, Cm = randn(b, s, h, p), randn(b, s, g, n), randn(b, s, g, n)
+        # dt and A as ssd_case draws them: the slow heads carry their state
+        # across many chunks, so the carried state's gradient is checked.
+        dt = F.softplus(randn(b, s, h).float() - 4.0).to(dtype)
+        A = (-torch.linspace(1.0, 16.0, h, device="cuda")).to(dtype)
+        ds = (torch.randn((b, h, p, n), generator=gen, device="cuda") if dstate
+              else torch.zeros((b, h, p, n), device="cuda"))
+        return x, dt, A, Bm, Cm, randn(b, s, h, p), ds
+
+    args = make()
+    op = torch.ops.repro_torch.ssd_scan_bwd
+    before = ssd_scan_bwd.variant_launches["simt"]
+    got, want = op(*args), ssd_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    require(ssd_scan_bwd.variant_launches["simt"] == before + 1,
+            f"ssd_bwd x[{b},{s},{h},{p}] did not launch the simt kernel")
+    tol = SSD_TOL[dtype]
+    rels = [((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+            for a, w in zip(got, want)]
+    ok = all(r < tol for r in rels) and all(bool(torch.isfinite(t).all()) for t in got)
+    check = ("max|got-want| / max|want|: "
+             + ", ".join(f"{k} {r:.3e}" for k, r in zip(("dx", "ddt", "dA", "dB", "dC"), rels))
+             + f", each < {tol:g}")
+    if again:
+        same = all(torch.equal(a, c) for a, c in zip(got, op(*args)))
+        ok = ok and same
+        check += f"; a second call bit for bit: {same}"
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *got))
+    b_ms, b_by = bound(nbytes, bwd_flops(b, s, h, p, n), dtype)
+    sets = [args] + [make() for _ in range(n_copies(nbytes) - 1)]
+    return {
+        "case": f"ssd_bwd [simt] x[{b},{s},{h},{p}] B/C[{b},{s},{g},{n}] {str(dtype)[6:]}"
+                f"{LAYOUT_NOTE[layout]}{', dstate' if dstate else ''}",
+        "variant": "simt", "ok": ok, "check": check,
+        "max_abs_err": max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want)),
+        "ms": time_ms(op, sets, 10), "plain_ms": time_ms(ssd_scan_bwd_plain, sets, 2),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def phase_mamba_bwd_kernels():
+    """(a) The SSD backward kernel against its plain version: mamba2's
+    training layout (B4 S2048 H32 P64, B and C of one group of 128, bf16
+    views into one tensor, twice, bit for bit), fp32 dense, a ragged length,
+    two groups of N 16, a nonzero final-state cotangent, and the largest P
+    and N.  -> the cases."""
+    gen = torch.Generator("cuda").manual_seed(18)
+    bf16, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    cases = [
+        ssd_bwd_case(4, 2048, 32, 64, 1, 128, bf16, gen, "views", again=True),  # mamba2 training
+        ssd_bwd_case(1, 512, 32, 64, 1, 128, f32, gen),
+        ssd_bwd_case(1, 1000, 4, 64, 1, 128, f32, gen),            # ragged last chunk
+        ssd_bwd_case(2, 256, 8, 64, 2, 16, bf16, gen, "views"),    # g 2 over h 8, N 16
+        ssd_bwd_case(2, 300, 4, 64, 1, 128, f32, gen, dstate=True),
+        ssd_bwd_case(1, 200, 2, 128, 1, 128, f32, gen, dstate=True),  # the largest P and N
+    ]
+    print(f"[18a] the SSD backward against its plain version on the card "
+          f"({time.perf_counter() - t0:.1f}s):")
+    for c in cases:
+        print_case(c)
+    for c in cases:
+        require(c["ok"], f"{c['case']} disagrees with its plain version ({c['check']})")
+    return cases
+
+
+def phase_mamba_train(B: int, S: int, steps: int, want: dict[str, int], extra=None,
+                      phase: str = "18c", what: str = "remat"):
+    """(c) The full mamba2-370m (48 layers at every published width, seed 0)
+    through the training launcher's loop (``train.train``: fp32 masters, bf16
+    compute, per-layer remat, chunked loss, AdamW) at B``B`` S``S`` for
+    ``steps`` steps, ``extra`` its keyword arguments: finite losses, ms a
+    step, tokens/s, the peak beside the state's arithmetic and under the
+    card's memory, and exact launch counts by variant.  -> (launch counts,
+    the ``TrainRun``, peak bytes, output)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(MAMBA)
+    n = sum(t.numel() for t in tree_leaves(build_model(cfg, "cpu").init_shapes(torch.float32)))
+    require(n == MAMBA_PARAMS, f"{MAMBA}: {n:,} parameters, want {MAMBA_PARAMS:,}")
+    held = release_memory(phase)
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run = train.train(cfg, steps=steps, batch=B, seq=S, seed=0, log_every=1, plan_name=MAMBA,
+                          **(extra or {}))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(0).total_memory
+    text = out.getvalue()
+    warm = float(np.median(run.step_ms[1:]))
+    print(f"[{phase}] train {MAMBA} (48 Mamba-2 layers at full width, {n:,} parameters, fp32 "
+          f"masters, bf16 compute, {what}) B{B} S{S}, {steps} steps:")
+    for line in text.strip().splitlines():
+        print(f"  {line}")
+    print(f"  losses {run.losses}; grad norm {[m['grad_norm'] for m in run.metrics]}")
+    print(f"  host ms a step (synchronised) {[round(t, 1) for t in run.step_ms]}; warm median "
+          f"{warm:.1f} ms, {B * S / warm * 1e3:.0f} tokens/s; peak memory {peak:,} B "
+          f"({peak / 2**30:.2f} GiB) beside {16 * n:,} B of fp32 state (16 B x {n:,}: masters, "
+          f"gradients, m, v) and {card / 2**30:.2f} GiB on the card ({held / 2**30:.3f} GiB "
+          f"held before the run); launches {counts}; wall {wall:.1f}s (init included)")
+    require(len(run.losses) == steps and all(math.isfinite(x) for x in run.losses),
+            f"train {MAMBA}: losses {run.losses}")
+    require(peak < card, f"train {MAMBA}: peak {peak} B exceeds the card's {card} B")
+    require(counts == want, f"train {MAMBA}: launch counts {counts}, want {want}")
+    run.params = run.opt = None
+    return counts, run, peak, text
+
+
+def phase_mamba_plan(B: int, S: int, steps: int, want: dict[str, int], plain):
+    """(d) ``train --arch mamba2-370m --plan`` with the offload plan applied:
+    the loss step that ``train.step_planner`` traces, planned under H100_SXM
+    (its key the arch's, solved into PLAN_DIR), its w beside the card's real
+    peak around one call of that loss at resident masters (w above it
+    fails), AutoSwap's plan at half w, rounded down to 0.01 GiB, or at a
+    quarter or an eighth where half names no label (one must be named);
+    then ``train.train(plan=True, hbm_limit_gb=...)`` with the plan restored
+    from its cache for (c)'s steps, seed and batches: losses equal to
+    ``plain``'s (c) bit for bit, the same launch counts, and the bytes the
+    policy's counters moved each way a step exactly 48 x the names x one
+    [B, S, d] bf16 activation.  -> launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import build_model
+
+    cfg = get_config(MAMBA)
+    t0 = time.perf_counter()
+    planner = train.step_planner(build_model(cfg, "cuda"), MAMBA, B, S, False, str(PLAN_DIR))
+    rep = planner.report()
+    omega = rep.peak_load
+    plan_s = time.perf_counter() - t0
+    for frac in (2, 4, 8):
+        gb = math.floor(omega / frac / 2**30 * 100) / 100
+        limit = int(gb * 2**30)
+        t1 = time.perf_counter()
+        plan = planner.offload_plan(limit)
+        sw = planner.swap_report(limit)
+        print(f"[18d] AutoSwap at w / {frac}, {gb} GiB ({limit:,} B): offload_names "
+              f"{plan.offload_names}, save_names {plan.save_names}, predicted_savings "
+              f"{plan.predicted_savings:,} B; swdoa selects {sw.num_selected} variables, "
+              f"{sw.selected_bytes:,} B, simulated overhead {sw.overhead * 100:.2f}%, stalls "
+              f"{sw.stalls} ({time.perf_counter() - t1:.1f}s)")
+        if plan.offload_names:
+            break
+    print(f"[18d] plan: loss step of {MAMBA} B{B} S{S} (fp32 masters, 48 layers) traced and "
+          f"planned under H100_SXM in {plan_s:.1f}s: {rep.num_variables} variables, w "
+          f"{omega:,} B, SmartPool chi/w {rep.smartpool_ratio:.4f}, CnMem/w "
+          f"{rep.cnmem_ratio:.4f}")
+    require(plan.offload_names, f"no plan down to w / 8 names a label")
+    held = release_memory("18d")
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
+    batch = make_batch_fn(cfg, B, S, 0, "cuda")(0)
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    value = float(model.loss(params, batch)[0])
+    real = torch.cuda.max_memory_allocated() - held
+    del params, batch
+    print(f"[18d] the traced loss run for real: loss {value:.4f}, peak {real:,} B on the card "
+          f"({resident - held:,} B of masters and batch resident first) beside w {omega:,} B "
+          f"(w / peak {omega / real:.4f})")
+    require(math.isfinite(value), "18d: non-finite loss")
+    require(omega <= real, f"18d: w {omega} B exceeds the real peak {real} B")
+    counts, run, peak, text = phase_mamba_train(
+        B, S, steps, want, extra=dict(plan=True, hbm_limit_gb=gb, plan_cache=str(PLAN_DIR)),
+        phase="18d", what=f"remat, offloading {plan.offload_names}")
+    per_step = cfg.num_layers * len(plan.offload_names) * B * S * cfg.d_model * 2
+    print(f"[18d] the planned run against (c): losses "
+          f"{'equal bit for bit' if run.losses == plain.losses else 'NOT equal'}; bytes a step "
+          f"to host and back {run.moved} (want {per_step:,} each); peak {peak:,} B; host ms a "
+          f"step {[round(t, 1) for t in run.step_ms]} against "
+          f"{[round(t, 1) for t in plain.step_ms]}")
+    require("(restored from cache)" in text, "18d: the plan was not restored from its cache")
+    require(run.losses == plain.losses, f"18d: losses {run.losses} against {plain.losses}")
+    require(run.moved == [(per_step, per_step)] * steps,
+            f"18d: bytes {run.moved}; want {per_step} each way a step")
+    return counts
+
+
 def mma_count(build, lib: str, ops: tuple[str, ...]) -> int:
     """Instructions of the SASS of library ``lib`` whose opcode is one of
     ``ops`` (HGMMA: warpgroup MMA; HMMA: warp MMA), by the cuobjdump of the
@@ -3205,14 +3443,15 @@ def main() -> int:
     # a layer (ln1, ln2) plus the final norm.  Everything is bf16 with
     # widths that take 16-byte vectors: flash at head dim 64, 128 or 256 is
     # the wgmma variant, the SSD the tc variant, RMSNorm the vector variant.
-    def want(rms, flash, ssd, rms_bwd=0, flash_bwd=0):
+    def want(rms, flash, ssd, rms_bwd=0, flash_bwd=0, ssd_bwd=0):
         return {"rmsnorm": rms, "rmsnorm/vector": rms, "rmsnorm/scalar": 0,
                 "rmsnorm_bwd": rms_bwd, "rmsnorm_bwd/vector": rms_bwd, "rmsnorm_bwd/scalar": 0,
                 "flash_attention": flash, "flash_attention/wgmma": flash,
                 "flash_attention/simt": 0, "flash_attention_bwd": flash_bwd,
                 "flash_attention_bwd/wgmma": flash_bwd, "flash_attention_bwd/mma": 0,
                 "flash_attention_bwd/simt": 0,
-                "ssd_scan": ssd, "ssd_scan/tc": ssd, "ssd_scan/simt": 0}
+                "ssd_scan": ssd, "ssd_scan/tc": ssd, "ssd_scan/simt": 0,
+                "ssd_scan_bwd": ssd_bwd, "ssd_scan_bwd/simt": ssd_bwd}
 
     serve_want = {"qwen3-4b": (512, want((4 * 36 + 1) * 32, 36, 0)),
                   "mamba2-370m": (2048, want((2 * 48 + 1) * 32, 0, 48)),
@@ -3373,6 +3612,32 @@ def main() -> int:
     print(f"[17b] took {time.perf_counter() - t:.1f}s")
     print(f"[17] checkpoint phase took {time.perf_counter() - t17:.1f}s")
 
+    # Phase 18: mamba2-370m trained at full width.  A step under per-layer
+    # remat runs each layer's forward twice and the final norm once: the SSD
+    # forward 2 * 48 = 96 (`tc`: bf16, P 64 and N 128 in 16-byte rows of the
+    # conv output), RMSNorm forward 2 * 2 * 48 + 1 = 193 (ln1 at d 1024, the
+    # gated norm at d_inner 2048), and each backward once: the SSD 48 (`simt`,
+    # the one variant), RMSNorm 2 * 48 + 1 = 97, all `vector`; no flash.
+    from repro_torch.configs import get_config
+
+    t18 = time.perf_counter()
+    cases["ssd_scan_bwd"] = phase_mamba_bwd_kernels()
+    t = time.perf_counter()
+    # pads to 512: two of the config's chunks of 256, the second ragged
+    phase_train_parity(MAMBA, 300, phase="18b")
+    print(f"[18b] took {time.perf_counter() - t:.1f}s")
+    L = 48
+    mamba_want = want((2 * 2 * L + 1) * steps, 0, 2 * L * steps, (2 * L + 1) * steps, 0,
+                      L * steps)
+    t = time.perf_counter()
+    paths[f"train {MAMBA}"], mamba_run, _, _ = phase_mamba_train(4, 2048, steps, mamba_want)
+    phase_train_profile(4, 2048, phase="18c", cfg=get_config(MAMBA))
+    print(f"[18c] took {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths[f"train {MAMBA} (offload)"] = phase_mamba_plan(4, 2048, steps, mamba_want, mamba_run)
+    print(f"[18d] took {time.perf_counter() - t:.1f}s")
+    print(f"[18] mamba2 training phase took {time.perf_counter() - t18:.1f}s")
+
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA
     # autodiff of its jnp paths.
@@ -3380,7 +3645,8 @@ def main() -> int:
             "flash_attention": "src/repro/kernels/flash_attention.py:99",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:65",
             "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:25",
-            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:99"}
+            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:99",
+            "ssd_scan_bwd": "src/repro/kernels/ssd_scan.py:65"}
     kernels = []
     for name, main_case in ((n, cases[n][0]) for n in srcs):
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -80,12 +80,22 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _from_numpy(arr: np.ndarray, like, device=None):
-    """``arr`` as the template leaf ``like``: its dtype, on its device (or
-    ``device``); an int, float or bool for a Python scalar."""
+def _from_numpy(arr: np.ndarray, like, device=None, key: str = ""):
+    """``arr``, the checkpoint's leaf ``key``, as the template leaf ``like``:
+    its dtype, on its device (or ``device``); an int, float or bool for a
+    Python scalar.  A 2-byte void
+    array (``|V2``: how ``np.savez`` writes the reference's ml_dtypes bf16)
+    is read as the bits of a bf16 template and refused under any other."""
     if isinstance(like, torch.Tensor):
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"checkpoint shape {arr.shape}, template {tuple(like.shape)}")
+        if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+            if like.dtype != torch.bfloat16:
+                raise ValueError(f"checkpoint leaf {key!r} is {arr.dtype.str} (bf16 bits), "
+                                 f"template {like.dtype}")
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+            dev = like.device if device is None else torch.device(device)
+            return t.to(device=dev)
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if like.dtype == torch.bfloat16 and t.dtype == torch.float32:
             bits = t.view(torch.int32)
@@ -150,7 +160,7 @@ def restore_pytree(template, directory: str, step: int | None = None, *, device=
     if n != manifest["num_leaves"]:
         raise ValueError(f"checkpoint has {manifest['num_leaves']} leaves, template {n}")
     with np.load(os.path.join(path, "shard_0.npz")) as data:
-        tree = _rebuild(lambda key, like: _from_numpy(data[key], like, device), template)
+        tree = _rebuild(lambda key, like: _from_numpy(data[key], like, device, key), template)
     return tree, step
 
 

@@ -41,7 +41,8 @@ version's ``checkpoint`` makes.
 What the graph cannot see: memory a kernel allocates inside its wrapper
 (the RMSNorm backward's fp32 ``partial`` rows, one wave of blocks × D × 4 B,
 ``kernels/rmsnorm.py``; the flash backward's fp32 ``delta`` [B, H, Sq]; the
-tc SSD's C Bᵀ scratch) and the caching allocator's rounding; and the
+tc SSD's C Bᵀ scratch; the SSD backward's chunk states and per-head dB, dC
+in fp32) and the caching allocator's rounding; and the
 reference's own constructs: the port has no scans, so every layer is
 traced (``max_scan_unroll`` is accepted, so callers match, and has no
 effect), and it writes no per-trip copies of scanned weights.
@@ -54,8 +55,10 @@ two ``conv_general_dilated`` eqns, 2·|x|·(kh·kw·cout) for grad_input and
 2·|w|·(B·H'·W') for grad_weight, plus dy's elements for grad_bias, each
 only where ``output_mask`` asks for it; the flash operators 4·B·H·hd
 (forward) or 10·B·H·hd (backward) for each live (query, key) pair, as
-``chip_smoke.py`` counts them; reductions their input's elements; any
-other op its output's elements, as the reference's ``_eqn_cost``.  Bytes
+``chip_smoke.py`` counts them; the SSD scan and its backward by their
+chunking's count (``kernels/ssd_scan.py`` ``flops``, ``bwd_flops``);
+reductions their input's elements; any other op its output's elements,
+as the reference's ``_eqn_cost``.  Bytes
 are the node's tensor inputs and outputs.  The timing model prices swaps
 with them; they are no measurement.
 """
@@ -147,6 +150,9 @@ _REDUCTIONS = {"aten::sum", "aten::mean", "aten::amax", "aten::amin", "aten::max
                "aten::argmax", "aten::argmin", "aten::prod", "aten::logsumexp"}
 _FLASH = {"repro_torch::flash_attention": 4, "repro_torch::flash_attention_lse": 4,
           "repro_torch::flash_attention_bwd": 10}
+# The SSD operators by their chunking's count (the functions of
+# kernels/ssd_scan.py), from x [b, s, h, p] and Bm [b, s, g, n].
+_SSD = {"repro_torch::ssd_scan": "flops", "repro_torch::ssd_scan_bwd": "bwd_flops"}
 
 
 def _is_tensor(val) -> bool:
@@ -209,6 +215,12 @@ def _product_flops(node, qual: str, out_elems: float) -> float | None:
         return 2.0 * out_elems * float(math.prod(node.args[1].meta["val"].shape[1:]))
     if qual == "aten::convolution_backward":
         return _conv_backward_flops(node)
+    if qual in _SSD:
+        from ..kernels import ssd_scan  # imports torch, which the graph's nodes hold already
+
+        b, sq, h, p = node.args[0].meta["val"].shape
+        n = node.args[3].meta["val"].shape[3]
+        return float(getattr(ssd_scan, _SSD[qual])(b, sq, h, p, n))
     if qual in _FLASH:
         q, k = node.args[0].meta["val"], node.args[1].meta["val"]
         B, sq, H, hd = q.shape

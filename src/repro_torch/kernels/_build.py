@@ -28,7 +28,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 SOURCES = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_wgmma",
-           "flash_attention_bwd", "flash_attention_bwd_wgmma", "ssd_scan", "ssd_scan_tc")
+           "flash_attention_bwd", "flash_attention_bwd_wgmma", "ssd_scan", "ssd_scan_tc",
+           "ssd_scan_bwd")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -12,11 +12,12 @@ traced by ``core.trace`` holds one node per kernel, as a jaxpr holds one
 an oracle: the kernels mask ragged tiles and chunks, so the JAX package's
 length-based fallbacks are not needed.
 
-``fused_rmsnorm`` and ``flash_mha`` are differentiable: the gradients of
-``repro_torch::rmsnorm`` and ``repro_torch::flash_attention_lse`` are
-registered on the operators and call ``repro_torch::rmsnorm_bwd`` and
-``repro_torch::flash_attention_bwd`` (the backward kernels on the card,
-their plain versions on the CPU).  Attention whose inputs need a gradient
+``fused_rmsnorm``, ``flash_mha`` and ``ssd`` are differentiable: the
+gradients of ``repro_torch::rmsnorm``, ``repro_torch::flash_attention_lse``
+and ``repro_torch::ssd_scan`` are registered on the operators and call
+``repro_torch::rmsnorm_bwd``, ``repro_torch::flash_attention_bwd`` and
+``repro_torch::ssd_scan_bwd`` (the backward kernels on the card, their
+plain versions on the CPU).  Attention whose inputs need a gradient
 runs the LSE operator, which the backward reads; otherwise it runs the one
 without, as serving does, so the kernel writes no LSE.  The JAX kernels
 have no backward; the reference differentiates its jnp paths, which
@@ -42,7 +43,7 @@ from .flash_attention import check_bwd_supported
 
 # The CUDA wrappers, each counting its launches in ``.launches``.
 KERNELS = (_rms.rmsnorm, _rms.rmsnorm_bwd, _flash.flash_attention, _flash.flash_attention_bwd,
-           _ssd.ssd_scan)
+           _ssd.ssd_scan, _ssd.ssd_scan_bwd)
 _OPS = torch.ops.repro_torch
 
 
@@ -85,6 +86,18 @@ torch.library.register_autograd("repro_torch::flash_attention_lse", _flash_backw
                                 setup_context=_flash_setup)
 
 
+def _ssd_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)  # the kernel recomputes the chunk states from these
+
+
+def _ssd_backward(ctx, dy, dstate):  # an unused output's gradient comes as zeros
+    x, dt, A, Bm, Cm = ctx.saved_tensors
+    return _OPS.ssd_scan_bwd(x, dt, A, Bm, Cm, dy.contiguous(), dstate.contiguous())
+
+
+torch.library.register_autograd("repro_torch::ssd_scan", _ssd_backward, setup_context=_ssd_setup)
+
+
 # ------------------------------------------------------------- entry points
 def flash_mha(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
     """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd] (blockwise attention).
@@ -103,7 +116,9 @@ def ssd(x, dt, A, Bm, Cm):
     the plain version and both kernels (``tc`` for bf16 whose rows take
     16-byte copies, ``simt`` for fp32 and the other bf16 inputs;
     ``ssd_scan.variant``) chunk by their own 64 steps, which does not change
-    the function.  Forward only: its gradient waits for mamba2 training."""
+    the function.  Differentiable in all five inputs, through y and the
+    final state: the backward is ``repro_torch::ssd_scan_bwd``, which
+    recomputes the chunk states from the inputs."""
     return _OPS.ssd_scan(x, dt, A, Bm, Cm)
 
 
@@ -165,7 +180,8 @@ def label(x, name: str):
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel wrapper, and of each by variant
     (``rmsnorm/vector``, ``flash_attention/wgmma``, ``rmsnorm_bwd/vector``,
-    ``flash_attention_bwd/simt``, ``ssd_scan/tc``, ...), which sum to the
+    ``flash_attention_bwd/simt``, ``ssd_scan/tc``, ``ssd_scan_bwd/simt``,
+    ...), which sum to the
     wrapper's own count."""
     counts = {}
     for fn in KERNELS:

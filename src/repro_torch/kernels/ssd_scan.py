@@ -30,8 +30,16 @@ The ``torch.library`` operator ``repro_torch.ssd_scan`` carries it: the
 dispatcher sends a CUDA tensor to ``ssd_scan`` (the kernel, or a raise), a
 CPU tensor to the plain version, and a fake or meta tensor to a fake
 implementation that returns the real outputs' shapes, dtypes and strides
-(``variant`` reads addresses, so it runs only in the wrapper).  It has no
-gradient yet (ROADMAP queue B item 3).
+(``variant`` reads addresses, so it runs only in the wrapper).
+
+Its gradient is ``repro_torch.ssd_scan_bwd`` (``kernels/ops.py`` registers
+it on the forward operator): ``ssd_scan_bwd`` launches the one backward
+kernel (``csrc/ssd_scan_bwd.cu``, ``"simt"``: fp32 sums on the CUDA cores,
+a block for each (batch, head), which recomputes the chunks' entry states
+from the five inputs), ``ssd_scan_bwd_plain`` is the same function in
+PyTorch, what the CPU runs.  ``flops`` and ``bwd_flops`` count the work of
+the forward's and the backward's chunking on given shapes: the tracer
+prices both operators by them.
 """
 from __future__ import annotations
 
@@ -89,6 +97,30 @@ def ssd_scan_plain(x, dt, A, Bm, Cm):
                  + (xc * decay_out[..., None]).transpose(-1, -2) @ bc)
         y[:, :, c0:c1] = yc
     return y.transpose(1, 2).to(x.dtype), state
+
+
+def _chunks(s: int):
+    """The lengths of the 64-step chunks of s steps, the last one ragged."""
+    return [min(CHUNK, s - c0) for c0 in range(0, s, CHUNK)]
+
+
+def flops(b: int, s: int, h: int, p: int, n: int) -> int:
+    """FLOPs of the forward's chunking on these shapes (a multiply-add is
+    two): for a chunk of c steps, the lower triangle of C B^T and of its
+    product with x dt, c (c + 1) / 2 (N + P) multiply-adds, and the
+    inter-chunk term and the state update, 2 c P N."""
+    return 2 * b * h * sum(c * (c + 1) // 2 * (n + p) + 2 * c * p * n for c in _chunks(s))
+
+
+def bwd_flops(b: int, s: int, h: int, p: int, n: int) -> int:
+    """FLOPs of the backward's chunking on these shapes: for a chunk of c
+    steps, the lower triangles of C B^T and dy (x dt)^T and of the three
+    products with them (dC, dB, d(x dt)), c (c + 1) / 2 (3 N + 2 P)
+    multiply-adds, and five c x P x N products: the state recomputed, dy
+    against the entry state (dC's inter-chunk term), the carried state
+    gradient against x dt (dB) and against B (d(x dt)), and its update."""
+    return 2 * b * h * sum(c * (c + 1) // 2 * (3 * n + 2 * p) + 5 * c * p * n
+                           for c in _chunks(s))
 
 
 def check_args(x, dt, A, Bm, Cm) -> None:
@@ -155,6 +187,152 @@ ssd_scan.launches = 0
 ssd_scan.variant_launches = {"tc": 0, "simt": 0}
 
 
+# ---------------------------------------------------------------- backward
+def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dstate):
+    """The gradient of ``ssd_scan_plain``: the five inputs, dy [b,s,h,p] (y's
+    cotangent) and dstate [b,h,p,n] fp32 (the final state's) -> (dx, ddt,
+    dA, dBm, dCm), each in its input's dtype and shape, computed in fp32
+    over the same 64-step chunks, in closed form (an operator's CPU kernel
+    cannot record autograd under a dispatch mode, as ``opcheck`` runs it).
+    Per chunk, with cum the cumulative sum of dt A, decay the masked
+    exp(cum_t - cum_s), Lm = C B^T o decay, Pd = dy (x dt)^T, W = Pd o decay,
+    S_in the entering state and dS the gradient of the state that leaves the
+    chunk (dstate for the last), walked from the last chunk to the first:
+
+      d(x dt) = Lm^T dy + exp(cum_last - cum) o (B dS^T)
+      dC      = W B + exp(cum) o (dy S_in)
+      dB      = W^T C + exp(cum_last - cum) o ((x dt) dS)
+      d(dt A)_s = sum_{t >= s > u} (Lm o Pd)_tu + sum_{t >= s} exp(cum_t) C_t . (S_in^T dy_t)
+                  + exp(cum_last) <dS, S_in> + sum_{t < s} (x dt)_t . (d(x dt)_t's dS term)
+      dS_in   = exp(cum_last) dS + (exp(cum) o dy)^T C
+
+    then dx = dt d(x dt), ddt = x . d(x dt) + A d(dt A), dA = sum dt
+    d(dt A), and dB, dC summed over the heads of a group.  d(dt A) is the
+    reverse cumulative sum of cum's gradient, written so that nothing
+    cancels: the intra-chunk pairs whose decay spans step s, the inter-chunk
+    terms after it, and the state's terms before it (the form dy . y -
+    (x dt) . d(x dt) summed from the end cancels its diagonal and the
+    state's total, and in fp32 its dA missed the reference's by more than
+    the 1e-4 the tests hold it to)."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    dtf = dt.float().transpose(1, 2)                              # [b,h,s]
+    xf = x.float().transpose(1, 2)                                # [b,h,s,p]
+    xdt = xf * dtf[..., None]
+    a = dtf * A.float()[:, None]
+    Bh = Bm.float().repeat_interleave(rep, dim=2).transpose(1, 2)  # [b,h,s,n]
+    Ch = Cm.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    dyf = dy.float().transpose(1, 2)
+    bounds = [(c0, min(c0 + CHUNK, s)) for c0 in range(0, s, CHUNK)]
+    states = [torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)]
+    for c0, c1 in bounds[:-1]:  # each chunk's entry state
+        cum = a[:, :, c0:c1].cumsum(-1)
+        decay_out = torch.exp(cum[..., -1:] - cum)
+        states.append(states[-1] * torch.exp(cum[..., -1])[..., None, None]
+                      + (xdt[:, :, c0:c1] * decay_out[..., None]).transpose(-1, -2)
+                      @ Bh[:, :, c0:c1])
+    dxdt, dB, dC, da = (torch.empty_like(t) for t in (xdt, Bh, Ch, a))
+    dS = dstate.float()
+    for i in reversed(range(len(bounds))):
+        c0, c1 = bounds[i]
+        xc, bc, cc, dyc = xdt[:, :, c0:c1], Bh[:, :, c0:c1], Ch[:, :, c0:c1], dyf[:, :, c0:c1]
+        s_in = states[i]
+        cum = a[:, :, c0:c1].cumsum(-1)
+        lower = torch.ones((c1 - c0, c1 - c0), dtype=torch.bool, device=x.device).tril()
+        # Mask before the exp: above the diagonal the differences are positive.
+        decay = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(~lower, -torch.inf))
+        Lm = (cc @ bc.transpose(-1, -2)) * decay
+        Pd = dyc @ xc.transpose(-1, -2)
+        W = Pd * decay
+        e_in = torch.exp(cum)[..., None]
+        decay_out = torch.exp(cum[..., -1:] - cum)[..., None]
+        dx_state = decay_out * (bc @ dS.transpose(-1, -2))
+        dxdt[:, :, c0:c1] = Lm.transpose(-1, -2) @ dyc + dx_state
+        q = dyc @ s_in                                             # [b,h,c,n]
+        dC[:, :, c0:c1] = W @ bc + e_in * q
+        dB[:, :, c0:c1] = W.transpose(-1, -2) @ cc + decay_out * (xc @ dS)
+        M = Lm * Pd
+        span = ((M.cumsum(-1) - M) * lower).sum(-2)          # sum over t >= s > u of M_tu
+        inter = e_in[..., 0] * (cc * q).sum(-1)
+        state = (xc * dx_state).sum(-1)
+        da[:, :, c0:c1] = (span + inter.flip(-1).cumsum(-1).flip(-1) + state.cumsum(-1) - state
+                           + (torch.exp(cum[..., -1]) * (dS * s_in).sum((-2, -1)))[..., None])
+        dS = dS * torch.exp(cum[..., -1])[..., None, None] + (e_in * dyc).transpose(-1, -2) @ cc
+    dx = (dxdt * dtf[..., None]).transpose(1, 2)
+    ddt = ((xf * dxdt).sum(-1) + A.float()[:, None] * da).transpose(1, 2)
+    dA = (dtf * da).sum((0, 2))
+    dBm = dB.transpose(1, 2).unflatten(2, (g, rep)).sum(3)
+    dCm = dC.transpose(1, 2).unflatten(2, (g, rep)).sum(3)
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dBm.to(Bm.dtype),
+            dCm.to(Cm.dtype))
+
+
+_BWD_ARGTYPES = [_I] + [_P] * 13 + [_I] * 6 + [_L] * 8 + [_P]
+
+
+def check_bwd_args(x, dt, A, Bm, Cm, dy, dstate) -> None:
+    """Raise ValueError on what the backward kernel does not take: the
+    forward's inputs as ``check_args`` takes them, dy contiguous like y and
+    dstate contiguous fp32 [b,h,p,n], on x's device."""
+    check_args(x, dt, A, Bm, Cm)
+    b, s, h, p = x.shape
+    n = Bm.shape[3]
+    if (dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous()
+            or dy.device != x.device):
+        raise ValueError(f"ssd_scan_bwd: dy must be contiguous {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}, got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    if (tuple(dstate.shape) != (b, h, p, n) or dstate.dtype != torch.float32
+            or not dstate.is_contiguous() or dstate.device != x.device):
+        raise ValueError(f"ssd_scan_bwd: dstate must be contiguous float32 {(b, h, p, n)} on "
+                         f"{x.device}, got {dstate.dtype} {tuple(dstate.shape)} on "
+                         f"{dstate.device}")
+
+
+def _launch_bwd(x, dt, A, Bm, Cm, dy, dstate):
+    """Run the backward kernel on arguments that ``check_bwd_args`` passed;
+    count nothing.  The kernel writes dx and ddt, and in fp32 each block's
+    dA term and each head's dB and dC; the sums over the batch and over the
+    heads of a group are ``sum``s over one axis here, in a fixed order."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, s, h), dtype=dt.dtype, device=dev)
+    dA_part = torch.empty((b, h), **f32)
+    dB_h, dC_h = torch.empty((b, s, h, n), **f32), torch.empty((b, s, h, n), **f32)
+    states = torch.empty((b, h, -(-s // CHUNK), p, n), **f32)  # each chunk's entry state
+    fn = _build.function("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                 Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(), dstate.data_ptr(),
+                 states.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(),
+                 dB_h.data_ptr(), dC_h.data_ptr(), b, s, h, g, p, n, x.stride(0), x.stride(1),
+                 dt.stride(0), dt.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
+                 Cm.stride(1), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("ssd_scan_bwd", err)
+    rep = h // g
+    return (dx, ddt, dA_part.sum(0).to(A.dtype),
+            dB_h.view(b, s, g, rep, n).sum(3).to(Bm.dtype),
+            dC_h.view(b, s, g, rep, n).sum(3).to(Cm.dtype))
+
+
+def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate):
+    """The gradient of ``ssd_scan``: the five inputs, dy [b,s,h,p] and dstate
+    [b,h,p,n] fp32 -> (dx, ddt, dA, dBm, dCm) in the inputs' dtypes and
+    shapes, through the CUDA kernel (one variant, ``"simt"``)."""
+    check_bwd_args(x, dt, A, Bm, Cm, dy, dstate)
+    out = _launch_bwd(x, dt, A, Bm, Cm, dy, dstate)
+    ssd_scan_bwd.launches += 1
+    ssd_scan_bwd.variant_launches["simt"] += 1
+    return out
+
+
+ssd_scan_bwd.launches = 0
+ssd_scan_bwd.variant_launches = {"simt": 0}
+
+
 # ---------------------------------------------------------------- operator
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
 _LIB.define("ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm) -> (Tensor, Tensor)")
@@ -174,3 +352,20 @@ def _ssd_scan_fake(x, dt, A, Bm, Cm):
     b, s, h, p = x.shape
     return (x.new_empty((b, s, h, p)),
             x.new_empty((b, h, p, Bm.shape[3]), dtype=torch.float32))
+
+
+_LIB.define("ssd_scan_bwd(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, Tensor dy, "
+            "Tensor dstate) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+_LIB.impl("ssd_scan_bwd", ssd_scan_bwd, "CUDA")
+
+
+def _ssd_scan_bwd_cpu(x, dt, A, Bm, Cm, dy, dstate):
+    return tuple(t.contiguous() for t in ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dstate))
+
+
+_LIB.impl("ssd_scan_bwd", _ssd_scan_bwd_cpu, "CPU")
+
+
+@torch.library.register_fake("repro_torch::ssd_scan_bwd")
+def _ssd_scan_bwd_fake(x, dt, A, Bm, Cm, dy, dstate):
+    return tuple(t.new_empty(t.shape) for t in (x, dt, A, Bm, Cm))

@@ -2,12 +2,14 @@
 scan, decode as a one-step recurrence.
 
 Counterpart of ``repro/models/ssm.py`` (``_dims`` ... ``decode_mamba``).
-Prefill runs the SSD through ``kernels.ops.ssd``: the Hopper kernel on the
-card, which also hands back the final state for the decode cache, where the
-reference computes the scan in jnp (``ssd_chunked``).  The causal conv, the
-decode step's recurrence and the other elementwise work stay plain PyTorch,
-as the JAX package has no kernel for them; the gated norm goes through
-``layers.rmsnorm``, so through the RMSNorm kernel on the card.
+Prefill and training run the SSD through ``kernels.ops.ssd``: the Hopper
+kernel on the card, which also hands back the final state for the decode
+cache, and whose gradient is the backward kernel, where the reference
+computes the scan in jnp (``ssd_chunked``) and differentiates that.  The
+causal conv, the decode step's recurrence and the other elementwise work
+stay plain PyTorch, as the JAX package has no kernel for them; the gated
+norm goes through ``layers.rmsnorm``, so through the RMSNorm kernel on
+the card.
 
 Layout: d_inner = expand * d_model, heads H = d_inner / headdim (P =
 headdim), state N = ssm_state, G groups share B/C across H/G heads.  The
@@ -37,12 +39,15 @@ def _dims(cfg: ModelConfig):
     return di, H, P, N, G, conv_dim
 
 
-def init_mamba(generator: torch.Generator, cfg: ModelConfig):
-    """Matrices in ``cfg.dtype`` (the reference casts them at use); the 1-D
-    parameters fp32, as the reference keeps them."""
+def init_mamba(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype | None = None):
+    """Matrices (``in_proj``, ``conv_w``, ``out_proj``) in ``dtype``:
+    ``cfg.dtype`` when None (serving), ``torch.float32`` for training's
+    masters (every use casts them to the activations' dtype, as the
+    reference's ``.astype`` does); the 1-D parameters fp32, as the
+    reference keeps them."""
     d = cfg.d_model
     di, H, P, N, G, conv_dim = _dims(cfg)
-    dev, dt = generator.device, dtype_of(cfg)
+    dev, dt = generator.device, dtype or dtype_of(cfg)
     proj_out = 2 * di + 2 * G * N + H  # z, x, B, C, dt
     return {
         "in_proj": normal(generator, (d, proj_out), 1.0 / math.sqrt(d), dt),
@@ -85,7 +90,7 @@ def _causal_conv(xBC, w, b):
 
 
 def apply_mamba(p, x_in, cfg: ModelConfig, *, return_cache: bool = False):
-    """x_in [B,S,D] -> [B,S,D] (prefill).
+    """x_in [B,S,D] -> [B,S,D] (training or prefill).
 
     ``return_cache=True`` also returns the decode cache: the scan's final
     state and the conv tail.

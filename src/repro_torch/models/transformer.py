@@ -31,11 +31,12 @@ The reference scans stacked segment parameters with ``lax.scan``; here
 ``params["blocks"]`` and the cache hold one entry per layer, in program
 order, and a Python loop runs them (``models/convert.py`` unstacks a JAX
 pytree into this form).  ``Model.loss`` trains attention (full, or MLA's)
-with dense or MoE FFNs; each MoE layer's Switch aux loss is carried out of
-the layer (through remat and an offload policy alike) and summed in fp32,
-and the loss is ``ce + 0.01 * aux``, as the reference's.  Mamba-2 and
-hybrid training wait for the SSD scan's gradient (ROADMAP queue B item 3,
-B3b).
+and Mamba-2 mixers, with dense or MoE FFNs or none; each MoE layer's
+Switch aux loss is carried out of the layer (through remat and an offload
+policy alike) and summed in fp32, and the loss is ``ce + 0.01 * aux``, as
+the reference's.  Hybrid training waits for the flash gradient with a
+window (ROADMAP queue B item 2, B2d): all but three of hymba's layers have
+one.
 """
 
 from __future__ import annotations
@@ -71,10 +72,8 @@ from .layers import (
 from .rope import mrope_angles, position_tensor, rope_angles
 
 
-NOT_TRAINED = ("is not yet ported: it needs the SSD scan's gradient, see ROADMAP.md queue B "
-               "item 3 (B3b)")
-# Layer kinds that run a Mamba-2 mixer.
-SSM_KINDS = ("mamba", "hybrid")
+NOT_TRAINED = ("is not yet ported: it needs the flash gradient with a window, see ROADMAP.md "
+               "queue B item 2 (B2d)")
 # The weight of the summed MoE aux loss in the training loss: the
 # reference's ``ce + 0.01 * aux`` (``repro/models/transformer.py:447``).
 AUX_WEIGHT = 0.01
@@ -116,13 +115,13 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     dev = generator.device
     p: dict[str, Any] = {"ln1": init_norm(cfg, dev)}
     if spec.attn == "mamba":
-        p["mamba"] = ssm_mod.init_mamba(generator, cfg)
+        p["mamba"] = ssm_mod.init_mamba(generator, cfg, dtype)
     elif spec.attn == "mla":
         p["attn"] = mla_mod.init_mla(generator, cfg, spec, dtype)
     else:
         p["attn"] = attn_mod.init_attention(generator, cfg, spec, dtype)
     if spec.attn == "hybrid":
-        p["mamba"] = ssm_mod.init_mamba(generator, cfg)
+        p["mamba"] = ssm_mod.init_mamba(generator, cfg, dtype)
         p["branch_norm_a"] = torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
         p["branch_norm_m"] = torch.ones(cfg.d_model, dtype=torch.float32, device=dev)
     if cfg.sandwich_norms:
@@ -176,8 +175,8 @@ def _cross(p, x, cfg: ModelConfig, enc_kv):
 
 def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, enc_out=None,
                 causal: bool = True):
-    """Forward one attention (or MLA) layer over the whole sequence, for the
-    loss or as an encoder layer (``causal=False``) -> (x, aux), as the
+    """Forward one attention, MLA or Mamba-2 layer over the whole sequence,
+    for the loss or as an encoder layer (``causal=False``) -> (x, aux), as the
     reference's ``apply_layer``: ``aux`` is the MoE FFN's fp32 aux loss, or
     None for a layer without one.  The reference's activation labels
     (``block_in``, ``attn_out``, ``ffn_out``:
@@ -187,7 +186,9 @@ def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, enc_out=None,
     with cross attention reads the encoder's output ``enc_out``."""
     x = label(x, "block_in")
     h = apply_norm(p["ln1"], x, cfg)
-    if spec.attn == "mla":
+    if spec.attn == "mamba":
+        h = ssm_mod.apply_mamba(p["mamba"], h, cfg)
+    elif spec.attn == "mla":
         h = mla_mod.apply_mla(p["attn"], h, cfg, spec, angles, causal=causal)
     else:
         h = attn_mod.apply_attention(p["attn"], h, cfg, spec, angles, causal)
@@ -311,9 +312,6 @@ class Model:
         cfg = self.cfg
         specs = layer_specs(cfg.program)
         dtype = dtype or dtype_of(cfg)
-        if dtype != dtype_of(cfg) and any(spec.attn in SSM_KINDS for spec in specs):
-            raise NotImplementedError(f"Mamba-2 weights stored apart from cfg.dtype (training) "
-                                      f"{NOT_TRAINED}")
         return {
             "embed": init_embedding(generator, cfg, dtype),
             "blocks": [init_layer(generator, cfg, spec, dtype) for spec in specs],
@@ -386,9 +384,9 @@ class Model:
         as the reference's is."""
         cfg = self.cfg
         specs = layer_specs(cfg.program)
-        if any(spec.attn in SSM_KINDS for spec in specs):
-            raise NotImplementedError(f"{cfg.name} training (Mamba-2 and hybrid layers) "
-                                      f"{NOT_TRAINED}")
+        if any(spec.attn == "hybrid" for spec in specs):
+            raise NotImplementedError(f"{cfg.name} training (hybrid layers: attention with a "
+                                      f"window beside Mamba-2) {NOT_TRAINED}")
         x, positions = self._embed_inputs(params, batch)
         angles = self._angles(positions)
         aux = None

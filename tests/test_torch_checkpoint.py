@@ -187,6 +187,28 @@ def test_bf16_and_adamw_count_round_trip_bit_for_bit(tmp_path):
         assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
 
 
+def test_reference_bf16_leaf_restores_bit_for_bit(tmp_path):
+    """The reference's ``save_pytree`` writes an ml_dtypes bf16 leaf as a
+    2-byte void array (``|V2``); the port reads it into a bf16 template as
+    its bits, specials included, and refuses it under any other dtype with
+    a ValueError naming the key and both dtypes."""
+    rng = np.random.default_rng(0)
+    w = jax.numpy.asarray(rng.standard_normal((4, 8)), jax.numpy.bfloat16)
+    w = w.at[0, :4].set(jax.numpy.asarray([np.nan, -0.0, np.inf, 1e-40], jax.numpy.bfloat16))
+    b = rng.standard_normal(3).astype(np.float32)
+    jax_manager.save_pytree({"w": w, "b": b}, str(tmp_path), 0)
+    with np.load(tmp_path / "step_00000000" / "shard_0.npz") as data:
+        assert data["w"].dtype.kind == "V" and data["w"].dtype.itemsize == 2
+    like = {"w": torch.zeros(4, 8, dtype=torch.bfloat16), "b": torch.zeros(3)}
+    got, step = restore_pytree(like, str(tmp_path))
+    assert step == 0 and got["w"].dtype == torch.bfloat16
+    want_w = torch.from_numpy(np.array(w).view(np.int16))
+    assert torch.equal(got["w"].view(torch.int16), want_w)
+    assert torch.equal(_bits(got["b"]), _bits(torch.from_numpy(b)))
+    with pytest.raises(ValueError, match=r"'w'.*\|V2.*torch.float32"):
+        restore_pytree({"w": torch.zeros(4, 8), "b": torch.zeros(3)}, str(tmp_path))
+
+
 def test_async_save_snapshots_before_returning(tmp_path):
     """``async_save`` then, at once, ``mul_`` of every leaf in place (as the
     port's AdamW rewrites params, m and v): the checkpoint holds the values

@@ -388,13 +388,18 @@ def test_serve_hymba_smoke_with_and_without_plans(tmp_path, capsys):
 
 
 def test_hybrid_training_raises():
+    """The loss of a model with hybrid layers raises, naming the flash
+    gradient with a window it waits for (B2d); its fp32 masters, Mamba-2's
+    matrices among them, are made since the SSD scan has its gradient."""
     cfg = get_smoke_config(ARCH)
     model = build_model(cfg, "cpu")
     params = model.init(torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
              "labels": torch.zeros((1, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="B3b"):
+    with pytest.raises(NotImplementedError, match="B2d"):
         model.loss(params, batch)
-    with pytest.raises(NotImplementedError, match="B3b"):
-        build_model(cfg.reduced(dtype="bfloat16"), "cpu").init(torch.Generator().manual_seed(0),
-                                                               torch.float32)
+    bf16 = build_model(cfg.reduced(dtype="bfloat16"), "cpu")
+    masters = bf16.init(torch.Generator().manual_seed(0), torch.float32)
+    assert all(t.dtype == torch.float32 for t in masters["blocks"][0]["mamba"].values())
+    with pytest.raises(NotImplementedError, match="B2d"):
+        bf16.loss(masters, batch)
