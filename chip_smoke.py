@@ -6,13 +6,14 @@ card and nvcc (CUDA_HOME or PATH); it imports the port from ``src/`` and
 nothing of JAX or of the JAX package.  Phases, each fatal on failure:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    the nine kernel libraries compiled from
+  2. build    the ten kernel libraries compiled from
               ``src/repro_torch/kernels/csrc``, one nvcc each, in parallel,
               with ptxas's register and spill report by kernel, and the
-              count of tensor-core instructions in the SASS of the three
+              count of tensor-core instructions in the SASS of the four
               tensor-core libraries, none of which may be 0: HGMMA
               (warpgroup MMA) in the wgmma flash forward and backward
-              libraries, HMMA or HGMMA in the tc SSD library;
+              libraries, HMMA or HGMMA in the tc SSD forward and backward
+              libraries;
   3. kernels  ``torch.library.opcheck`` of the seven ``repro_torch``
               operators on CUDA tensors at a small shape (schema, autograd
               registration, the fake implementation against the kernel's
@@ -276,21 +277,24 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               layers (368,338,432 parameters, 5,893,414,912 B of fp32
               state), each part after the memory of the earlier ones is
               dropped:
-              (a) the SSD scan's backward kernel (``ssd_scan_bwd``,
-              ``simt``) against its plain version on the card: mamba2's
-              training layout (x [4, 2048, 32, 64], B and C [4, 2048, 1,
-              128], bf16 views into one tensor; a second call bit for bit),
-              fp32 dense [1, 512, 32, 64], a ragged length of 1000, two
-              groups over 8 heads at N 16, a nonzero final-state cotangent,
-              and P = N = 128; each output relative to its max under
-              SSD_TOL, timed beside its bound and the plain backward;
+              (a) the SSD scan's backward kernels (``ssd_scan_bwd``, the
+              variant ``bwd_variant`` names) against their plain version on
+              the card: ``tc`` at mamba2's training layout (x [4, 2048, 32,
+              64], B and C [4, 2048, 1, 128], bf16 views into one tensor; a
+              second call bit for bit), a ragged length of 1000, two groups
+              over 8 heads at N 16, a nonzero final-state cotangent, and P =
+              N = 128, each with ``simt`` timed on the same inputs; ``simt``
+              on fp32 dense [1, 512, 32, 64], a ragged length of 1000, a
+              nonzero final-state cotangent and P = N = 128; each output
+              relative to its max under SSD_TOL, timed beside its bound and
+              the plain backward;
               (b) one train step of two Mamba-2 layers in fp32 (B1 S300,
               which pads to two chunks of 256) on the card against the CPU,
               as phase 8;
               (c) the 48 layers through ``train.train`` at B4 S2048 for 5
               steps: finite losses, ms a step, tokens/s, the peak beside the
               state's arithmetic, exact launch counts by variant (a step:
-              SSD 96 forward ``tc`` and 48 backward, RMSNorm 193 forward and
+              SSD 96 forward and 48 backward ``tc``, RMSNorm 193 forward and
               97 backward ``vector``); a warm step profiled (the SSD
               backward's share, the idle share);
               (d) the loss step ``train --plan`` plans, traced and planned
@@ -1761,7 +1765,8 @@ PORT_KERNELS = ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel", "rmsnorm_bwd_vec_
                 "flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                 "flash_bwd_dot_kernel", "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                "ssd_cb_kernel", "ssd_scan_tc_kernel", "ssd_scan_kernel", "ssd_scan_bwd_kernel")
+                "ssd_cb_kernel", "ssd_scan_tc_kernel", "ssd_scan_kernel", "ssd_scan_bwd_kernel",
+                "ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel")
 
 
 # Phase 12: the serving steps planned (serve --plan --plan-cache PLAN_DIR),
@@ -3123,16 +3128,20 @@ MAMBA_PARAMS = 368_338_432
 
 
 def ssd_bwd_case(b, s, h, p, g, n, dtype, gen, layout="dense", dstate=False, again=False):
-    """``repro_torch::ssd_scan_bwd`` (the CUDA kernel) against
-    ``ssd_scan_bwd_plain`` on the card, on the same inputs: dx, ddt, dA, dBm
-    and dCm, each relative to its max|want| under SSD_TOL.  ``layout`` as
+    """``repro_torch::ssd_scan_bwd`` (the CUDA kernel ``bwd_variant`` names,
+    whose launch it must count) against ``ssd_scan_bwd_plain`` on the card,
+    on the same inputs: dx, ddt, dA, dBm and dCm, each relative to its
+    max|want| under SSD_TOL.  ``layout`` as
     ``ssd_case``'s (``"views"``: x, B and C views into one tensor, as the
     model hands them over); ``dstate`` a nonzero cotangent of the final
     state (zeros otherwise, as training gives); ``again`` a second call,
     which must give every output bit for bit.  Timed (CUDA-graph replay)
     beside its bound (the function's bytes, ``bwd_flops``) and the plain
-    backward on the card; no single PyTorch call computes it."""
-    from repro_torch.kernels.ssd_scan import bwd_flops, ssd_scan_bwd, ssd_scan_bwd_plain
+    backward on the card, a ``tc`` case with ``simt`` on the same inputs
+    beside it (through ``_launch_bwd``, counting no launch); no single
+    PyTorch call computes it."""
+    from repro_torch.kernels.ssd_scan import (_launch_bwd, bwd_flops, bwd_variant, ssd_scan_bwd,
+                                              ssd_scan_bwd_plain)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -3153,12 +3162,13 @@ def ssd_bwd_case(b, s, h, p, g, n, dtype, gen, layout="dense", dstate=False, aga
         return x, dt, A, Bm, Cm, randn(b, s, h, p), ds
 
     args = make()
+    var = bwd_variant(args[0], args[3], args[4])
     op = torch.ops.repro_torch.ssd_scan_bwd
-    before = ssd_scan_bwd.variant_launches["simt"]
+    before = ssd_scan_bwd.variant_launches[var]
     got, want = op(*args), ssd_scan_bwd_plain(*args)
     torch.cuda.synchronize()
-    require(ssd_scan_bwd.variant_launches["simt"] == before + 1,
-            f"ssd_bwd x[{b},{s},{h},{p}] did not launch the simt kernel")
+    require(ssd_scan_bwd.variant_launches[var] == before + 1,
+            f"ssd_bwd x[{b},{s},{h},{p}] did not launch the {var} kernel")
     tol = SSD_TOL[dtype]
     rels = [((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
             for a, w in zip(got, want)]
@@ -3173,10 +3183,13 @@ def ssd_bwd_case(b, s, h, p, g, n, dtype, gen, layout="dense", dstate=False, aga
     nbytes = sum(t.numel() * t.element_size() for t in (*args, *got))
     b_ms, b_by = bound(nbytes, bwd_flops(b, s, h, p, n), dtype)
     sets = [args] + [make() for _ in range(n_copies(nbytes) - 1)]
+    other = None
+    if var == "tc":  # the simt kernel on the same inputs
+        other = ("simt", time_ms(lambda *a: _launch_bwd("simt", *a), sets, 10))
     return {
-        "case": f"ssd_bwd [simt] x[{b},{s},{h},{p}] B/C[{b},{s},{g},{n}] {str(dtype)[6:]}"
+        "case": f"ssd_bwd [{var}] x[{b},{s},{h},{p}] B/C[{b},{s},{g},{n}] {str(dtype)[6:]}"
                 f"{LAYOUT_NOTE[layout]}{', dstate' if dstate else ''}",
-        "variant": "simt", "ok": ok, "check": check,
+        "variant": var, "ok": ok, "check": check, "other": other,
         "max_abs_err": max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want)),
         "ms": time_ms(op, sets, 10), "plain_ms": time_ms(ssd_scan_bwd_plain, sets, 2),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
@@ -3184,22 +3197,29 @@ def ssd_bwd_case(b, s, h, p, g, n, dtype, gen, layout="dense", dstate=False, aga
 
 
 def phase_mamba_bwd_kernels():
-    """(a) The SSD backward kernel against its plain version: mamba2's
-    training layout (B4 S2048 H32 P64, B and C of one group of 128, bf16
-    views into one tensor, twice, bit for bit), fp32 dense, a ragged length,
+    """(a) The SSD backward kernels against their plain version: ``tc`` (bf16)
+    at mamba2's training layout (B4 S2048 H32 P64, B and C of one group of
+    128, bf16 views into one tensor, twice, bit for bit), a ragged length,
     two groups of N 16, a nonzero final-state cotangent, and the largest P
-    and N.  -> the cases."""
+    and N; ``simt`` (fp32) dense, at a ragged length, with a nonzero
+    final-state cotangent, and at the largest P and N.  -> the cases."""
     gen = torch.Generator("cuda").manual_seed(18)
     bf16, f32 = torch.bfloat16, torch.float32
     t0 = time.perf_counter()
     cases = [
         ssd_bwd_case(4, 2048, 32, 64, 1, 128, bf16, gen, "views", again=True),  # mamba2 training
+        ssd_bwd_case(1, 1000, 4, 64, 1, 128, bf16, gen, again=True),  # ragged last chunk
+        ssd_bwd_case(2, 256, 8, 64, 2, 16, bf16, gen, "views"),    # g 2 over h 8, N 16
+        ssd_bwd_case(2, 300, 4, 64, 1, 128, bf16, gen, dstate=True),
+        ssd_bwd_case(1, 200, 2, 128, 1, 128, bf16, gen, dstate=True),  # the largest P and N
         ssd_bwd_case(1, 512, 32, 64, 1, 128, f32, gen),
         ssd_bwd_case(1, 1000, 4, 64, 1, 128, f32, gen),            # ragged last chunk
-        ssd_bwd_case(2, 256, 8, 64, 2, 16, bf16, gen, "views"),    # g 2 over h 8, N 16
         ssd_bwd_case(2, 300, 4, 64, 1, 128, f32, gen, dstate=True),
         ssd_bwd_case(1, 200, 2, 128, 1, 128, f32, gen, dstate=True),  # the largest P and N
     ]
+    for c in cases:  # bf16 takes the tensor cores here, fp32 keeps IEEE products
+        want_var = "simt" if " float32" in c["case"] else "tc"
+        require(c["variant"] == want_var, f"{c['case']}: routed to {c['variant']}")
     print(f"[18a] the SSD backward against its plain version on the card "
           f"({time.perf_counter() - t0:.1f}s):")
     for c in cases:
@@ -3382,7 +3402,8 @@ def main() -> int:
                 print(f"  {name} {kernel}: {line.strip().removeprefix('ptxas info    : ')}")
     for lib, ops in (("flash_attention_wgmma", ("HGMMA",)),
                      ("flash_attention_bwd_wgmma", ("HGMMA",)),
-                     ("ssd_scan_tc", ("HMMA", "HGMMA"))):
+                     ("ssd_scan_tc", ("HMMA", "HGMMA")),
+                     ("ssd_scan_bwd_tc", ("HMMA", "HGMMA"))):
         count = mma_count(_build, lib, ops)
         print(f"  {'/'.join(ops)} instructions in {_build.lib_path(lib).name}: {count}")
         require(count > 0, f"the {lib} library holds no {'/'.join(ops)} instruction")
@@ -3451,7 +3472,7 @@ def main() -> int:
                 "flash_attention_bwd/wgmma": flash_bwd, "flash_attention_bwd/mma": 0,
                 "flash_attention_bwd/simt": 0,
                 "ssd_scan": ssd, "ssd_scan/tc": ssd, "ssd_scan/simt": 0,
-                "ssd_scan_bwd": ssd_bwd, "ssd_scan_bwd/simt": ssd_bwd}
+                "ssd_scan_bwd": ssd_bwd, "ssd_scan_bwd/tc": ssd_bwd, "ssd_scan_bwd/simt": 0}
 
     serve_want = {"qwen3-4b": (512, want((4 * 36 + 1) * 32, 36, 0)),
                   "mamba2-370m": (2048, want((2 * 48 + 1) * 32, 0, 48)),
@@ -3616,8 +3637,8 @@ def main() -> int:
     # remat runs each layer's forward twice and the final norm once: the SSD
     # forward 2 * 48 = 96 (`tc`: bf16, P 64 and N 128 in 16-byte rows of the
     # conv output), RMSNorm forward 2 * 2 * 48 + 1 = 193 (ln1 at d 1024, the
-    # gated norm at d_inner 2048), and each backward once: the SSD 48 (`simt`,
-    # the one variant), RMSNorm 2 * 48 + 1 = 97, all `vector`; no flash.
+    # gated norm at d_inner 2048), and each backward once: the SSD 48 (`tc`,
+    # as the forward), RMSNorm 2 * 48 + 1 = 97, all `vector`; no flash.
     from repro_torch.configs import get_config
 
     t18 = time.perf_counter()

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 )
 SOURCES = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_wgmma",
            "flash_attention_bwd", "flash_attention_bwd_wgmma", "ssd_scan", "ssd_scan_tc",
-           "ssd_scan_bwd")
+           "ssd_scan_bwd", "ssd_scan_bwd_tc")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -118,7 +118,10 @@ def ssd(x, dt, A, Bm, Cm):
     ``ssd_scan.variant``) chunk by their own 64 steps, which does not change
     the function.  Differentiable in all five inputs, through y and the
     final state: the backward is ``repro_torch::ssd_scan_bwd``, which
-    recomputes the chunk states from the inputs."""
+    recomputes the chunk states from the inputs, with two kernels routed by
+    the same rule (``ssd_scan.bwd_variant``): ``tc`` on the tensor cores
+    (state passes over the chunks, then every chunk in parallel), ``simt``
+    for fp32 and the other bf16 inputs."""
     return _OPS.ssd_scan(x, dt, A, Bm, Cm)
 
 
@@ -180,9 +183,8 @@ def label(x, name: str):
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel wrapper, and of each by variant
     (``rmsnorm/vector``, ``flash_attention/wgmma``, ``rmsnorm_bwd/vector``,
-    ``flash_attention_bwd/simt``, ``ssd_scan/tc``, ``ssd_scan_bwd/simt``,
-    ...), which sum to the
-    wrapper's own count."""
+    ``flash_attention_bwd/simt``, ``ssd_scan/tc``, ``ssd_scan_bwd/tc``,
+    ``ssd_scan_bwd/simt``, ...), which sum to the wrapper's own count."""
     counts = {}
     for fn in KERNELS:
         counts[fn.__name__] = fn.launches

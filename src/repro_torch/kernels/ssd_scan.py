@@ -33,13 +33,27 @@ implementation that returns the real outputs' shapes, dtypes and strides
 (``variant`` reads addresses, so it runs only in the wrapper).
 
 Its gradient is ``repro_torch.ssd_scan_bwd`` (``kernels/ops.py`` registers
-it on the forward operator): ``ssd_scan_bwd`` launches the one backward
-kernel (``csrc/ssd_scan_bwd.cu``, ``"simt"``: fp32 sums on the CUDA cores,
-a block for each (batch, head), which recomputes the chunks' entry states
-from the five inputs), ``ssd_scan_bwd_plain`` is the same function in
-PyTorch, what the CPU runs.  ``flops`` and ``bwd_flops`` count the work of
-the forward's and the backward's chunking on given shapes: the tracer
-prices both operators by them.
+it on the forward operator): ``ssd_scan_bwd`` launches the backward kernel
+that ``bwd_variant(x, Bm, Cm)`` names, by the forward's rule:
+
+- ``"tc"`` (``csrc/ssd_scan_bwd_tc.cu``): bf16 with P and N multiples of 8
+  and the forward tc kernel's layout, on the tensor cores (mma.sync, fp32
+  sums), in two kernels: the state passes carry the entry states and the
+  state gradients across the chunks (a block for each 64 rows of a (batch,
+  head)'s state and direction) into scratch this wrapper allocates, as bf16
+  hi and lo parts, then a block for each (chunk, batch, group, slice of the
+  group's heads) computes every gradient of its chunk from them, summing dB
+  and dC over its heads.  It rounds three operands to bf16 (see the source
+  note).
+- ``"simt"`` (``csrc/ssd_scan_bwd.cu``): fp32, whose 1e-4 parity needs IEEE
+  fp32 products, and the bf16 inputs the tc kernel does not take: fp32
+  sums on the CUDA cores, a block for each (batch, head), which recomputes
+  the chunks' entry states from the five inputs.
+
+``ssd_scan_bwd_plain`` is the same function in PyTorch, what the CPU runs.
+``flops`` and ``bwd_flops`` count the work of the forward's and the
+backward's chunking on given shapes: the tracer prices both operators by
+them.
 """
 from __future__ import annotations
 
@@ -289,30 +303,71 @@ def check_bwd_args(x, dt, A, Bm, Cm, dy, dstate) -> None:
                          f"{dstate.device}")
 
 
-def _launch_bwd(x, dt, A, Bm, Cm, dy, dstate):
-    """Run the backward kernel on arguments that ``check_bwd_args`` passed;
-    count nothing.  The kernel writes dx and ddt, and in fp32 each block's
-    dA term and each head's dB and dC; the sums over the batch and over the
-    heads of a group are ``sum``s over one axis here, in a fixed order."""
+def bwd_variant(x, Bm, Cm) -> str:
+    """The kernel ``ssd_scan_bwd`` launches for x [b,s,h,p] and Bm, Cm
+    [b,s,g,n]: ``"tc"`` for the bf16 inputs the forward's tc kernel takes
+    (``variant``: p and n multiples of 8, 16-byte aligned x, Bm and Cm with
+    batch and sequence strides that are multiples of 8 elements), ``"simt"``
+    otherwise (fp32 always: its parity needs IEEE fp32 products)."""
+    return variant(x, Bm, Cm)
+
+
+def bwd_slices(b: int, s: int, g: int, rep: int, sms: int) -> int:
+    """The slices the tc backward's chunk pass cuts each group's ``rep``
+    heads into, one block each: the fewest (a divisor of ``rep``) that give
+    the card's ``sms`` multiprocessors a block each, or ``rep``.  A block
+    sums dB and dC over its heads; the wrapper sums the slices."""
+    nc = -(-s // CHUNK)
+    return next((d for d in range(1, rep + 1) if rep % d == 0 and b * nc * g * d >= sms), rep)
+
+
+_TC_BWD_ARGTYPES = [_P] * 12 + [_I] * 7 + [_L] * 8 + [_P]
+
+
+def _launch_bwd(var: str, x, dt, A, Bm, Cm, dy, dstate):
+    """Run backward kernel ``var`` on arguments that ``check_bwd_args``
+    passed; count nothing.  The kernels write dx and ddt, and in fp32 the
+    terms of dA (simt: a (batch, head)'s; tc: a (batch, head, chunk)'s), and
+    dB and dC (simt: each head's; tc: each slice of a group's heads); the
+    sums over those axes are ``sum``s here, in a fixed order."""
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    nc = -(-s // CHUNK)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((b, s, h), dtype=dt.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    strides = (x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), Bm.stride(0), Bm.stride(1),
+               Cm.stride(0), Cm.stride(1))
+    if var == "tc":
+        nsl = bwd_slices(b, s, g, rep, torch.cuda.get_device_properties(dev).multi_processor_count)
+        # every chunk's entry state, then its state gradient, as bf16 hi and lo
+        # parts, P and N padded to 16 and rows as the kernel's tiles lay them out
+        pp, ns = -(-p // 16) * 16, -(-n // 16) * 16 + 8
+        states = torch.empty((2, b, h, nc, 2, pp, ns), dtype=torch.bfloat16, device=dev)
+        dA_part = torch.empty((b, h, nc), **f32)
+        dBC = torch.empty((2, nsl, b, s, g, n), **f32)  # dB, dC summed over a slice's heads
+        fn = _build.function("ssd_scan_bwd_tc", "ssd_scan_bwd_tc", _TC_BWD_ARGTYPES)
+        with torch.cuda.device(dev):
+            err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                     dy.data_ptr(), dstate.data_ptr(), states.data_ptr(), dx.data_ptr(),
+                     ddt.data_ptr(), dA_part.data_ptr(), dBC.data_ptr(), b, s, h, g, p, n,
+                     nsl, *strides, stream)
+        _build.check("ssd_scan_bwd_tc", err)
+        return (dx, ddt, dA_part.sum((0, 2)).to(A.dtype), dBC[0].sum(0).to(Bm.dtype),
+                dBC[1].sum(0).to(Cm.dtype))
     dA_part = torch.empty((b, h), **f32)
     dB_h, dC_h = torch.empty((b, s, h, n), **f32), torch.empty((b, s, h, n), **f32)
-    states = torch.empty((b, h, -(-s // CHUNK), p, n), **f32)  # each chunk's entry state
+    states = torch.empty((b, h, nc, p, n), **f32)  # each chunk's entry state
     fn = _build.function("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                  Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr(), dstate.data_ptr(),
                  states.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(),
-                 dB_h.data_ptr(), dC_h.data_ptr(), b, s, h, g, p, n, x.stride(0), x.stride(1),
-                 dt.stride(0), dt.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
-                 Cm.stride(1), torch.cuda.current_stream(dev).cuda_stream)
+                 dB_h.data_ptr(), dC_h.data_ptr(), b, s, h, g, p, n, *strides, stream)
     _build.check("ssd_scan_bwd", err)
-    rep = h // g
     return (dx, ddt, dA_part.sum(0).to(A.dtype),
             dB_h.view(b, s, g, rep, n).sum(3).to(Bm.dtype),
             dC_h.view(b, s, g, rep, n).sum(3).to(Cm.dtype))
@@ -321,16 +376,17 @@ def _launch_bwd(x, dt, A, Bm, Cm, dy, dstate):
 def ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate):
     """The gradient of ``ssd_scan``: the five inputs, dy [b,s,h,p] and dstate
     [b,h,p,n] fp32 -> (dx, ddt, dA, dBm, dCm) in the inputs' dtypes and
-    shapes, through the CUDA kernel (one variant, ``"simt"``)."""
+    shapes, through the CUDA kernel that ``bwd_variant(x, Bm, Cm)`` names."""
     check_bwd_args(x, dt, A, Bm, Cm, dy, dstate)
-    out = _launch_bwd(x, dt, A, Bm, Cm, dy, dstate)
+    var = bwd_variant(x, Bm, Cm)
+    out = _launch_bwd(var, x, dt, A, Bm, Cm, dy, dstate)
     ssd_scan_bwd.launches += 1
-    ssd_scan_bwd.variant_launches["simt"] += 1
+    ssd_scan_bwd.variant_launches[var] += 1
     return out
 
 
 ssd_scan_bwd.launches = 0
-ssd_scan_bwd.variant_launches = {"simt": 0}
+ssd_scan_bwd.variant_launches = {"tc": 0, "simt": 0}
 
 
 # ---------------------------------------------------------------- operator

@@ -204,7 +204,8 @@ def test_cpu_serving_launches_no_kernel():
                                   "flash_attention_bwd/mma": 0,
                                   "flash_attention_bwd/simt": 0,
                                   "ssd_scan": 0, "ssd_scan/tc": 0, "ssd_scan/simt": 0,
-                                  "ssd_scan_bwd": 0, "ssd_scan_bwd/simt": 0}
+                                  "ssd_scan_bwd": 0, "ssd_scan_bwd/tc": 0,
+                                  "ssd_scan_bwd/simt": 0}
 
 
 def test_entry_point_defaults_to_cuda():
