@@ -304,13 +304,40 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (c)'s steps, seed and batches: losses equal to (c)'s bit for
               bit, the same launch counts, and the bytes each way a step
               exactly 48 x the names x one [4, 2048, 1024] bf16 activation.
+ 19. train hymba  hymba-1.5b trained at every published width, all 32
+              hybrid layers (1,589,773,120 parameters, 25,436,369,920 B of
+              fp32 state), each part after the memory of the earlier ones
+              is dropped:
+              (a) the flash backward with a window against its plain
+              version: ``wgmma`` at hymba's layout (B4 S2048 H25 KV5 hd64,
+              window 1024, with ``simt`` timed on the same inputs), a
+              ragged length (S 1000, window 300), a window below a tile
+              (16), a window of at least S (equal to the causal call bit for
+              bit) and hd 128 with a window, each bit for bit across two
+              calls and with the ``mma`` yardstick held to the same plain
+              version; ``simt`` in fp32 at the same cases, smaller; the
+              forward with the LSE at hymba's window layout; each timed
+              beside its bound and SDPA's (band mask) backward;
+              (b) one train step of its five segments' layers in fp32 (B1
+              S1100, past the window) on the card against the CPU, as
+              phase 8 (the ``simt`` backward with a window);
+              (c) the 32 layers through ``train.train`` at B4 S2048 for 5
+              steps: finite losses, ms a step, tokens/s, the peak beside
+              the state's arithmetic, exact launch counts by variant (a
+              step: RMSNorm 321 forward and 161 backward ``vector``, flash
+              64 forward and 32 backward ``wgmma``, SSD 64 forward and 32
+              backward ``tc``); a warm step profiled;
+              (d) as 18 (d), for hymba: losses equal to (c)'s bit for bit,
+              the same launch counts, the bytes each way a step exactly 32 x
+              the names x one [4, 2048, 1600] bf16 activation.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the main paths, the serve runs, plain
 and planned, the train runs, plain and with the offload plan, the CNN
 phase, the long decode, the example, deepseek's train runs, phase 17's
-runs and mamba2's train runs, with each path's own count in
-``launches_by_path``), the nvidia-smi
+runs, mamba2's and hymba's train runs, with each path's own count in
+``launches_by_path``; the flash backward's entry also holds hymba's
+window case, the forward's the LSE with the window), the nvidia-smi
 line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -649,10 +676,12 @@ def flash_padding_probe(B, Sq, Sk, H, KV, hd, gen):
                 f"last tile's mass off by {mass_rel:.3e} of its largest value")
 
 
-def flash_lse_case(B, S, H, KV, hd, dtype, gen):
-    """Causal flash with the LSE written (as training runs it) against the
-    plain version's output and LSE; the LSE at fp32's tolerance in either
-    type, since both sum fp32 scores of the same inputs."""
+def flash_lse_case(B, S, H, KV, hd, dtype, gen, window=None):
+    """Causal flash with the LSE written (as training runs it), with
+    ``window`` where given, against the plain version's output and LSE; the
+    LSE at fp32's tolerance in either type, since both sum fp32 scores of
+    the same inputs.  A window's library call is SDPA with its boolean band
+    mask."""
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
                                                      variant)
 
@@ -662,11 +691,12 @@ def flash_lse_case(B, S, H, KV, hd, dtype, gen):
     var = variant(dtype, hd)
 
     def op(q, k, v):
-        return torch.ops.repro_torch.flash_attention_lse(q, k, v, True, None, None, None)
+        return torch.ops.repro_torch.flash_attention_lse(q, k, v, True, window, None, None)
 
     before = flash_attention.variant_launches[var]
     (out, lse), (out_want, lse_want) = (op(q, k, v),
-                                        flash_attention_plain(q, k, v, return_lse=True))
+                                        flash_attention_plain(q, k, v, window=window,
+                                                              return_lse=True))
     torch.cuda.synchronize()
     require(flash_attention.variant_launches[var] == before + 1,
             f"flash with LSE B{B} S{S} hd{hd} {dtype} did not launch the {var} kernel")
@@ -677,30 +707,38 @@ def flash_lse_case(B, S, H, KV, hd, dtype, gen):
     err = (lse - lse_want).abs().max().item()
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * lse.numel()
     sets = copies((q, k, v), nbytes)
-    b_ms, b_by = bound(nbytes, 4 * hd * B * H * live_pairs(S, S, True, None), dtype)
+    b_ms, b_by = bound(nbytes, 4 * hd * B * H * live_pairs(S, S, True, window), dtype)
+    band = torch.from_numpy(keep_mask(S, S, True, window)).cuda() if window else None
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                              v.transpose(1, 2), is_causal=True, enable_gqa=True)
+                                              v.transpose(1, 2), attn_mask=band,
+                                              is_causal=band is None, enable_gqa=True)
 
     return {
-        "case": f"flash+lse [{var}] B{B} S{S} H{H} KV{KV} hd{hd} {str(dtype)[6:]} causal "
-                f"(max_abs_err of the LSE)",
+        "case": f"flash+lse [{var}] B{B} S{S} H{H} KV{KV} hd{hd} {str(dtype)[6:]} causal"
+                f"{f' window={window}' if window else ''} (max_abs_err of the LSE)",
         "variant": var, "max_abs_err": err, "ok": ok,
         "check": f"LSE {lse_check}; output {out_check}",
         "ms": time_ms(op, sets, 20),
-        "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, return_lse=True), sets, 3),
+        "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, window=window, return_lse=True),
+                            sets, 3),
         "library_ms": time_ms(sdpa, sets, 20), "bound_ms": b_ms, "bound_by": b_by,
     }
 
 
-def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant):
+def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant, window=None, yardstick="mma",
+                   causal_bits=False):
     """flash_attention_bwd against flash_attention_bwd_plain on the same q, k,
-    v, dO and the kernel forward's o and LSE: dq, dk and dv at the dtype's
-    tolerance.  A wgmma case must also give equal bits in two runs, and the
-    mma kernel (the variant it replaced, through ``_launch_bwd``, counting
-    no launch) is held to the same plain version at the same tolerance and
-    timed beside it on the same inputs, as a yardstick."""
+    v, dO and the kernel forward's o and LSE, causal with ``window`` where
+    given: dq, dk and dv at the dtype's tolerance.  A wgmma case must also
+    give equal bits in two runs, and the mma kernel (the variant it
+    replaced, through ``_launch_bwd``, counting no launch) is held to the
+    same plain version at the same tolerance; ``yardstick`` (mma, or simt)
+    is timed beside it on the same inputs.  ``causal_bits``: the window
+    reaches past every row, and the result must equal the causal call's bit
+    for bit.  The library call is SDPA's backward (a window: its boolean
+    band mask)."""
     from repro_torch.kernels.flash_attention import (_launch_bwd, bwd_variant, flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_plain)
@@ -710,21 +748,27 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant):
 
     q, k, v, do = randn(B, Sq, H, hd), randn(B, Sq, KV, hd), randn(B, Sq, KV, hd), \
         randn(B, Sq, H, hd)
-    o, lse = flash_attention(q, k, v, return_lse=True)
+    o, lse = flash_attention(q, k, v, window=window, return_lse=True)
     var = bwd_variant(o, do)
-    require(var == want_variant, f"flash_bwd B{B} S{Sq} hd{hd} {dtype} routes to {var}, "
-                                 f"want {want_variant}")
-    op = torch.ops.repro_torch.flash_attention_bwd
+    tag = f"flash_bwd B{B} S{Sq} hd{hd} {dtype}{f' window={window}' if window else ''}"
+    require(var == want_variant, f"{tag} routes to {var}, want {want_variant}")
+
+    def op(*args, window=window):
+        return torch.ops.repro_torch.flash_attention_bwd(*args, True, window, None, None)
+
     before = flash_attention_bwd.variant_launches[var]
-    got, want = (op(q, k, v, o, do, lse, None),
-                 flash_attention_bwd_plain(q, k, v, o, do, lse))
+    got, want = (op(q, k, v, o, do, lse),
+                 flash_attention_bwd_plain(q, k, v, o, do, lse, window=window))
     torch.cuda.synchronize()
     require(flash_attention_bwd.variant_launches[var] == before + 1,
-            f"flash_bwd B{B} S{Sq} hd{hd} {dtype} did not launch the {var} kernel")
+            f"{tag} did not launch the {var} kernel")
     if var == "wgmma":
-        again = op(q, k, v, o, do, lse, None)
-        require(all(torch.equal(a, g) for a, g in zip(again, got)),
-                f"flash_bwd [wgmma] B{B} S{Sq} hd{hd}: two runs differ")
+        again = op(q, k, v, o, do, lse)
+        require(all(torch.equal(a, g) for a, g in zip(again, got)), f"{tag} [wgmma]: two runs differ")
+    if causal_bits:
+        causal = op(q, k, v, o, do, lse, window=None)
+        require(all(torch.equal(a, g) for a, g in zip(causal, got)),
+                f"{tag} [{var}]: differs from the causal result")
     tol = TOL[dtype]
     checks = [close(g, w, tol) for g, w in zip(got, want)]
     ok = all(c[0] for c in checks)
@@ -732,9 +776,9 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant):
     mma_check = ""
     if var == "wgmma":
         mma = [close(g, w, tol) for g, w in
-               zip(_launch_bwd("mma", q, k, v, o, do, lse, hd**-0.5), want)]
+               zip(_launch_bwd("mma", q, k, v, o, do, lse, hd**-0.5, window), want)]
         mma_check = "; mma max excess " + ", ".join(f"{c[1]:.2e}" for c in mma)
-        require(all(c[0] for c in mma), f"flash_bwd [mma] B{B} S{Sq} hd{hd}: " +
+        require(all(c[0] for c in mma), f"{tag} [mma]: " +
                 "; ".join(f"{n} {c[2]}" for n, c in zip(("dq", "dk", "dv"), mma)))
     errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
     rels = [e / w.float().abs().max().item() for e, w in zip(errs, want)]
@@ -742,25 +786,29 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant):
     nbytes = sum(t.numel() * t.element_size() for t in args) + \
         (q.numel() + 2 * k.numel()) * q.element_size()
     sets = copies(args, nbytes)
-    b_ms, b_by = bound(nbytes, 10 * hd * B * H * live_pairs(Sq, Sq, True, None), dtype)
+    b_ms, b_by = bound(nbytes, 10 * hd * B * H * live_pairs(Sq, Sq, True, window), dtype)
+    band = torch.from_numpy(keep_mask(Sq, Sq, True, window)).cuda() if window else None
 
     def sdpa(q, k, v, o, do, lse):
         q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                             v.transpose(1, 2), is_causal=True, enable_gqa=True)
+                                             v.transpose(1, 2), attn_mask=band,
+                                             is_causal=band is None, enable_gqa=True)
         return out, (q, k, v), do.transpose(1, 2)
 
     other = None
     if var == "wgmma":
-        other = ("mma", time_ms(lambda *a: _launch_bwd("mma", *a, hd**-0.5), sets, 10))
+        other = (yardstick, time_ms(lambda *a: _launch_bwd(yardstick, *a, hd**-0.5, window),
+                                    sets, 10))
     return {
-        "case": f"flash_bwd [{var}] B{B} S{Sq} H{H} KV{KV} hd{hd} {str(dtype)[6:]} causal "
+        "case": f"flash_bwd [{var}] B{B} S{Sq} H{H} KV{KV} hd{hd} {str(dtype)[6:]} causal"
+                f"{f' window={window}' if window else ''} "
                 f"(dq, dk, dv abs err {errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e}; relative to "
                 f"max|want| {max(rels):.2e}{'; bit-equal across two runs' * (var == 'wgmma')}"
-                f"{mma_check})",
+                f"{'; bit-equal to the causal call' * causal_bits}{mma_check})",
         "variant": var, "max_abs_err": max(errs), "check": check, "ok": ok,
-        "ms": time_ms(lambda *a: op(*a, None), sets, 10),
-        "plain_ms": time_ms(flash_attention_bwd_plain, sets, 3),
+        "ms": time_ms(op, sets, 10),
+        "plain_ms": time_ms(lambda *a: flash_attention_bwd_plain(*a, window=window), sets, 3),
         "library_ms": grad_ms(sdpa, sets, 10), "bound_ms": b_ms, "bound_by": b_by,
         "other": other,
     }
@@ -844,8 +892,9 @@ def print_case(c) -> None:
 def opcheck_ops(gen) -> None:
     """``torch.library.opcheck`` of each of the seven operators on CUDA
     tensors at a small shape (the flash forward also at head dim 256, with a
-    window, a softcap and a scale; the SSD scan also with inputs that need a
-    gradient, which its backward operator computes): the schema, the
+    window, a softcap and a scale; its backward also with a window; the SSD
+    scan also with inputs that need a gradient, which its backward operator
+    computes): the schema, the
     autograd registration (rmsnorm, flash_attention_lse and ssd_scan take
     inputs that need a gradient), the fake implementation against the
     kernel's real outputs (shapes, dtypes, strides), and AOT dispatch with
@@ -863,6 +912,7 @@ def opcheck_ops(gen) -> None:
     q, k, v = randn(1, 128, 4, 64, dtype=bf16), randn(1, 128, 2, 64, dtype=bf16), \
         randn(1, 128, 2, 64, dtype=bf16)
     o, lse = O.flash_attention_lse(q, k, v, True, None, None, None)
+    ow, lsew = O.flash_attention_lse(q, k, v, True, 48, None, None)
     q256, k256, v256 = randn(1, 192, 4, 256, dtype=bf16), randn(1, 192, 2, 256, dtype=bf16), \
         randn(1, 192, 2, 256, dtype=bf16)
     ssd_args = (randn(1, 128, 4, 64, dtype=bf16),
@@ -881,7 +931,11 @@ def opcheck_ops(gen) -> None:
                                 (q.detach().requires_grad_(), k.detach().requires_grad_(),
                                  v.detach().requires_grad_(), True, None, None, None)),
         "flash_attention_bwd": (O.flash_attention_bwd,
-                                (q, k, v, o, randn(1, 128, 4, 64, dtype=bf16), lse, None)),
+                                (q, k, v, o, randn(1, 128, 4, 64, dtype=bf16), lse, True, None,
+                                 None, None)),
+        "flash_attention_bwd window": (O.flash_attention_bwd,
+                                       (q, k, v, ow, randn(1, 128, 4, 64, dtype=bf16), lsew,
+                                        True, 48, None, None)),
         "ssd_scan": (O.ssd_scan, ssd_args),
         "ssd_scan (grad)": (O.ssd_scan, tuple(t.clone().requires_grad_() for t in ssd_args)),
         "ssd_scan_bwd": (O.ssd_scan_bwd, (*ssd_args, randn(1, 128, 4, 64, dtype=bf16),
@@ -3124,7 +3178,6 @@ def phase_example_100m(per_step: dict[str, int]) -> dict[str, dict[str, int]]:
 # layers hold 368,338,432 parameters, 5,893,414,912 B of fp32 state (16 B a
 # parameter: masters, gradients, AdamW's m and v), so no depth is cut.
 MAMBA = "mamba2-370m"
-MAMBA_PARAMS = 368_338_432
 
 
 def ssd_bwd_case(b, s, h, p, g, n, dtype, gen, layout="dense", dstate=False, again=False):
@@ -3229,30 +3282,38 @@ def phase_mamba_bwd_kernels():
     return cases
 
 
-def phase_mamba_train(B: int, S: int, steps: int, want: dict[str, int], extra=None,
-                      phase: str = "18c", what: str = "remat"):
-    """(c) The full mamba2-370m (48 layers at every published width, seed 0)
-    through the training launcher's loop (``train.train``: fp32 masters, bf16
-    compute, per-layer remat, chunked loss, AdamW) at B``B`` S``S`` for
-    ``steps`` steps, ``extra`` its keyword arguments: finite losses, ms a
-    step, tokens/s, the peak beside the state's arithmetic and under the
-    card's memory, and exact launch counts by variant.  -> (launch counts,
-    the ``TrainRun``, peak bytes, output)."""
+# The models that phases 18 and 19 train whole: (parameters, what the
+# printed line says of the layers).
+FULL_TRAIN = {"mamba2-370m": (368_338_432, "48 Mamba-2 layers at full width"),
+              "hymba-1.5b": (1_589_773_120, "32 hybrid layers at full width, 29 with a window "
+                                            "of 1024")}
+
+
+def phase_train_full(B: int, S: int, steps: int, want: dict[str, int], extra=None,
+                     phase: str = "18c", what: str = "remat", arch: str = MAMBA):
+    """(18c, 19c) The full ``arch`` (every layer at every published width,
+    seed 0) through the training launcher's loop (``train.train``: fp32
+    masters, bf16 compute, per-layer remat, chunked loss, AdamW) at B``B``
+    S``S`` for ``steps`` steps, ``extra`` its keyword arguments: finite
+    losses, ms a step, tokens/s, the peak beside the state's arithmetic and
+    under the card's memory, and exact launch counts by variant.  ->
+    (launch counts, the ``TrainRun``, peak bytes, output)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.models import build_model
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(MAMBA)
+    cfg = get_config(arch)
+    want_n, layers = FULL_TRAIN[arch]
     n = sum(t.numel() for t in tree_leaves(build_model(cfg, "cpu").init_shapes(torch.float32)))
-    require(n == MAMBA_PARAMS, f"{MAMBA}: {n:,} parameters, want {MAMBA_PARAMS:,}")
+    require(n == want_n, f"{arch}: {n:,} parameters, want {want_n:,}")
     held = release_memory(phase)
     out = io.StringIO()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        run = train.train(cfg, steps=steps, batch=B, seq=S, seed=0, log_every=1, plan_name=MAMBA,
+        run = train.train(cfg, steps=steps, batch=B, seq=S, seed=0, log_every=1, plan_name=arch,
                           **(extra or {}))
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -3260,8 +3321,8 @@ def phase_mamba_train(B: int, S: int, steps: int, want: dict[str, int], extra=No
     card = torch.cuda.get_device_properties(0).total_memory
     text = out.getvalue()
     warm = float(np.median(run.step_ms[1:]))
-    print(f"[{phase}] train {MAMBA} (48 Mamba-2 layers at full width, {n:,} parameters, fp32 "
-          f"masters, bf16 compute, {what}) B{B} S{S}, {steps} steps:")
+    print(f"[{phase}] train {arch} ({layers}, {n:,} parameters, fp32 masters, bf16 compute, "
+          f"{what}) B{B} S{S}, {steps} steps:")
     for line in text.strip().splitlines():
         print(f"  {line}")
     print(f"  losses {run.losses}; grad norm {[m['grad_norm'] for m in run.metrics]}")
@@ -3271,33 +3332,35 @@ def phase_mamba_train(B: int, S: int, steps: int, want: dict[str, int], extra=No
           f"gradients, m, v) and {card / 2**30:.2f} GiB on the card ({held / 2**30:.3f} GiB "
           f"held before the run); launches {counts}; wall {wall:.1f}s (init included)")
     require(len(run.losses) == steps and all(math.isfinite(x) for x in run.losses),
-            f"train {MAMBA}: losses {run.losses}")
-    require(peak < card, f"train {MAMBA}: peak {peak} B exceeds the card's {card} B")
-    require(counts == want, f"train {MAMBA}: launch counts {counts}, want {want}")
+            f"train {arch}: losses {run.losses}")
+    require(peak < card, f"train {arch}: peak {peak} B exceeds the card's {card} B")
+    require(counts == want, f"train {arch}: launch counts {counts}, want {want}")
     run.params = run.opt = None
     return counts, run, peak, text
 
 
-def phase_mamba_plan(B: int, S: int, steps: int, want: dict[str, int], plain):
-    """(d) ``train --arch mamba2-370m --plan`` with the offload plan applied:
-    the loss step that ``train.step_planner`` traces, planned under H100_SXM
-    (its key the arch's, solved into PLAN_DIR), its w beside the card's real
-    peak around one call of that loss at resident masters (w above it
-    fails), AutoSwap's plan at half w, rounded down to 0.01 GiB, or at a
-    quarter or an eighth where half names no label (one must be named);
-    then ``train.train(plan=True, hbm_limit_gb=...)`` with the plan restored
-    from its cache for (c)'s steps, seed and batches: losses equal to
-    ``plain``'s (c) bit for bit, the same launch counts, and the bytes the
-    policy's counters moved each way a step exactly 48 x the names x one
-    [B, S, d] bf16 activation.  -> launch counts."""
+def phase_train_full_plan(B: int, S: int, steps: int, want: dict[str, int], plain,
+                          phase: str = "18d", arch: str = MAMBA):
+    """(18d, 19d) ``train --arch <arch> --plan`` with the offload plan
+    applied: the loss step that ``train.step_planner`` traces, planned under
+    H100_SXM (its key the arch's, solved into PLAN_DIR), its w beside the
+    card's real peak around one call of that loss at resident masters (w
+    above it fails), AutoSwap's plan at half w, rounded down to 0.01 GiB, or
+    at a quarter or an eighth where half names no label (one must be
+    named); then ``train.train(plan=True, hbm_limit_gb=...)`` with the plan
+    restored from its cache for the plain run's steps, seed and batches:
+    losses equal to ``plain``'s bit for bit, the same launch counts, and the
+    bytes the policy's counters moved each way a step exactly the layers x
+    the names x one [B, S, d] bf16 activation.  -> launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.models import build_model
 
-    cfg = get_config(MAMBA)
+    cfg = get_config(arch)
+    L = cfg.num_layers
     t0 = time.perf_counter()
-    planner = train.step_planner(build_model(cfg, "cuda"), MAMBA, B, S, False, str(PLAN_DIR))
+    planner = train.step_planner(build_model(cfg, "cuda"), arch, B, S, False, str(PLAN_DIR))
     rep = planner.report()
     omega = rep.peak_load
     plan_s = time.perf_counter() - t0
@@ -3307,19 +3370,19 @@ def phase_mamba_plan(B: int, S: int, steps: int, want: dict[str, int], plain):
         t1 = time.perf_counter()
         plan = planner.offload_plan(limit)
         sw = planner.swap_report(limit)
-        print(f"[18d] AutoSwap at w / {frac}, {gb} GiB ({limit:,} B): offload_names "
+        print(f"[{phase}] AutoSwap at w / {frac}, {gb} GiB ({limit:,} B): offload_names "
               f"{plan.offload_names}, save_names {plan.save_names}, predicted_savings "
               f"{plan.predicted_savings:,} B; swdoa selects {sw.num_selected} variables, "
               f"{sw.selected_bytes:,} B, simulated overhead {sw.overhead * 100:.2f}%, stalls "
               f"{sw.stalls} ({time.perf_counter() - t1:.1f}s)")
         if plan.offload_names:
             break
-    print(f"[18d] plan: loss step of {MAMBA} B{B} S{S} (fp32 masters, 48 layers) traced and "
+    print(f"[{phase}] plan: loss step of {arch} B{B} S{S} (fp32 masters, {L} layers) traced and "
           f"planned under H100_SXM in {plan_s:.1f}s: {rep.num_variables} variables, w "
           f"{omega:,} B, SmartPool chi/w {rep.smartpool_ratio:.4f}, CnMem/w "
           f"{rep.cnmem_ratio:.4f}")
     require(plan.offload_names, f"no plan down to w / 8 names a label")
-    held = release_memory("18d")
+    held = release_memory(phase)
     model = build_model(cfg, "cuda")
     params = model.init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
     batch = make_batch_fn(cfg, B, S, 0, "cuda")(0)
@@ -3330,25 +3393,68 @@ def phase_mamba_plan(B: int, S: int, steps: int, want: dict[str, int], plain):
     value = float(model.loss(params, batch)[0])
     real = torch.cuda.max_memory_allocated() - held
     del params, batch
-    print(f"[18d] the traced loss run for real: loss {value:.4f}, peak {real:,} B on the card "
-          f"({resident - held:,} B of masters and batch resident first) beside w {omega:,} B "
-          f"(w / peak {omega / real:.4f})")
-    require(math.isfinite(value), "18d: non-finite loss")
-    require(omega <= real, f"18d: w {omega} B exceeds the real peak {real} B")
-    counts, run, peak, text = phase_mamba_train(
+    print(f"[{phase}] the traced loss run for real: loss {value:.4f}, peak {real:,} B on the "
+          f"card ({resident - held:,} B of masters and batch resident first) beside w {omega:,} "
+          f"B (w / peak {omega / real:.4f})")
+    require(math.isfinite(value), f"{phase}: non-finite loss")
+    require(omega <= real, f"{phase}: w {omega} B exceeds the real peak {real} B")
+    counts, run, peak, text = phase_train_full(
         B, S, steps, want, extra=dict(plan=True, hbm_limit_gb=gb, plan_cache=str(PLAN_DIR)),
-        phase="18d", what=f"remat, offloading {plan.offload_names}")
-    per_step = cfg.num_layers * len(plan.offload_names) * B * S * cfg.d_model * 2
-    print(f"[18d] the planned run against (c): losses "
+        phase=phase, what=f"remat, offloading {plan.offload_names}", arch=arch)
+    per_step = L * len(plan.offload_names) * B * S * cfg.d_model * 2
+    print(f"[{phase}] the planned run against the plain one: losses "
           f"{'equal bit for bit' if run.losses == plain.losses else 'NOT equal'}; bytes a step "
           f"to host and back {run.moved} (want {per_step:,} each); peak {peak:,} B; host ms a "
           f"step {[round(t, 1) for t in run.step_ms]} against "
           f"{[round(t, 1) for t in plain.step_ms]}")
-    require("(restored from cache)" in text, "18d: the plan was not restored from its cache")
-    require(run.losses == plain.losses, f"18d: losses {run.losses} against {plain.losses}")
+    require("(restored from cache)" in text, f"{phase}: the plan was not restored from its cache")
+    require(run.losses == plain.losses, f"{phase}: losses {run.losses} against {plain.losses}")
     require(run.moved == [(per_step, per_step)] * steps,
-            f"18d: bytes {run.moved}; want {per_step} each way a step")
+            f"{phase}: bytes {run.moved}; want {per_step} each way a step")
     return counts
+
+
+# Phase 19: hymba-1.5b trained at every published width and full depth on one
+# card: 1,589,773,120 parameters, 25,436,369,920 B of fp32 state.  Its 29
+# window layers take the flash gradient with a window of 1024.
+HYMBA = "hymba-1.5b"
+
+
+def phase_hymba_bwd_kernels():
+    """(19a) The flash backward with a window against its plain version:
+    ``wgmma`` (bf16) at hymba's layout (B4 S2048 H25 KV5 hd64, window 1024;
+    the ``simt`` kernel timed beside it on the same inputs), a ragged length
+    (S 1000, window 300), a window narrower than a tile (16), a window of at
+    least S (bit for bit the causal result) and hd 128 with a window, each
+    bit for bit across two calls, with the ``mma`` yardstick held to the
+    same plain version; ``simt`` (fp32) at the same cases, smaller; and the
+    forward with the LSE at hymba's window layout, the instantiation its
+    training runs.  Each beside its bound and SDPA's (band mask) backward.
+    -> (the backward cases, the LSE case)."""
+    gen = torch.Generator("cuda").manual_seed(19)
+    bf16, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    cases = [
+        flash_bwd_case(4, 2048, 25, 5, 64, bf16, gen, "wgmma", window=1024, yardstick="simt"),
+        flash_bwd_case(1, 1000, 8, 2, 64, bf16, gen, "wgmma", window=300),    # ragged
+        flash_bwd_case(2, 512, 8, 2, 64, bf16, gen, "wgmma", window=16),      # below a tile
+        flash_bwd_case(1, 700, 10, 2, 64, bf16, gen, "wgmma", window=700,
+                       causal_bits=True),                                    # window >= S
+        flash_bwd_case(2, 1100, 16, 4, 128, bf16, gen, "wgmma", window=256),  # hd 128
+        flash_bwd_case(1, 512, 25, 5, 64, f32, gen, "simt", window=256),      # hymba's heads
+        flash_bwd_case(1, 300, 4, 2, 64, f32, gen, "simt", window=70),        # ragged
+        flash_bwd_case(1, 200, 4, 1, 64, f32, gen, "simt", window=16),        # below a tile
+        flash_bwd_case(1, 300, 4, 2, 64, f32, gen, "simt", window=300, causal_bits=True),
+        flash_bwd_case(1, 300, 8, 2, 128, f32, gen, "simt", window=100),      # hd 128
+    ]
+    lse = flash_lse_case(4, 2048, 25, 5, 64, bf16, gen, window=1024)
+    print(f"[19a] the flash backward with a window against its plain version on the card "
+          f"({time.perf_counter() - t0:.1f}s):")
+    for c in cases + [lse]:
+        print_case(c)
+    for c in cases + [lse]:
+        require(c["ok"], f"{c['case']} disagrees with its plain version ({c['check']})")
+    return cases, lse
 
 
 def mma_count(build, lib: str, ops: tuple[str, ...]) -> int:
@@ -3366,8 +3472,10 @@ def template_args(mangled: str) -> str:
     identifier (``I13__nv_bfloat16Li10ELi256EEEv...``), or ``""``."""
     if not mangled.startswith("I"):
         return ""
-    args = re.findall(r"(13__nv_bfloat16|(?<=I)f|Li(\d+)E)", mangled.split("EEv")[0] + "E")
-    names = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, n) for a, n in args]
+    args = re.findall(r"(13__nv_bfloat16|(?<=I)f|Li(\d+)E|Lb([01])E)",
+                      mangled.split("EEv")[0] + "E")
+    names = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, n or ("true" if b == "1" else "false"))
+             for a, n, b in args]
     return f"<{','.join(names)}>" if names else ""
 
 
@@ -3651,13 +3759,43 @@ def main() -> int:
     mamba_want = want((2 * 2 * L + 1) * steps, 0, 2 * L * steps, (2 * L + 1) * steps, 0,
                       L * steps)
     t = time.perf_counter()
-    paths[f"train {MAMBA}"], mamba_run, _, _ = phase_mamba_train(4, 2048, steps, mamba_want)
+    paths[f"train {MAMBA}"], mamba_run, _, _ = phase_train_full(4, 2048, steps, mamba_want)
     phase_train_profile(4, 2048, phase="18c", cfg=get_config(MAMBA))
     print(f"[18c] took {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    paths[f"train {MAMBA} (offload)"] = phase_mamba_plan(4, 2048, steps, mamba_want, mamba_run)
+    paths[f"train {MAMBA} (offload)"] = phase_train_full_plan(4, 2048, steps, mamba_want,
+                                                              mamba_run)
     print(f"[18d] took {time.perf_counter() - t:.1f}s")
     print(f"[18] mamba2 training phase took {time.perf_counter() - t18:.1f}s")
+
+    # Phase 19: hymba-1.5b trained at full width and depth.  A step under
+    # per-layer remat runs each layer's forward twice and the final norm
+    # once: RMSNorm forward 2 * 5 * 32 + 1 = 321 (ln1, the gated norm, the
+    # two branch norms, ln2, at d 1600 and d_inner 3200), flash with the LSE
+    # 2 * 32 = 64 (`wgmma`: bf16 at hd 64; 29 of the 32 with the window of
+    # 1024), the SSD 2 * 32 = 64 (`tc`: bf16, P 64 and N 16 in 16-byte rows),
+    # and each backward once: RMSNorm 5 * 32 + 1 = 161 `vector`, flash 32
+    # `wgmma`, the SSD 32 `tc`.
+    t19 = time.perf_counter()
+    cases["flash_window_bwd"], cases["flash_window_lse"] = phase_hymba_bwd_kernels()
+    t = time.perf_counter()
+    # one layer of each of its five segments (global, window, global, window,
+    # global) at S 1100, past the window of 1024, which pads the SSD
+    phase_train_parity(HYMBA, 1100, phase="19b")
+    print(f"[19b] took {time.perf_counter() - t:.1f}s")
+    L = 32
+    hymba_want = want((2 * 5 * L + 1) * steps, 2 * L * steps, 2 * L * steps,
+                      (5 * L + 1) * steps, L * steps, L * steps)
+    t = time.perf_counter()
+    paths[f"train {HYMBA}"], hymba_run, _, _ = phase_train_full(4, 2048, steps, hymba_want,
+                                                                phase="19c", arch=HYMBA)
+    phase_train_profile(4, 2048, phase="19c", cfg=get_config(HYMBA))
+    print(f"[19c] took {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths[f"train {HYMBA} (offload)"] = phase_train_full_plan(4, 2048, steps, hymba_want,
+                                                              hymba_run, phase="19d", arch=HYMBA)
+    print(f"[19d] took {time.perf_counter() - t:.1f}s")
+    print(f"[19] hymba training phase took {time.perf_counter() - t19:.1f}s")
 
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA
@@ -3701,9 +3839,23 @@ def main() -> int:
                  hd256_plain_ms=hd256["plain_ms"], hd256_bound_ms=hd256["bound_ms"],
                  hd256_bound_by=hd256["bound_by"], hd256_library_ms=hd256["library_ms"],
                  hd256_simt_ms=hd256["other"][1], hd256_max_abs_err=hd256["max_abs_err"])
+    # hymba's training runs the backward with a window in 29 of its 32 layers
+    # a step, and the forward with the LSE and the window: both at its layout.
+    bwd = next(k for k in kernels if k["name"] == "flash_attention_bwd")
+    win = cases["flash_window_bwd"][0]
+    bwd.update(window_case=win["case"], window_ms=win["ms"], window_plain_ms=win["plain_ms"],
+               window_bound_ms=win["bound_ms"], window_bound_by=win["bound_by"],
+               window_library_ms=win["library_ms"], window_simt_ms=win["other"][1],
+               window_max_abs_err=win["max_abs_err"])
+    wl = cases["flash_window_lse"]
+    flash.update(window_lse_case=wl["case"], window_lse_ms=wl["ms"],
+                 window_lse_plain_ms=wl["plain_ms"], window_lse_bound_ms=wl["bound_ms"],
+                 window_lse_library_ms=wl["library_ms"], window_lse_max_abs_err=wl["max_abs_err"])
+    extra_cases = {"flash_attention_bwd": cases["flash_window_bwd"]}
     summary = [f"{k['name']} launches={k['launches']} "
                f"({', '.join(f'{p} {n}' for p, n in k['launches_by_path'].items())}) "
-               f"parity=ok ({len(cases[k['name']])} cases)" for k in kernels]
+               f"parity=ok ({len(cases[k['name']]) + len(extra_cases.get(k['name'], []))} cases)"
+               for k in kernels]
     print("kernels: " + "; ".join(summary))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -54,8 +54,9 @@ output's MALLOC (or its in-place WRITE): ``mm``/``addmm``/``bmm``/
 two ``conv_general_dilated`` eqns, 2·|x|·(kh·kw·cout) for grad_input and
 2·|w|·(B·H'·W') for grad_weight, plus dy's elements for grad_bias, each
 only where ``output_mask`` asks for it; the flash operators 4·B·H·hd
-(forward) or 10·B·H·hd (backward) for each live (query, key) pair, as
-``chip_smoke.py`` counts them; the SSD scan and its backward by their
+(forward) or 10·B·H·hd (backward) for each live (query, key) pair under
+the node's own ``causal`` and ``window`` arguments, as ``chip_smoke.py``
+counts them; the SSD scan and its backward by their
 chunking's count (``kernels/ssd_scan.py`` ``flops``, ``bwd_flops``);
 reductions their input's elements; any other op its output's elements,
 as the reference's ``_eqn_cost``.  Bytes
@@ -224,7 +225,10 @@ def _product_flops(node, qual: str, out_elems: float) -> float | None:
     if qual in _FLASH:
         q, k = node.args[0].meta["val"], node.args[1].meta["val"]
         B, sq, H, hd = q.shape
-        causal, window = (True, None) if qual.endswith("_bwd") else (node.args[3], node.args[4])
+        # Either kind's (causal, window): the forward's are its args 3 and 4,
+        # the backward's (q, k, v, o, do, lse first) its args 6 and 7.
+        at = 6 if qual.endswith("_bwd") else 3
+        causal, window = node.args[at], node.args[at + 1]
         return float(_FLASH[qual] * B * H * hd * _live_pairs(sq, k.shape[1], causal, window))
     return None
 

@@ -6,11 +6,13 @@
 // computes the same function and is kept, unrouted, as a yardstick.
 //
 // The gradient of the TPU kernel repro/kernels/flash_attention.py:99
-// `flash_attention` (causal, GQA, no window or softcap), which the reference
-// takes by XLA autodiff of `mha_dense` (repro/models/attention.py:157-182).
-// Given q [B,Sq,H,hd], k, v [B,Sk,KV,hd], the forward's output o and its
-// log-sum-exp lse [B,H,Sq], and dO, with P = exp(q k^T * scale - lse) (0
-// where masked; row i sees keys <= i, top-left aligned):
+// `flash_attention` (causal, GQA, with or without a sliding window; no
+// softcap), which the reference takes by XLA autodiff of `mha_dense`
+// (repro/models/attention.py:157-182).  Given q [B,Sq,H,hd], k, v
+// [B,Sk,KV,hd], the forward's output o and its log-sum-exp lse [B,H,Sq], and
+// dO, with P = exp(q k^T * scale - lse) (0 where masked; row i sees keys k
+// <= i, top-left aligned, and with a window W > 0 only those with i - k < W,
+// the reference's `_causal_window_mask`):
 //
 //   D_i = sum_d dO_i,d o_i,d                       (the prepass)
 //   dV  = P^T dO,   dP = dO V^T,   dS = P (dP - D)
@@ -25,7 +27,20 @@
 // Bound on the H100: at qwen3-4b's training shape, B4 S512 H32 KV8 hd128
 // causal, 5 products of 2 hd flops for each live (q, k) pair, 21.5 GFLOP
 // (21.8 us at 989 TFLOP/s), and 84 MB moved (25.1 us at 3.35 TB/s): bytes,
-// by a little.
+// by a little.  At hymba-1.5b's, B4 S2048 H25 KV5 hd64 with a window of
+// 1024, 1,573,376 live pairs a head, 100.7 GFLOP (101.8 us), and about 128
+// MB (38 us): operations.
+//
+// The window only narrows the tile ranges: a key tile [k0, k0 + 64) is seen
+// by q rows up to k0 + 63 + W - 1, so the dK/dV block stops its q tiles
+// there; a q tile [q0, q0 + 64) sees keys from q0 - W + 1, so the dQ block
+// starts at that key's tile.  A step whose tile pair crosses the window's
+// lower edge (q0 + 63 - k0 >= W) masks its pairs, as a step on the diagonal
+// does.  W >= Sq visits the causal tiles and masks the causal pairs, so it
+// gives the causal result bit for bit.  The window is a template flag (WIN)
+// beside its runtime width, so that the causal instantiation carries none of
+// this arithmetic: with it in every step the causal kernels ran 8% (qwen3-4b's
+// layout) and 16% (hymba's global layers) slower (PERF.md).
 //
 // Design.  Three launches and no atomics, as `mma`, so two runs give equal
 // bits: a prepass writes D (fp32 [B,H,Sq]), a block for each position of
@@ -77,7 +92,8 @@
 // and dP^T 32 each; the bf16 P^T and dS^T fragments (16 each) replace S^T
 // and dP^T as they are formed.  ptxas for sm_90a at -O3 (chip_smoke.py's
 // phase 2 prints it): dK/dV 254 registers at hd 128 and 194 at hd 64, dQ
-// 183 and 138, the prepass 32, none spilling.
+// 183 and 138 (with the window: 255, 191, 184, 133), the prepass 32, none
+// spilling.
 //
 // What bounds it (a probe timing copies of this file without the streamed
 // loads and/or the exponentials; PERF.md): at the training shape the
@@ -224,12 +240,12 @@ constexpr size_t dq_smem() {
 // q tile) are dealt to the two warpgroups in turn; each runs its own ring
 // and barrier, and at the end warpgroup 1 hands its sums to warpgroup 0
 // through shared memory.
-template <int HD>
+template <int HD, bool WIN>
 __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
-    int Sk, int H, int KV, float scale) {
+    int Sk, int H, int KV, int window, float scale) {
   constexpr uint32_t TILE = tile_bytes<HD>(), STAGE = dkdv_stage_bytes<HD>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -244,7 +260,10 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
   const int hs = H / KV, h0 = kvh * hs;
   const long long q_stride = (long long)H * HD, kv_stride = (long long)KV * HD;
   const long long kv_off = ((long long)b * Sk * KV + kvh) * HD + (long long)k0 * kv_stride;
-  const int n_q = Sq > k0 ? (Sq - k0 + TR - 1) / TR : 0;  // causal: q tiles from row k0 on
+  // Causal: q tiles from row k0 on; a window ends them at the last row that
+  // sees the tile's last key, k0 + TR - 1 + window - 1.
+  const int q_end = WIN ? min(Sq, k0 + TR - 1 + window) : Sq;
+  const int n_q = q_end > k0 ? (q_end - k0 + TR - 1) / TR : 0;
   const int n_steps = hs * n_q;
   const int my_steps = (n_steps - wg + 1) / 2;  // this warpgroup's: j = wg, wg + 2, ...
 
@@ -301,10 +320,12 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
     fence_regs(dp);
 
     // P^T and dS^T as bf16 A fragments over k = the step's q rows.  Only a
-    // step on the diagonal or a ragged edge has a masked pair.
+    // step on the diagonal, across the window's lower edge or on a ragged
+    // edge has a masked pair.
     const float* lse_s = reinterpret_cast<const float*>(smem_raw + (st - raw) + 2 * TILE);
     const float* dl_s = lse_s + TR;
-    const bool edge = q0 < k0 + TR || q0 + TR > Sq || k0 + TR > Sk;
+    const bool edge = q0 < k0 + TR || q0 + TR > Sq || k0 + TR > Sk ||
+                      (WIN && q0 + TR - 1 - k0 >= window);
     uint32_t pa[16], sa[16];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -318,7 +339,7 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
         float x = fast_exp2(fmaf(s[4 * i + e], sl2, -l * LOG2E));
         if (edge) {
           const int qp = q0 + c + (e & 1), kp = e < 2 ? kp0 : kp1;
-          if (!(qp < Sq && kp < Sk && qp >= kp)) x = 0.f;
+          if (!(qp < Sq && kp < Sk && qp >= kp && (!WIN || qp - kp < window))) x = 0.f;
         }
         p[e] = x;
         ds[e] = x * (dp[4 * i + e] - d);
@@ -382,12 +403,12 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
 
 // dQ of 64 q rows (tile gridDim.z - 1 - blockIdx.z) of head blockIdx.x,
 // batch blockIdx.y.
-template <int HD>
+template <int HD, bool WIN>
 __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk, int H, int KV,
-    float scale) {
+    int window, float scale) {
   constexpr uint32_t TILE = tile_bytes<HD>(), STAGE = 2 * TILE;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -402,6 +423,8 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
   const long long q_off = ((long long)b * Sq * H + h) * HD + (long long)q0 * q_stride;
   const long long kv_off = ((long long)b * Sk * KV + kvh) * HD;
   const int k_end = min(Sk, min(q0 + TR, Sq));  // causal: keys up to the tile's last row
+  // A window starts at the tile of the first row's first key, q0 - window + 1.
+  const int j0 = WIN ? max(0, q0 - window + 1) / TR : 0;
   const int n_k = (k_end + TR - 1) / TR;
 
   auto load_step = [&](int j, uint32_t st) {
@@ -412,7 +435,7 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
   };
   load_tile<HD, WG>(sQ, q + q_off, q_stride, Sq - q0, tid);
   load_tile<HD, WG>(sO, dout + q_off, q_stride, Sq - q0, tid);
-  load_step(0, sRing);
+  if (!WIN || j0 < n_k) load_step(j0, sRing);
   cp_async_commit();
 
   // This thread's accumulator rows (q rows) row0 and row0 + 8.
@@ -428,13 +451,13 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 
   const float sl2 = scale * LOG2E;
-  for (int j = 0; j < n_k; ++j) {
-    const uint32_t st = sRing + (j & 1) * STAGE;
+  for (int j = j0; j < n_k; ++j) {
+    const uint32_t st = sRing + ((j - j0) & 1) * STAGE;
     const int k0 = j * TR;
     cp_async_wait<0>();
     fence_proxy_async();
     __syncthreads();
-    if (j + 1 < n_k) load_step(j + 1, sRing + ((j + 1) & 1) * STAGE);
+    if (j + 1 < n_k) load_step(j + 1, sRing + ((j + 1 - j0) & 1) * STAGE);
     cp_async_commit();
 
     // S = Q K^T and dP = dO V^T: 64 q rows x 64 keys each.
@@ -447,7 +470,8 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
     fence_regs(s);
     fence_regs(dp);
 
-    const bool edge = k0 + TR > q0 || k0 + TR > Sk || q0 + TR > Sq;
+    const bool edge = k0 + TR > q0 || k0 + TR > Sk || q0 + TR > Sq ||
+                      (WIN && q0 + TR - 1 - k0 >= window);
     uint32_t sa[16];  // dS as bf16 A fragments over k = the step's keys
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -457,7 +481,7 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
         float x = fast_exp2(fmaf(s[4 * i + e], sl2, -(e < 2 ? l0 : l1)));
         if (edge) {
           const int qp = e < 2 ? qp0 : qp1, kp = k0 + 8 * i + cq + (e & 1);
-          if (!(qp < Sq && kp < Sk && qp >= kp)) x = 0.f;
+          if (!(qp < Sq && kp < Sk && qp >= kp && (!WIN || qp - kp < window))) x = 0.f;
         }
         ds[e] = x * (dp[4 * i + e] - (e < 2 ? d0 : d1));
       }
@@ -489,28 +513,28 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
   }
 }
 
-template <int HD>
+template <int HD, bool WIN>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
                    const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int Sq,
-                   int Sk, int H, int KV, float scale, cudaStream_t stream) {
+                   int Sk, int H, int KV, int window, float scale, cudaStream_t stream) {
   flash_bwd_delta_kernel<HD><<<(unsigned)B * Sq, WG, 0, stream>>>(o, dout, delta, Sq, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dkdv = flash_bwd_dkdv_wgmma_kernel<HD>;
+  auto dkdv = flash_bwd_dkdv_wgmma_kernel<HD, WIN>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dkdv_smem<HD>());
   if (err != cudaSuccess) return err;
   dkdv<<<dim3(KV, B, (Sk + TR - 1) / TR), NT2, dkdv_smem<HD>(), stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, KV, scale);
+      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, KV, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dqk = flash_bwd_dq_wgmma_kernel<HD>;
+  auto dqk = flash_bwd_dq_wgmma_kernel<HD, WIN>;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem<HD>());
   if (err != cudaSuccess) return err;
-  dqk<<<dim3(H, B, (Sq + TR - 1) / TR), WG, dq_smem<HD>(), stream>>>(q, k, v, dout, lse, delta,
-                                                                       dq, Sq, Sk, H, KV, scale);
+  dqk<<<dim3(H, B, (Sq + TR - 1) / TR), WG, dq_smem<HD>(), stream>>>(
+      q, k, v, dout, lse, delta, dq, Sq, Sk, H, KV, window, scale);
   return cudaGetLastError();
 }
 
@@ -518,13 +542,13 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
 
 // Causal attention's gradient on wgmma.  q, o, dout, dq: [B, Sq, H, hd]; k,
 // v, dk, dv: [B, Sk, KV, hd]; all contiguous bf16 (DTypeCode) with 16-byte
-// aligned base addresses; hd 64 or 128.  lse: [B, H, Sq] fp32 from the
-// forward; delta: [B, H, Sq] fp32 scratch.  Returns the cudaError_t of the
-// launches (0 on success).
+// aligned base addresses; hd 64 or 128; window the sliding window's width,
+// 0 for none.  lse: [B, H, Sq] fp32 from the forward; delta: [B, H, Sq]
+// fp32 scratch.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_bwd_wgmma(int dtype, const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* lse,
                                          void* delta, void* dq, void* dk, void* dv, int B, int Sq,
-                                         int Sk, int H, int KV, int hd, float scale,
+                                         int Sk, int H, int KV, int hd, int window, float scale,
                                          void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
@@ -532,7 +556,7 @@ extern "C" int flash_attention_bwd_wgmma(int dtype, const void* q, const void* k
                           reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
   if (dtype != kBFloat16 || B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV ||
       H > 65535 || B > 65535 || (long long)B * Sq > 0x7fffffff || (Sq + TR - 1) / TR > 65535 ||
-      (Sk + TR - 1) / TR > 65535 || (align & 15))
+      (Sk + TR - 1) / TR > 65535 || window < 0 || (align & 15))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qb = static_cast<const bf16*>(q);
@@ -542,14 +566,18 @@ extern "C" int flash_attention_bwd_wgmma(int dtype, const void* q, const void* k
   const auto* gb = static_cast<const bf16*>(dout);
   const auto* lf = static_cast<const float*>(lse);
   auto* df = static_cast<float*>(delta);
+  auto* dqb = static_cast<bf16*>(dq);
+  auto* dkb = static_cast<bf16*>(dk);
+  auto* dvb = static_cast<bf16*>(dv);
+  const bool win = window > 0;
   switch (hd) {
     case 64:
-      return launch<64>(qb, kb, vb, ob, gb, lf, df, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                        static_cast<bf16*>(dv), B, Sq, Sk, H, KV, scale, s);
+      return (win ? launch<64, true> : launch<64, false>)(qb, kb, vb, ob, gb, lf, df, dqb, dkb,
+                                                          dvb, B, Sq, Sk, H, KV, window, scale, s);
     case 128:
-      return launch<128>(qb, kb, vb, ob, gb, lf, df, static_cast<bf16*>(dq),
-                         static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Sq, Sk, H, KV,
-                         scale, s);
+      return (win ? launch<128, true> : launch<128, false>)(qb, kb, vb, ob, gb, lf, df, dqb, dkb,
+                                                            dvb, B, Sq, Sk, H, KV, window, scale,
+                                                            s);
     default:
       return cudaErrorInvalidValue;
   }

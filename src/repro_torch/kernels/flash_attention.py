@@ -32,11 +32,17 @@ With ``return_lse=True`` each forward also returns every row's
 log-sum-exp, ``m + log l`` in fp32 [B, H, Sq], which the backward needs;
 serving leaves it off, so its kernels write nothing more.
 
-``flash_attention_bwd`` is the gradient of causal attention with no window
-or softcap, the only attention a ported training config has: from q, k, v,
-the output o, dO and the LSE it returns dq, dk and dv in q's dtype,
-recomputing P from the LSE, at head dims up to 128.  ``bwd_variant``
-names its kernel: ``"wgmma"``
+``flash_attention_bwd`` is the gradient of causal attention, with or
+without a sliding window, and no softcap, at head dims up to 128: from q,
+k, v, the output o, dO and the LSE it returns dq, dk and dv in q's dtype,
+recomputing P from the LSE.  ``check_bwd_supported`` is the one place
+that decides what the gradient takes, on every device: it refuses
+unmasked attention, a softcap, head dims above ``BWD_MAX_HEAD_DIM`` and a
+window with Sq > Sk (rows left without a live key) with
+NotImplementedError naming ROADMAP B2d, before any kernel or plain code
+runs.  The window only narrows each kernel block's tile range and adds
+``q - k < window`` to the masks.  ``bwd_variant`` names its kernel:
+``"wgmma"``
 (``csrc/flash_attention_bwd_wgmma.cu``: bf16 at head dim 64 or 128 with
 16-byte aligned tensors, on Hopper's warpgroup MMA; it rounds P and dS to
 bf16 where they enter a product, as the wgmma forward rounds P) or
@@ -50,7 +56,8 @@ kept as the yardstick that ``_launch_bwd`` runs on request.  It counts in
 Three ``torch.library`` operators carry them: ``repro_torch.flash_attention``
 (the output alone: serving's instantiation, which writes no LSE),
 ``repro_torch.flash_attention_lse`` (the output and the LSE: training's)
-and ``repro_torch.flash_attention_bwd`` (causal only).  The dispatcher
+and ``repro_torch.flash_attention_bwd``, which takes the forward's own
+arguments (causal, window, softcap, scale).  The dispatcher
 sends a CUDA tensor to the wrappers above (the kernel, or a raise), a CPU
 tensor to the plain versions, and a fake or meta tensor to a fake
 implementation that returns the real outputs' shapes, dtypes and strides
@@ -92,10 +99,10 @@ def block_shape(dtype: torch.dtype, hd: int) -> tuple[int, int]:
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
              ctypes.c_float, _P]
-_BWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+_BWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                  ctypes.c_float, _P]
 BWD_MAX_HEAD_DIM = 128
-NOT_PORTED = "is not yet ported, see ROADMAP.md queue A item 10"
+BWD_NOT_PORTED = "is not yet ported, see ROADMAP.md queue B item 2 (B2d)"
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
@@ -209,21 +216,33 @@ flash_attention.variant_launches = {"wgmma": 0, "simt": 0}
 
 
 # ---------------------------------------------------------------- backward
-def check_bwd_supported(causal, window, softcap) -> None:
-    """Raise NotImplementedError for attention whose gradient is not ported."""
-    if not causal or window is not None or softcap:
+def check_bwd_supported(causal, window, softcap, hd: int, sq: int, sk: int) -> None:
+    """Raise NotImplementedError for attention whose gradient is not ported,
+    on every device alike: it takes causal attention at head dims up to
+    ``BWD_MAX_HEAD_DIM``, with or without a ``window`` (then Sq <= Sk, so
+    that every row keeps a live key), and no softcap."""
+    why = None
+    if not causal:
+        why = "unmasked attention"
+    elif softcap:
+        why = f"a softcap ({softcap})"
+    elif hd > BWD_MAX_HEAD_DIM:
+        why = f"head dim {hd} (above {BWD_MAX_HEAD_DIM})"
+    elif window is not None and sq > sk:
+        why = f"a window with Sq {sq} > Sk {sk} (rows with no live key)"
+    if why:
         raise NotImplementedError(
-            f"the gradient of attention with causal={causal}, window={window}, "
-            f"softcap={softcap} {NOT_PORTED}: it is ported for causal attention only")
+            f"the gradient of attention with {why} {BWD_NOT_PORTED}: it is ported for causal "
+            f"attention, with or without a window, at head dims up to {BWD_MAX_HEAD_DIM}")
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True, window=None, softcap=None,
                               scale=None):
-    """The gradient of causal attention in fp32: q, o, do [B,Sq,H,hd], k/v
-    [B,Sk,KV,hd], lse [B,H,Sq] fp32 -> (dq, dk, dv) in q's dtype.  P is
-    recomputed from the LSE, as the kernel does; D = rowsum(dO * o) uses
-    the forward's output as given."""
-    check_bwd_supported(causal, window, softcap)
+    """The gradient of causal attention, with or without a window, in fp32:
+    q, o, do [B,Sq,H,hd], k/v [B,Sk,KV,hd], lse [B,H,Sq] fp32 -> (dq, dk,
+    dv) in q's dtype.  P is recomputed from the LSE, as the kernel does; D
+    = rowsum(dO * o) uses the forward's output as given."""
+    check_bwd_supported(causal, window, softcap, q.shape[-1], q.shape[1], k.shape[1])
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -232,8 +251,11 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True, window=None, 
     kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)        # [B,H,Sk,hd]
     vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
     dof = do.float().transpose(1, 2)
-    live = (torch.arange(Sq, device=q.device)[:, None]
-            >= torch.arange(Sk, device=q.device)[None, :])
+    offset = (torch.arange(Sq, device=q.device)[:, None]
+              - torch.arange(Sk, device=q.device)[None, :])
+    live = offset >= 0
+    if window is not None:
+        live &= offset < window
     p = torch.where(live, torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[..., None]), 0.0)
     delta = (dof * o.float().transpose(1, 2)).sum(-1, keepdim=True)
     ds = p * (dof @ vf.transpose(-1, -2) - delta)
@@ -244,13 +266,11 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True, window=None, 
             dv.transpose(1, 2).to(q.dtype))
 
 
-def check_bwd_args(q, k, v, o, do, lse) -> None:
-    """Raise ValueError on what the backward kernel does not take."""
-    check_args(q, k, v, None)
+def check_bwd_args(q, k, v, o, do, lse, window) -> None:
+    """Raise ValueError on what the backward kernel does not take
+    (``check_bwd_supported`` has refused what it does not compute)."""
+    check_args(q, k, v, window)
     B, Sq, H, hd = q.shape
-    if hd > BWD_MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_bwd: head_dim must be at most {BWD_MAX_HEAD_DIM}, "
-                         f"got {hd}")
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous() or \
                 t.device != q.device:
@@ -273,7 +293,7 @@ def bwd_variant(o, do) -> str:
     return "wgmma" if wgmma and aligned else "simt"
 
 
-def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float):
+def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float, window=None):
     """Run backward kernel ``var`` (``"wgmma"``, ``"mma"`` or ``"simt"``) on
     arguments that ``check_bwd_args`` passed; count nothing."""
     B, Sq, H, hd = q.shape
@@ -288,20 +308,21 @@ def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float):
     symbol = {"wgmma": lib, "mma": "flash_attention_bwd_mma"}.get(var, "flash_attention_bwd")
     fn = _build.function(lib, symbol, _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
-        err = fn(*args, B, Sq, Sk, H, KV, hd, float(scale), stream)
+        err = fn(*args, B, Sq, Sk, H, KV, hd, window or 0, float(scale), stream)
     _build.check(lib, err)
     return dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None, softcap=None,
                         scale=None):
-    """The gradient of causal attention through the kernel that ``bwd_variant``
-    names: -> (dq, dk, dv), each like its input."""
-    check_bwd_supported(causal, window, softcap)
-    check_bwd_args(q, k, v, o, do, lse)
+    """The gradient of causal attention, with or without a window, through
+    the kernel that ``bwd_variant`` names: -> (dq, dk, dv), each like its
+    input."""
+    check_bwd_supported(causal, window, softcap, q.shape[-1], q.shape[1], k.shape[1])
+    check_bwd_args(q, k, v, o, do, lse, window)
     scale = scale if scale is not None else q.shape[-1]**-0.5
     var = bwd_variant(o, do)
-    out = _launch_bwd(var, q, k, v, o, do, lse, scale)
+    out = _launch_bwd(var, q, k, v, o, do, lse, scale, window)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.variant_launches[var] += 1
     return out
@@ -317,7 +338,7 @@ _ATTN_ARGS = "Tensor q, Tensor k, Tensor v, bool causal, int? window, float? sof
 _LIB.define(f"flash_attention({_ATTN_ARGS}) -> Tensor")
 _LIB.define(f"flash_attention_lse({_ATTN_ARGS}) -> (Tensor, Tensor)")
 _LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, Tensor lse, "
-            "float? scale) -> (Tensor, Tensor, Tensor)")
+            "bool causal, int? window, float? softcap, float? scale) -> (Tensor, Tensor, Tensor)")
 
 
 def _forward(fn, return_lse: bool):
@@ -333,13 +354,18 @@ def _forward(fn, return_lse: bool):
 for _name, _lse in (("flash_attention", False), ("flash_attention_lse", True)):
     _LIB.impl(_name, _forward(flash_attention, _lse), "CUDA")
     _LIB.impl(_name, _forward(flash_attention_plain, _lse), "CPU")
-_LIB.impl("flash_attention_bwd",
-          lambda q, k, v, o, do, lse, scale: flash_attention_bwd(q, k, v, o, do, lse, scale=scale),
-          "CUDA")
-_LIB.impl("flash_attention_bwd",
-          lambda q, k, v, o, do, lse, scale: tuple(
-              t.contiguous() for t in flash_attention_bwd_plain(q, k, v, o, do, lse, scale=scale)),
-          "CPU")
+
+
+def _backward(fn):
+    """The backward operator's implementation by ``fn``, outputs contiguous."""
+    def impl(q, k, v, o, do, lse, causal, window, softcap, scale):
+        return tuple(t.contiguous() for t in fn(q, k, v, o, do, lse, causal=causal, window=window,
+                                                softcap=softcap, scale=scale))
+    return impl
+
+
+_LIB.impl("flash_attention_bwd", _backward(flash_attention_bwd), "CUDA")
+_LIB.impl("flash_attention_bwd", _backward(flash_attention_bwd_plain), "CPU")
 
 
 @torch.library.register_fake("repro_torch::flash_attention")
@@ -354,5 +380,5 @@ def _flash_lse_fake(q, k, v, causal, window, softcap, scale):
 
 
 @torch.library.register_fake("repro_torch::flash_attention_bwd")
-def _flash_bwd_fake(q, k, v, o, do, lse, scale):
+def _flash_bwd_fake(q, k, v, o, do, lse, causal, window, softcap, scale):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)

@@ -19,9 +19,13 @@ and ``repro_torch::ssd_scan`` are registered on the operators and call
 ``repro_torch::ssd_scan_bwd`` (the backward kernels on the card, their
 plain versions on the CPU).  Attention whose inputs need a gradient
 runs the LSE operator, which the backward reads; otherwise it runs the one
-without, as serving does, so the kernel writes no LSE.  The JAX kernels
-have no backward; the reference differentiates its jnp paths, which
-compute the same functions.
+without, as serving does, so the kernel writes no LSE.  The flash
+gradient takes causal attention with or without a sliding window at head
+dims up to 128; ``flash_mha`` refuses any other attention that needs one
+(``check_bwd_supported``, NotImplementedError naming ROADMAP B2d) before
+its forward runs, on the CPU as on the card.  The JAX kernels have no
+backward; the reference differentiates its jnp paths, which compute the
+same functions.
 
 ``label`` is the counterpart of ``jax.ad_checkpoint.checkpoint_name``: it
 names an activation for the planner (``core.offload.KNOWN_NAMES``), and
@@ -72,13 +76,13 @@ def _flash_setup(ctx, inputs, output):
     q, k, v, causal, window, softcap, scale = inputs
     out, lse = output
     ctx.save_for_backward(q, k, v, out, lse)
-    ctx.scale = scale
+    ctx.attn = (causal, window, softcap, scale)
     ctx.mark_non_differentiable(lse)
 
 
 def _flash_backward(ctx, dout, _dlse):
     q, k, v, out, lse = ctx.saved_tensors
-    dq, dk, dv = _OPS.flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, ctx.scale)
+    dq, dk, dv = _OPS.flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, *ctx.attn)
     return dq, dk, dv, None, None, None, None
 
 
@@ -101,10 +105,11 @@ torch.library.register_autograd("repro_torch::ssd_scan", _ssd_backward, setup_co
 # ------------------------------------------------------------- entry points
 def flash_mha(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
     """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd] (blockwise attention).
-    Differentiable for causal attention without window or softcap; taking
-    the gradient of any other raises NotImplementedError."""
+    Differentiable for causal attention, with or without a window (Sq <=
+    Sk), at head dims up to 128 and without a softcap; asking for the
+    gradient of any other raises NotImplementedError naming B2d."""
     if _needs_grad(q, k, v):
-        check_bwd_supported(causal, window, softcap)
+        check_bwd_supported(causal, window, softcap, q.shape[-1], q.shape[1], k.shape[1])
         return _OPS.flash_attention_lse(q, k, v, causal, window, softcap, scale)[0]
     return _OPS.flash_attention(q, k, v, causal, window, softcap, scale)
 

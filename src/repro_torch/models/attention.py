@@ -138,9 +138,11 @@ def apply_attention(p, x, cfg: ModelConfig, spec: LayerSpec, angles, causal: boo
     """Full-sequence attention for training, or an encoder's (``causal=False``):
     x [B,S,D] -> [B,S,D].  The reference's ``mha_dense``/``mha_chunked``
     become the flash kernel at every S, with the layer's window, through
-    ``ops.flash_mha``.  It is differentiable when causal without a window;
-    the gradient of any other raises (``check_bwd_supported``) until its
-    backward lands (ROADMAP B2d)."""
+    ``ops.flash_mha``.  It is differentiable when causal, with the layer's
+    window or without one, at head dims up to 128 and without a softcap;
+    asking for the gradient of any other (an encoder's unmasked attention,
+    gemma's head dim 256 and softcap) raises NotImplementedError
+    (``check_bwd_supported``) until its backward lands (ROADMAP B2d)."""
     check_spec(spec)
     q, k, v = _project(p, x, cfg, angles)
     out = ops.flash_mha(q, k, v, causal=causal, window=_window(spec), softcap=cfg.attn_softcap,

@@ -34,9 +34,9 @@ pytree into this form).  ``Model.loss`` trains attention (full, or MLA's)
 and Mamba-2 mixers, with dense or MoE FFNs or none; each MoE layer's
 Switch aux loss is carried out of the layer (through remat and an offload
 policy alike) and summed in fp32, and the loss is ``ce + 0.01 * aux``, as
-the reference's.  Hybrid training waits for the flash gradient with a
-window (ROADMAP queue B item 2, B2d): all but three of hymba's layers have
-one.
+the reference's.  Hybrid layers train too: their attention branch takes
+the flash gradient with the layer's window (29 of hymba's 32 layers have
+one) beside the SSD scan's.
 """
 
 from __future__ import annotations
@@ -72,8 +72,6 @@ from .layers import (
 from .rope import mrope_angles, position_tensor, rope_angles
 
 
-NOT_TRAINED = ("is not yet ported: it needs the flash gradient with a window, see ROADMAP.md "
-               "queue B item 2 (B2d)")
 # The weight of the summed MoE aux loss in the training loss: the
 # reference's ``ce + 0.01 * aux`` (``repro/models/transformer.py:447``).
 AUX_WEIGHT = 0.01
@@ -175,11 +173,15 @@ def _cross(p, x, cfg: ModelConfig, enc_kv):
 
 def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, enc_out=None,
                 causal: bool = True):
-    """Forward one attention, MLA or Mamba-2 layer over the whole sequence,
-    for the loss or as an encoder layer (``causal=False``) -> (x, aux), as the
-    reference's ``apply_layer``: ``aux`` is the MoE FFN's fp32 aux loss, or
-    None for a layer without one.  The reference's activation labels
-    (``block_in``, ``attn_out``, ``ffn_out``:
+    """Forward one attention, MLA, Mamba-2 or hybrid layer over the whole
+    sequence, for the loss or as an encoder layer (``causal=False``) -> (x,
+    aux), as the reference's ``apply_layer``: ``aux`` is the MoE FFN's fp32
+    aux loss, or None for a layer without one.  A hybrid layer's mixer is
+    the reference's ``_mix`` (``repro/models/transformer.py:88-94``): the
+    attention branch with the layer's window and the Mamba-2 branch on the
+    same normed input, merged by ``_merge_branches``.  The reference's
+    activation labels (``block_in``, ``attn_out`` after the mixer, a hybrid
+    layer's merge included, ``ffn_out``:
     ``repro/models/transformer.py:106,118,319``) name variables for the
     planner and, under an offload policy, the activations it offloads or
     saves; otherwise they cost nothing on real tensors.  A decoder layer
@@ -190,6 +192,9 @@ def train_layer(p, x, cfg: ModelConfig, spec: LayerSpec, angles, enc_out=None,
         h = ssm_mod.apply_mamba(p["mamba"], h, cfg)
     elif spec.attn == "mla":
         h = mla_mod.apply_mla(p["attn"], h, cfg, spec, angles, causal=causal)
+    elif spec.attn == "hybrid":
+        a = attn_mod.apply_attention(p["attn"], h, cfg, spec, angles, causal)
+        h = _merge_branches(p, a, ssm_mod.apply_mamba(p["mamba"], h, cfg), cfg)
     else:
         h = attn_mod.apply_attention(p["attn"], h, cfg, spec, angles, causal)
     x = x + _post_norm(p, "ln1_post", label(h, "attn_out"), cfg)
@@ -384,9 +389,6 @@ class Model:
         as the reference's is."""
         cfg = self.cfg
         specs = layer_specs(cfg.program)
-        if any(spec.attn == "hybrid" for spec in specs):
-            raise NotImplementedError(f"{cfg.name} training (hybrid layers: attention with a "
-                                      f"window beside Mamba-2) {NOT_TRAINED}")
         x, positions = self._embed_inputs(params, batch)
         angles = self._angles(positions)
         aux = None

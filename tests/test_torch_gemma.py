@@ -223,9 +223,10 @@ def test_serving_matches_jax_model(arch):
     check_caches("decode")
 
 
-# The flash gradient takes causal attention without a window or a softcap
-# (B2d waits), so training runs the smoke config with full causal layers
-# and no attention softcap; the sandwich norms, the embedding scale,
+# The gemmas' training waits on hd 256 and the attention softcap in the
+# flash gradient (B2d), which takes causal attention with or without a
+# window at head dims up to 128 and no softcap; so training runs the smoke
+# config with full causal layers and no attention softcap; the sandwich norms, the embedding scale,
 # gemma3's qk-norm and gemma2's final softcap stay.  fp32 masters on both
 # sides, as tests/test_torch_train.py holds qwen3's loss and gradients.
 @pytest.mark.parametrize("arch", ARCHS)

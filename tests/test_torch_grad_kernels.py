@@ -130,13 +130,17 @@ def test_flash_plain_lse_matches_reference_logsumexp(shape):
 
 
 def test_flash_bwd_raises_outside_causal():
-    q = torch.zeros(1, 8, 2, 16)
-    lse = torch.zeros(1, 2, 8)
-    for kw in (dict(causal=False), dict(window=4), dict(softcap=30.0)):
-        with pytest.raises(NotImplementedError, match="queue A item 10"):
-            flash_attention_bwd_plain(q, q, q, q, q, lse, **kw)
-        with pytest.raises(NotImplementedError, match="queue A item 10"):
-            ops.flash_mha(q.clone().requires_grad_(), q, q, **kw)
+    """Unmasked attention, a softcap, head dim 256 and a window with Sq > Sk
+    are refused, naming B2d; a window with Sq <= Sk is taken."""
+    for hd, sk, kw in ((16, 8, dict(causal=False)), (16, 8, dict(softcap=30.0)), (256, 8, {}),
+                       (16, 4, dict(window=4))):
+        q = torch.zeros(1, 8, 2, hd)
+        k = torch.zeros(1, sk, 2, hd)
+        lse = torch.zeros(1, 2, 8)
+        with pytest.raises(NotImplementedError, match="B2d"):
+            flash_attention_bwd_plain(q, k, k, q, q, lse, **kw)
+        with pytest.raises(NotImplementedError, match="B2d"):
+            ops.flash_mha(q.clone().requires_grad_(), k, k, **kw)
 
 
 # ------------------------------------------------------------------ routing

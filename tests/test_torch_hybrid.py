@@ -9,8 +9,8 @@ wrapping during prefill in one case and during decode in another.  A
 window-only program (qwen3's smoke widths with window and full layers) is
 held to the JAX model built from the same config.  Also: the full config's
 shapes against the reference's ``eval_shape``, its long_500k decode cell's
-cache bytes, the SSD's routing at hymba's widths, the entry point with and
-without plans, and the training guard.
+cache bytes, the SSD's routing at hymba's widths, and the entry point with
+and without plans.  Training is ``tests/test_torch_hybrid_train.py``'s.
 """
 
 import dataclasses
@@ -385,21 +385,3 @@ def test_serve_hymba_smoke_with_and_without_plans(tmp_path, capsys):
     for role in ("prefill", "decode"):
         assert f"[plan] {role}: restored from cache" in out, out
     assert len(list(tmp_path.glob("*.json"))) == 2
-
-
-def test_hybrid_training_raises():
-    """The loss of a model with hybrid layers raises, naming the flash
-    gradient with a window it waits for (B2d); its fp32 masters, Mamba-2's
-    matrices among them, are made since the SSD scan has its gradient."""
-    cfg = get_smoke_config(ARCH)
-    model = build_model(cfg, "cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
-             "labels": torch.zeros((1, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="B2d"):
-        model.loss(params, batch)
-    bf16 = build_model(cfg.reduced(dtype="bfloat16"), "cpu")
-    masters = bf16.init(torch.Generator().manual_seed(0), torch.float32)
-    assert all(t.dtype == torch.float32 for t in masters["blocks"][0]["mamba"].values())
-    with pytest.raises(NotImplementedError, match="B2d"):
-        bf16.loss(masters, batch)

@@ -39,10 +39,10 @@ def _flash(rng, B, Sq, Sk, H, KV, hd, dtype, grad=False, causal=True, window=Non
             _t(rng, B, Sk, KV, hd, dtype=dtype, grad=grad), causal, window, softcap, scale)
 
 
-def _flash_bwd(rng, B, S, H, KV, hd, dtype):
+def _flash_bwd(rng, B, S, H, KV, hd, dtype, window=None, scale=None):
     q, k, v = (a.detach() for a in _flash(rng, B, S, S, H, KV, hd, dtype)[:3])
-    o, lse = O.flash_attention_lse(q, k, v, True, None, None, None)
-    return q, k, v, o, _t(rng, B, S, H, hd, dtype=dtype), lse, None
+    o, lse = O.flash_attention_lse(q, k, v, True, window, None, scale)
+    return q, k, v, o, _t(rng, B, S, H, hd, dtype=dtype), lse, True, window, None, scale
 
 
 def _ssd(rng, b, s, h, p, g, n, dtype):
@@ -78,6 +78,9 @@ CASES = {
                             lambda rng: _flash_bwd(rng, 1, 64, 4, 2, 16, torch.float32)),
     "flash_attention_bwd-odd": (O.flash_attention_bwd,
                                 lambda rng: _flash_bwd(rng, 2, 37, 3, 1, 32, torch.bfloat16)),
+    "flash_attention_bwd-window": (O.flash_attention_bwd,
+                                   lambda rng: _flash_bwd(rng, 2, 70, 5, 1, 16, torch.float32,
+                                                          window=9, scale=0.3)),
     "ssd_scan": (O.ssd_scan, lambda rng: _ssd(rng, 1, 64, 2, 8, 1, 4, torch.float32)),
     "ssd_scan-odd": (O.ssd_scan, lambda rng: _ssd(rng, 2, 70, 4, 12, 2, 5, torch.bfloat16)),
 }
@@ -98,8 +101,8 @@ PLAIN = {
         q, k, v, causal=c, window=w, softcap=sc, scale=s),
     "flash_attention_lse": lambda q, k, v, c, w, sc, s: flash_attention_plain(
         q, k, v, causal=c, window=w, softcap=sc, scale=s, return_lse=True),
-    "flash_attention_bwd": lambda q, k, v, o, do, lse, s: flash_attention_bwd_plain(
-        q, k, v, o, do, lse, scale=s),
+    "flash_attention_bwd": lambda q, k, v, o, do, lse, c, w, sc, s: flash_attention_bwd_plain(
+        q, k, v, o, do, lse, causal=c, window=w, softcap=sc, scale=s),
     "ssd_scan": ssd_scan_plain,
 }
 

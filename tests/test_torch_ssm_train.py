@@ -11,8 +11,8 @@ every gradient against ``jax.value_and_grad`` (with remat, without, and
 under an offload policy, which sees ``attn_out`` on a Mamba-2 layer), at a
 length that pads to the chunk, five ``build_train_step`` steps against the
 reference's jitted step, the train driver, the train step traced on fake
-tensors, bf16 against the port's own fp32, and hybrid training still
-raising.  Inputs are made from seeds with numpy.
+tensors, and bf16 against the port's own fp32.  Inputs are made from
+seeds with numpy.
 """
 
 import jax
@@ -356,12 +356,6 @@ def test_train_step_traces_on_fake_tensors():
     tr = P.trace_graph(gm, P._leaf_paths((params, batch)))
     assert tr.peak_load() > 0
     assert {"block_in", "attn_out"} <= {v.name for v in tr.variables}
-
-
-def test_hybrid_training_still_raises_naming_b2d():
-    with pytest.raises(NotImplementedError, match="B2d"):
-        train.main(["--arch", "hymba-1.5b", "--smoke", "--device", "cpu", "--steps", "1",
-                    "--batch", "1", "--seq", "16"])
 
 
 def test_padded_steps_get_no_gradient_through_the_pad():
