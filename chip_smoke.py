@@ -330,15 +330,44 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (d) as 18 (d), for hymba: losses equal to (c)'s bit for bit,
               the same launch counts, the bytes each way a step exactly 32 x
               the names x one [4, 2048, 1600] bf16 activation.
+ 20. train whisper  whisper-large-v3 trained at every published width, all
+              32 encoder and 32 decoder layers (1,535,219,200 parameters,
+              24,563,507,200 B of fp32 state), each part after the memory
+              of the earlier ones is dropped, each part's seconds printed:
+              (a) the flash backward of unmasked attention against its
+              plain version: ``wgmma`` at whisper's encoder layout (B4
+              S1500 H20 KV20 hd64), its cross attention's (448 queries
+              against 1500 keys), Sq > Sk (B2 Sq700 Sk300) and GQA at hd 128
+              (B1 S1100 H16 KV4), each bit for bit across two calls, with
+              ``simt`` and the ``mma`` yardstick timed on the same inputs
+              (``mma`` held to the plain version too); the causal backward
+              at the decoder's B4 S448; ``simt`` in fp32 at the unmasked
+              cases, smaller; the unmasked forward with the LSE at the
+              encoder's and the cross layouts; each timed beside its bound
+              and SDPA's unmasked backward;
+              (b) one train step of two encoder and two decoder layers in
+              fp32 over all 1500 frames (standard normal from seed 0) at
+              decoder S 300 on the card against the CPU, as phase 8 (the
+              ``simt`` backward, unmasked and causal);
+              (c) the 64 layers through ``train.train`` at B4, decoder S
+              448 (whisper's text context), 1500 zero frames, 5 steps:
+              finite losses, ms a step, decoder tokens/s and frames/s, the
+              peak beside the state's arithmetic, exact launch counts by
+              variant (a step: flash 160 forward and 96 backward
+              ``wgmma``, no RMSNorm, no SSD); a warm step profiled (the
+              flash backward's share, the idle share, the top ops);
+              (d) as 18 (d), for whisper: losses equal to (c)'s bit for
+              bit, the same launch counts, the bytes each way a step
+              exactly 32 x the names x one [4, 448, 1280] bf16 activation.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the main paths, the serve runs, plain
 and planned, the train runs, plain and with the offload plan, the CNN
 phase, the long decode, the example, deepseek's train runs, phase 17's
-runs, mamba2's and hymba's train runs, with each path's own count in
-``launches_by_path``; the flash backward's entry also holds hymba's
-window case, the forward's the LSE with the window), the nvidia-smi
-line, and
+runs, mamba2's, hymba's and whisper's train runs, with each path's own
+count in ``launches_by_path``; the flash backward's entry also holds
+hymba's window case and whisper's unmasked encoder and cross cases, the
+forward's the LSE with the window and unmasked), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -676,27 +705,28 @@ def flash_padding_probe(B, Sq, Sk, H, KV, hd, gen):
                 f"last tile's mass off by {mass_rel:.3e} of its largest value")
 
 
-def flash_lse_case(B, S, H, KV, hd, dtype, gen, window=None):
-    """Causal flash with the LSE written (as training runs it), with
-    ``window`` where given, against the plain version's output and LSE; the
-    LSE at fp32's tolerance in either type, since both sum fp32 scores of
-    the same inputs.  A window's library call is SDPA with its boolean band
-    mask."""
+def flash_lse_case(B, S, H, KV, hd, dtype, gen, window=None, causal=True, Sk=None):
+    """Flash with the LSE written (as training runs it), causal with
+    ``window`` where given or unmasked (``causal=False``, ``Sk`` keys, S by
+    default), against the plain version's output and LSE; the LSE at fp32's
+    tolerance in either type, since both sum fp32 scores of the same
+    inputs.  A window's library call is SDPA with its boolean band mask."""
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
                                                      variant)
 
+    Sk = Sk or S
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
     var = variant(dtype, hd)
 
     def op(q, k, v):
-        return torch.ops.repro_torch.flash_attention_lse(q, k, v, True, window, None, None)
+        return torch.ops.repro_torch.flash_attention_lse(q, k, v, causal, window, None, None)
 
     before = flash_attention.variant_launches[var]
     (out, lse), (out_want, lse_want) = (op(q, k, v),
-                                        flash_attention_plain(q, k, v, window=window,
-                                                              return_lse=True))
+                                        flash_attention_plain(q, k, v, causal=causal,
+                                                              window=window, return_lse=True))
     torch.cuda.synchronize()
     require(flash_attention.variant_launches[var] == before + 1,
             f"flash with LSE B{B} S{S} hd{hd} {dtype} did not launch the {var} kernel")
@@ -707,38 +737,40 @@ def flash_lse_case(B, S, H, KV, hd, dtype, gen, window=None):
     err = (lse - lse_want).abs().max().item()
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * lse.numel()
     sets = copies((q, k, v), nbytes)
-    b_ms, b_by = bound(nbytes, 4 * hd * B * H * live_pairs(S, S, True, window), dtype)
-    band = torch.from_numpy(keep_mask(S, S, True, window)).cuda() if window else None
+    b_ms, b_by = bound(nbytes, 4 * hd * B * H * live_pairs(S, Sk, causal, window), dtype)
+    band = torch.from_numpy(keep_mask(S, Sk, causal, window)).cuda() if window else None
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                               v.transpose(1, 2), attn_mask=band,
-                                              is_causal=band is None, enable_gqa=True)
+                                              is_causal=causal and band is None, enable_gqa=True)
 
     return {
-        "case": f"flash+lse [{var}] B{B} S{S} H{H} KV{KV} hd{hd} {str(dtype)[6:]} causal"
+        "case": f"flash+lse [{var}] B{B} S{S}{f' Sk{Sk}' if Sk != S else ''} H{H} KV{KV} hd{hd} "
+                f"{str(dtype)[6:]} {'causal' if causal else 'unmasked'}"
                 f"{f' window={window}' if window else ''} (max_abs_err of the LSE)",
         "variant": var, "max_abs_err": err, "ok": ok,
         "check": f"LSE {lse_check}; output {out_check}",
         "ms": time_ms(op, sets, 20),
-        "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, window=window, return_lse=True),
-                            sets, 3),
+        "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, causal=causal, window=window,
+                                                             return_lse=True), sets, 3),
         "library_ms": time_ms(sdpa, sets, 20), "bound_ms": b_ms, "bound_by": b_by,
     }
 
 
 def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant, window=None, yardstick="mma",
-                   causal_bits=False):
+                   causal_bits=False, causal=True, Sk=None, also=None):
     """flash_attention_bwd against flash_attention_bwd_plain on the same q, k,
     v, dO and the kernel forward's o and LSE, causal with ``window`` where
-    given: dq, dk and dv at the dtype's tolerance.  A wgmma case must also
-    give equal bits in two runs, and the mma kernel (the variant it
-    replaced, through ``_launch_bwd``, counting no launch) is held to the
-    same plain version at the same tolerance; ``yardstick`` (mma, or simt)
-    is timed beside it on the same inputs.  ``causal_bits``: the window
-    reaches past every row, and the result must equal the causal call's bit
-    for bit.  The library call is SDPA's backward (a window: its boolean
-    band mask)."""
+    given, or unmasked (``causal=False``) with ``Sk`` keys (Sq by default):
+    dq, dk and dv at the dtype's tolerance.  A wgmma case must also give
+    equal bits in two runs, and the mma kernel (the variant it replaced,
+    through ``_launch_bwd``, counting no launch) is held to the same plain
+    version at the same tolerance; ``yardstick`` (mma, or simt), and
+    ``also`` where given, are timed beside it on the same inputs.
+    ``causal_bits``: the window reaches past every row, and the result must
+    equal the causal call's bit for bit.  The library call is SDPA's
+    backward (a window: its boolean band mask)."""
     from repro_torch.kernels.flash_attention import (_launch_bwd, bwd_variant, flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_plain)
@@ -746,19 +778,22 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant, window=None, yard
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    q, k, v, do = randn(B, Sq, H, hd), randn(B, Sq, KV, hd), randn(B, Sq, KV, hd), \
+    Sk = Sk or Sq
+    q, k, v, do = randn(B, Sq, H, hd), randn(B, Sk, KV, hd), randn(B, Sk, KV, hd), \
         randn(B, Sq, H, hd)
-    o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+    o, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
     var = bwd_variant(o, do)
-    tag = f"flash_bwd B{B} S{Sq} hd{hd} {dtype}{f' window={window}' if window else ''}"
+    mask = "causal" if causal else "unmasked"
+    tag = (f"flash_bwd B{B} Sq{Sq} Sk{Sk} hd{hd} {dtype} {mask}"
+           f"{f' window={window}' if window else ''}")
     require(var == want_variant, f"{tag} routes to {var}, want {want_variant}")
 
     def op(*args, window=window):
-        return torch.ops.repro_torch.flash_attention_bwd(*args, True, window, None, None)
+        return torch.ops.repro_torch.flash_attention_bwd(*args, causal, window, None, None)
 
     before = flash_attention_bwd.variant_launches[var]
     got, want = (op(q, k, v, o, do, lse),
-                 flash_attention_bwd_plain(q, k, v, o, do, lse, window=window))
+                 flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal, window=window))
     torch.cuda.synchronize()
     require(flash_attention_bwd.variant_launches[var] == before + 1,
             f"{tag} did not launch the {var} kernel")
@@ -766,8 +801,8 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant, window=None, yard
         again = op(q, k, v, o, do, lse)
         require(all(torch.equal(a, g) for a, g in zip(again, got)), f"{tag} [wgmma]: two runs differ")
     if causal_bits:
-        causal = op(q, k, v, o, do, lse, window=None)
-        require(all(torch.equal(a, g) for a, g in zip(causal, got)),
+        no_window = op(q, k, v, o, do, lse, window=None)
+        require(all(torch.equal(a, g) for a, g in zip(no_window, got)),
                 f"{tag} [{var}]: differs from the causal result")
     tol = TOL[dtype]
     checks = [close(g, w, tol) for g, w in zip(got, want)]
@@ -776,7 +811,7 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant, window=None, yard
     mma_check = ""
     if var == "wgmma":
         mma = [close(g, w, tol) for g, w in
-               zip(_launch_bwd("mma", q, k, v, o, do, lse, hd**-0.5, window), want)]
+               zip(_launch_bwd("mma", q, k, v, o, do, lse, hd**-0.5, window, causal), want)]
         mma_check = "; mma max excess " + ", ".join(f"{c[1]:.2e}" for c in mma)
         require(all(c[0] for c in mma), f"{tag} [mma]: " +
                 "; ".join(f"{n} {c[2]}" for n, c in zip(("dq", "dk", "dv"), mma)))
@@ -786,31 +821,32 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant, window=None, yard
     nbytes = sum(t.numel() * t.element_size() for t in args) + \
         (q.numel() + 2 * k.numel()) * q.element_size()
     sets = copies(args, nbytes)
-    b_ms, b_by = bound(nbytes, 10 * hd * B * H * live_pairs(Sq, Sq, True, window), dtype)
-    band = torch.from_numpy(keep_mask(Sq, Sq, True, window)).cuda() if window else None
+    b_ms, b_by = bound(nbytes, 10 * hd * B * H * live_pairs(Sq, Sk, causal, window), dtype)
+    band = torch.from_numpy(keep_mask(Sq, Sk, causal, window)).cuda() if window else None
 
     def sdpa(q, k, v, o, do, lse):
         q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                              v.transpose(1, 2), attn_mask=band,
-                                             is_causal=band is None, enable_gqa=True)
+                                             is_causal=causal and band is None, enable_gqa=True)
         return out, (q, k, v), do.transpose(1, 2)
 
-    other = None
-    if var == "wgmma":
-        other = (yardstick, time_ms(lambda *a: _launch_bwd(yardstick, *a, hd**-0.5, window),
-                                    sets, 10))
+    def timed(name):
+        return name, time_ms(lambda *a: _launch_bwd(name, *a, hd**-0.5, window, causal), sets, 10)
+
+    other = timed(yardstick) if var == "wgmma" else None
     return {
-        "case": f"flash_bwd [{var}] B{B} S{Sq} H{H} KV{KV} hd{hd} {str(dtype)[6:]} causal"
-                f"{f' window={window}' if window else ''} "
+        "case": f"flash_bwd [{var}] B{B} S{Sq}{f' Sk{Sk}' if Sk != Sq else ''} H{H} KV{KV} "
+                f"hd{hd} {str(dtype)[6:]} {mask}{f' window={window}' if window else ''} "
                 f"(dq, dk, dv abs err {errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e}; relative to "
                 f"max|want| {max(rels):.2e}{'; bit-equal across two runs' * (var == 'wgmma')}"
                 f"{'; bit-equal to the causal call' * causal_bits}{mma_check})",
         "variant": var, "max_abs_err": max(errs), "check": check, "ok": ok,
         "ms": time_ms(op, sets, 10),
-        "plain_ms": time_ms(lambda *a: flash_attention_bwd_plain(*a, window=window), sets, 3),
+        "plain_ms": time_ms(lambda *a: flash_attention_bwd_plain(*a, causal=causal, window=window),
+                            sets, 3),
         "library_ms": grad_ms(sdpa, sets, 10), "bound_ms": b_ms, "bound_by": b_by,
-        "other": other,
+        "other": other, "also": timed(also) if var == "wgmma" and also else None,
     }
 
 
@@ -881,7 +917,7 @@ LAYOUT_NOTE = {"dense": "", "views": " (views of one tensor)",
 
 def print_case(c) -> None:
     lib = f"{c['library_ms']:.4f}ms" if c["library_ms"] is not None else "none"
-    other = f" {c['other'][0]}={c['other'][1]:.4f}ms" if c.get("other") else ""
+    other = "".join(f" {o[0]}={o[1]:.4f}ms" for o in (c.get("other"), c.get("also")) if o)
     print(f"  {c['case']}: max_abs_err={c['max_abs_err']:.3e}; {c['check']}: "
           f"{'ok' if c['ok'] else 'DISAGREES'}  kernel={c['ms']:.4f}ms{other} "
           f"plain={c['plain_ms']:.4f}ms library={lib} "
@@ -892,7 +928,8 @@ def print_case(c) -> None:
 def opcheck_ops(gen) -> None:
     """``torch.library.opcheck`` of each of the seven operators on CUDA
     tensors at a small shape (the flash forward also at head dim 256, with a
-    window, a softcap and a scale; its backward also with a window; the SSD
+    window, a softcap and a scale; its backward also with a window, and
+    unmasked with 128 queries against 200 keys; the SSD
     scan also with inputs that need a gradient, which its backward operator
     computes): the schema, the
     autograd registration (rmsnorm, flash_attention_lse and ssd_scan take
@@ -913,6 +950,8 @@ def opcheck_ops(gen) -> None:
         randn(1, 128, 2, 64, dtype=bf16)
     o, lse = O.flash_attention_lse(q, k, v, True, None, None, None)
     ow, lsew = O.flash_attention_lse(q, k, v, True, 48, None, None)
+    ku, vu = randn(1, 200, 2, 64, dtype=bf16), randn(1, 200, 2, 64, dtype=bf16)
+    ou, lseu = O.flash_attention_lse(q, ku, vu, False, None, None, None)
     q256, k256, v256 = randn(1, 192, 4, 256, dtype=bf16), randn(1, 192, 2, 256, dtype=bf16), \
         randn(1, 192, 2, 256, dtype=bf16)
     ssd_args = (randn(1, 128, 4, 64, dtype=bf16),
@@ -936,6 +975,9 @@ def opcheck_ops(gen) -> None:
         "flash_attention_bwd window": (O.flash_attention_bwd,
                                        (q, k, v, ow, randn(1, 128, 4, 64, dtype=bf16), lsew,
                                         True, 48, None, None)),
+        "flash_attention_bwd unmasked": (O.flash_attention_bwd,
+                                         (q, ku, vu, ou, randn(1, 128, 4, 64, dtype=bf16), lseu,
+                                          False, None, None, None)),
         "ssd_scan": (O.ssd_scan, ssd_args),
         "ssd_scan (grad)": (O.ssd_scan, tuple(t.clone().requires_grad_() for t in ssd_args)),
         "ssd_scan_bwd": (O.ssd_scan_bwd, (*ssd_args, randn(1, 128, 4, 64, dtype=bf16),
@@ -1246,8 +1288,10 @@ def phase_train_parity(arch: str, S: int, phase: str | None = None):
     """One train step of ``depth_cut(arch)`` in fp32 (B1; qwen3-4b: two of its
     layers; deepseek-v2-lite-16b: its dense layer, then an MoE layer;
     mamba2-370m: two Mamba-2 layers, whose SSD runs the simt kernels forward
-    and backward), printed under ``phase`` (by default 8, or 16a for an MoE
-    model): the
+    and backward; whisper-large-v3: two encoder and two decoder layers over
+    all 1500 frames, standard normal from seed 0, whose unmasked and
+    causal flash runs the simt kernels), printed under ``phase`` (by default
+    8, or 16a for an MoE model): the
     loss and its gradients through ``Model.loss`` and ``torch.autograd.grad``,
     then ``adamw_step``, as ``build_train_step`` runs them; through the
     kernels on the card (forward and backward) against the plain path on the
@@ -1283,6 +1327,9 @@ def phase_train_parity(arch: str, S: int, phase: str | None = None):
     t0 = time.perf_counter()
     batch = {k: torch.from_numpy(v).long()
              for k, v in SyntheticTokens(cfg.vocab_size, S, 1, seed=0).batch_at(0).items()}
+    if cfg.is_encoder_decoder:  # all enc_seq frames, standard normal from the seed
+        batch["frames"] = torch.randn((1, cfg.enc_seq, cfg.d_model),
+                                      generator=torch.Generator("cpu").manual_seed(0))
     p_init = build_model(cfg, "cpu").init(torch.Generator("cpu").manual_seed(0), torch.float32)
     runs = [("cpu", map_tree(torch.clone, p_init)), ("cuda", to_device(p_init, "cuda"))]
     if n_moe:
@@ -1318,7 +1365,8 @@ def phase_train_parity(arch: str, S: int, phase: str | None = None):
     direct_abs = max((p.cpu() - w).abs().max().item() for p, w in zip(p_g, p_c))
     near_zero = sum(int((gw.abs() <= (g.cpu() - gw).abs().max()).sum())
                     for g, gw in zip(g_g, g_c))
-    kinds = ", ".join(f"{spec.attn}+{spec.ffn}" for spec in layer_specs(cfg.program))
+    kinds = ", ".join(f"{spec.attn}+{spec.ffn}{'+cross' * spec.cross_attn}"
+                      for spec in layer_specs(cfg.enc_program + cfg.program))
     aux = ""
     if n_moe:
         aux_err = rel(aux_g, aux_c)
@@ -1664,6 +1712,10 @@ def phase_train_profile(B: int, S: int, policy=None, phase="10", cfg=None):
         loss, wall = step(2)
     figures = copy_overlap(prof)
     print(f"  train step traced: {device_breakdown(prof, wall, top=8)}")
+    bwd_ms, busy_ms = kernel_time(prof, "flash_bwd_")
+    if bwd_ms:
+        print(f"  the flash backward's kernels: {bwd_ms:.2f} ms, {bwd_ms / busy_ms:.1%} of the "
+              f"device's busy {busy_ms:.2f} ms")
     print(f"  train step by op: {op_breakdown(prof, top=8)}")
     print(f"  copies: {figures['copy_ms']:.3f} ms in all (device to host "
           f"{figures['d2h_ms']:.3f}, host to device {figures['h2d_ms']:.3f}), "
@@ -2242,6 +2294,19 @@ def device_breakdown(prof, wall_ms: float, top: int = 6) -> str:
                     for k, (ms, calls) in mine.items())
     return (f"device busy {busy:.2f} of {wall_ms:.2f} ms wall, idle {1 - busy / wall_ms:.1%}; "
             f"top: {names}; the port's kernels: {own or 'none'}")
+
+
+def kernel_time(prof, prefix: str) -> tuple[float, float]:
+    """(device ms of the kernels whose names start with ``prefix``, device
+    busy ms) in a torch.profiler trace."""
+    ms = busy = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = e.time_range.elapsed_us() / 1e3
+            busy += t
+            if re.search(rf"\b{prefix}", e.name):
+                ms += t
+    return ms, busy
 
 
 def op_breakdown(prof, top: int = 6) -> str:
@@ -3286,18 +3351,21 @@ def phase_mamba_bwd_kernels():
 # printed line says of the layers).
 FULL_TRAIN = {"mamba2-370m": (368_338_432, "48 Mamba-2 layers at full width"),
               "hymba-1.5b": (1_589_773_120, "32 hybrid layers at full width, 29 with a window "
-                                            "of 1024")}
+                                            "of 1024"),
+              "whisper-large-v3": (1_535_219_200, "32 encoder and 32 decoder layers at full "
+                                                  "width, 1500 frames")}
 
 
 def phase_train_full(B: int, S: int, steps: int, want: dict[str, int], extra=None,
                      phase: str = "18c", what: str = "remat", arch: str = MAMBA):
-    """(18c, 19c) The full ``arch`` (every layer at every published width,
-    seed 0) through the training launcher's loop (``train.train``: fp32
-    masters, bf16 compute, per-layer remat, chunked loss, AdamW) at B``B``
-    S``S`` for ``steps`` steps, ``extra`` its keyword arguments: finite
-    losses, ms a step, tokens/s, the peak beside the state's arithmetic and
-    under the card's memory, and exact launch counts by variant.  ->
-    (launch counts, the ``TrainRun``, peak bytes, output)."""
+    """(18c, 19c, 20c) The full ``arch`` (every layer at every published
+    width, seed 0) through the training launcher's loop (``train.train``:
+    fp32 masters, bf16 compute, per-layer remat, chunked loss, AdamW) at
+    B``B`` S``S`` for ``steps`` steps, ``extra`` its keyword arguments:
+    finite losses, ms a step, tokens/s (an encoder-decoder's decoder tokens,
+    and its frames), the peak beside the state's arithmetic and under the
+    card's memory, and exact launch counts by variant.  -> (launch counts,
+    the ``TrainRun``, peak bytes, output)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train
@@ -3321,13 +3389,14 @@ def phase_train_full(B: int, S: int, steps: int, want: dict[str, int], extra=Non
     card = torch.cuda.get_device_properties(0).total_memory
     text = out.getvalue()
     warm = float(np.median(run.step_ms[1:]))
+    frames = f", {B * cfg.enc_seq / warm * 1e3:.0f} frames/s" if cfg.is_encoder_decoder else ""
     print(f"[{phase}] train {arch} ({layers}, {n:,} parameters, fp32 masters, bf16 compute, "
           f"{what}) B{B} S{S}, {steps} steps:")
     for line in text.strip().splitlines():
         print(f"  {line}")
     print(f"  losses {run.losses}; grad norm {[m['grad_norm'] for m in run.metrics]}")
     print(f"  host ms a step (synchronised) {[round(t, 1) for t in run.step_ms]}; warm median "
-          f"{warm:.1f} ms, {B * S / warm * 1e3:.0f} tokens/s; peak memory {peak:,} B "
+          f"{warm:.1f} ms, {B * S / warm * 1e3:.0f} tokens/s{frames}; peak memory {peak:,} B "
           f"({peak / 2**30:.2f} GiB) beside {16 * n:,} B of fp32 state (16 B x {n:,}: masters, "
           f"gradients, m, v) and {card / 2**30:.2f} GiB on the card ({held / 2**30:.3f} GiB "
           f"held before the run); launches {counts}; wall {wall:.1f}s (init included)")
@@ -3341,7 +3410,7 @@ def phase_train_full(B: int, S: int, steps: int, want: dict[str, int], extra=Non
 
 def phase_train_full_plan(B: int, S: int, steps: int, want: dict[str, int], plain,
                           phase: str = "18d", arch: str = MAMBA):
-    """(18d, 19d) ``train --arch <arch> --plan`` with the offload plan
+    """(18d, 19d, 20d) ``train --arch <arch> --plan`` with the offload plan
     applied: the loss step that ``train.step_planner`` traces, planned under
     H100_SXM (its key the arch's, solved into PLAN_DIR), its w beside the
     card's real peak around one call of that loss at resident masters (w
@@ -3453,6 +3522,52 @@ def phase_hymba_bwd_kernels():
     for c in cases + [lse]:
         print_case(c)
     for c in cases + [lse]:
+        require(c["ok"], f"{c['case']} disagrees with its plain version ({c['check']})")
+    return cases, lse
+
+
+# Phase 20: whisper-large-v3 trained at every published width and full depth
+# on one card: 1,535,219,200 parameters, 24,563,507,200 B of fp32 state.  Its
+# 32 encoder layers and its 32 decoder layers' cross attentions take the
+# gradient of unmasked attention.
+WHISPER = "whisper-large-v3"
+
+
+def phase_whisper_bwd_kernels():
+    """(20a) The flash backward of unmasked attention against its plain
+    version: ``wgmma`` (bf16) at whisper's encoder layout (B4 S1500 H20 KV20
+    hd64; 23 key tiles of 64 and one of 28), its cross attention's (448
+    queries against 1500 keys), Sq > Sk (B2 Sq700 Sk300) and GQA at hd 128
+    (B1 S1100 H16 KV4), each bit for bit across two calls, with ``simt`` and
+    the ``mma`` yardstick timed on the same inputs and ``mma`` held to the
+    same plain version; the causal backward at whisper's decoder layout (B4
+    S448); ``simt`` (fp32) at the same unmasked cases, smaller; and the
+    forward with the LSE, unmasked, at the encoder's and the cross
+    attention's layouts, the instantiation whisper's training runs.  Each
+    beside its bound and SDPA's backward (forward subtracted).  -> (the
+    backward cases, the LSE cases)."""
+    gen = torch.Generator("cuda").manual_seed(20)
+    bf16, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    un = dict(causal=False, yardstick="simt", also="mma")
+    cases = [
+        flash_bwd_case(4, 1500, 20, 20, 64, bf16, gen, "wgmma", **un),            # encoder
+        flash_bwd_case(4, 448, 20, 20, 64, bf16, gen, "wgmma", Sk=1500, **un),    # cross
+        flash_bwd_case(2, 700, 8, 2, 64, bf16, gen, "wgmma", Sk=300, **un),       # Sq > Sk
+        flash_bwd_case(1, 1100, 16, 4, 128, bf16, gen, "wgmma", **un),            # GQA, hd 128
+        flash_bwd_case(4, 448, 20, 20, 64, bf16, gen, "wgmma", yardstick="simt"),  # decoder self
+        flash_bwd_case(1, 300, 20, 20, 64, f32, gen, "simt", causal=False),
+        flash_bwd_case(1, 100, 20, 20, 64, f32, gen, "simt", causal=False, Sk=300),
+        flash_bwd_case(1, 300, 8, 2, 64, f32, gen, "simt", causal=False, Sk=100),
+        flash_bwd_case(1, 220, 16, 4, 128, f32, gen, "simt", causal=False),
+    ]
+    lse = [flash_lse_case(4, 1500, 20, 20, 64, bf16, gen, causal=False),
+           flash_lse_case(4, 448, 20, 20, 64, bf16, gen, causal=False, Sk=1500)]
+    print(f"[20a] the flash backward of unmasked attention against its plain version on the "
+          f"card ({time.perf_counter() - t0:.1f}s):")
+    for c in cases + lse:
+        print_case(c)
+    for c in cases + lse:
         require(c["ok"], f"{c['case']} disagrees with its plain version ({c['check']})")
     return cases, lse
 
@@ -3797,6 +3912,35 @@ def main() -> int:
     print(f"[19d] took {time.perf_counter() - t:.1f}s")
     print(f"[19] hymba training phase took {time.perf_counter() - t19:.1f}s")
 
+    # Phase 20: whisper-large-v3 trained at full width and depth, B4 with the
+    # decoder's text context of 448 tokens over 1500 frames.  A step runs each
+    # of the 32 encoder layers once (no remat: flash with the LSE unmasked at
+    # S 1500) and each of the 32 decoder layers twice (its forward and its
+    # recompute: causal self attention and unmasked cross attention of 448
+    # queries against 1500 keys), so flash with the LSE 32 + 2 * 2 * 32 = 160
+    # `wgmma` (bf16 at hd 64), and each backward once: 32 unmasked, 32
+    # causal, 32 cross, 96 `wgmma`; no RMSNorm (every norm a LayerNorm) and
+    # no SSD.
+    t20 = time.perf_counter()
+    cases["flash_unmasked_bwd"], cases["flash_unmasked_lse"] = phase_whisper_bwd_kernels()
+    print(f"[20a] took {time.perf_counter() - t20:.1f}s")
+    t = time.perf_counter()
+    phase_train_parity(WHISPER, 300, phase="20b")
+    print(f"[20b] took {time.perf_counter() - t:.1f}s")
+    L = 32
+    whisper_want = want(0, 5 * L * steps, 0, 0, 3 * L * steps, 0)
+    t = time.perf_counter()
+    paths[f"train {WHISPER}"], whisper_run, _, _ = phase_train_full(
+        4, 448, steps, whisper_want, phase="20c", arch=WHISPER)
+    phase_train_profile(4, 448, phase="20c", cfg=get_config(WHISPER))
+    print(f"[20c] took {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths[f"train {WHISPER} (offload)"] = phase_train_full_plan(4, 448, steps, whisper_want,
+                                                                whisper_run, phase="20d",
+                                                                arch=WHISPER)
+    print(f"[20d] took {time.perf_counter() - t:.1f}s")
+    print(f"[20] whisper training phase took {time.perf_counter() - t20:.1f}s")
+
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA
     # autodiff of its jnp paths.
@@ -3851,7 +3995,20 @@ def main() -> int:
     flash.update(window_lse_case=wl["case"], window_lse_ms=wl["ms"],
                  window_lse_plain_ms=wl["plain_ms"], window_lse_bound_ms=wl["bound_ms"],
                  window_lse_library_ms=wl["library_ms"], window_lse_max_abs_err=wl["max_abs_err"])
-    extra_cases = {"flash_attention_bwd": cases["flash_window_bwd"]}
+    # whisper's training runs the unmasked backward in its 32 encoder layers
+    # (S 1500) and its 32 cross attentions (448 against 1500 keys) a step, and
+    # the unmasked forward with the LSE at both layouts.
+    for key, c in zip(("unmasked", "cross"), cases["flash_unmasked_bwd"]):
+        bwd.update({f"{key}_case": c["case"], f"{key}_ms": c["ms"],
+                    f"{key}_plain_ms": c["plain_ms"], f"{key}_bound_ms": c["bound_ms"],
+                    f"{key}_bound_by": c["bound_by"], f"{key}_library_ms": c["library_ms"],
+                    f"{key}_simt_ms": c["other"][1], f"{key}_mma_ms": c["also"][1],
+                    f"{key}_max_abs_err": c["max_abs_err"]})
+    for key, c in zip(("unmasked_lse", "cross_lse"), cases["flash_unmasked_lse"]):
+        flash.update({f"{key}_case": c["case"], f"{key}_ms": c["ms"],
+                      f"{key}_plain_ms": c["plain_ms"], f"{key}_bound_ms": c["bound_ms"],
+                      f"{key}_library_ms": c["library_ms"], f"{key}_max_abs_err": c["max_abs_err"]})
+    extra_cases = {"flash_attention_bwd": cases["flash_window_bwd"] + cases["flash_unmasked_bwd"]}
     summary = [f"{k['name']} launches={k['launches']} "
                f"({', '.join(f'{p} {n}' for p, n in k['launches_by_path'].items())}) "
                f"parity=ok ({len(cases[k['name']]) + len(extra_cases.get(k['name'], []))} cases)"

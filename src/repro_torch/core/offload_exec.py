@@ -27,7 +27,11 @@ aux): every output is carried out of the forward, and the backward takes
 the gradient of the recomputed outputs against the gradients that reach
 them, skipping those with none (a None output, such as a dense layer's
 aux) and those the recompute does not differentiate.  A single-output layer
-takes exactly the path it took before.
+takes exactly the path it took before.  Every tensor the layer reads
+besides its input and may need a gradient of goes in its ``params``: a
+decoder layer's encoder output too (``encdec.EncDecModel.loss``), which is
+how the cross attentions' gradient reaches the encoder; a tensor ``fn``
+only closed over would get none.
 
 Everything else is recomputed, as under plain remat, so each kernel
 launches as often as there: each forward twice, each backward once.  This
@@ -104,10 +108,11 @@ class OffloadPolicy:
         self._last: _LayerStash | None = None
 
     def run_layer(self, fn, x, params):
-        """``fn(x)``: one layer whose parameters are ``params``, recomputed in
-        backward, with this policy's offloads; ``fn`` returns a tensor or a
-        tuple of tensors and Nones.  Without a gradient to take it is
-        ``fn(x)`` alone."""
+        """``fn(x)``: one layer that reads ``params`` (its parameters, and any
+        other tensor whose gradient it owes, such as an encoder's output),
+        recomputed in backward, with this policy's offloads; ``fn`` returns
+        a tensor or a tuple of tensors and Nones.  Without a gradient to
+        take it is ``fn(x)`` alone."""
         if not torch.is_grad_enabled() or not (x.requires_grad
                                                or any(p.requires_grad for p in params)):
             return fn(x)

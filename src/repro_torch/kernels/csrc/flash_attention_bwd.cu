@@ -4,8 +4,8 @@
 // `bwd_variant`) routes by type, head dim and alignment.
 //
 // The gradient of the TPU kernel repro/kernels/flash_attention.py:99
-// `flash_attention` (causal, GQA, with or without a sliding window; no
-// softcap).  The TPU kernel has
+// `flash_attention` (causal, with or without a sliding window, or unmasked;
+// GQA; no softcap).  The TPU kernel has
 // no backward: the reference trains through `mha_dense`
 // (repro/models/attention.py:157-182), which XLA differentiates; this is the
 // counterpart of that autodiff.  Given q [B,Sq,H,hd], k, v [B,Sk,KV,hd], the
@@ -19,13 +19,16 @@
 //
 // with every sum in fp32 and dq, dk, dv in q's type.  Query head h reads kv
 // head h / (H / KV), so dK and dV of a kv head sum over the G = H / KV query
-// heads of its group.  Keys are visible to row i when i >= key (top-left
-// aligned when Sq != Sk) and, with a window W > 0, i - key < W; with Sq <=
-// Sk (the wrapper refuses a window with Sq > Sk) every row sees key i, so
-// no row is empty.  The window narrows each block's loop: a dK/dV block's
-// q tiles end at the last row that sees its last key (k0 + BK - 1 + W - 1),
-// a dQ block's key tiles start at the tile of its first row's first key
-// (q0 - W + 1).
+// heads of its group.  Causal (`causal` 1), keys are visible to row i when
+// i >= key (top-left aligned when Sq != Sk) and, with a window W > 0, i -
+// key < W; with Sq <= Sk (the wrapper refuses a window with Sq > Sk) every
+// row sees key i, so no row is empty.  The window narrows each block's
+// loop: a dK/dV block's q tiles end at the last row that sees its last key
+// (k0 + BK - 1 + W - 1), a dQ block's key tiles start at the tile of its
+// first row's first key (q0 - W + 1).  Unmasked (`causal` 0, never with a
+// window), every row sees every key, at any Sq and Sk: a dK/dV block visits
+// every q tile from row 0, a dQ block every key tile, and only the ragged
+// edges are masked.
 //
 // Bound on the H100: at qwen3-4b's training shape, B4 S512 H32 KV8 hd128
 // causal, the function needs 5 products of 2 hd flops for each live (q, k)
@@ -145,8 +148,8 @@ template <typename T, int HDMAX>
 __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int KV, int hd, int window,
-    float scale) {
+    T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int KV, int hd, int causal,
+    int window, float scale) {
   constexpr int DJ = HDMAX / 16;  // head-dim columns a thread owns
   extern __shared__ float smem[];
   const int ld = hd + 1;
@@ -173,13 +176,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  // Causal: rows q >= k0 see the tile; a window, up to k0 + BK - 1 + window - 1.
+  // Causal: rows q >= k0 see the tile; a window, up to k0 + BK - 1 + window
+  // - 1.  Unmasked: every row.
+  const int q_begin = causal ? k0 / BQ * BQ : 0;
   const int q_end = window > 0 ? min(Sq, k0 + BK - 1 + window) : Sq;
   for (int h = kvh * G; h < (kvh + 1) * G; ++h) {
     const long long q_off = ((long long)b * Sq * H + h) * hd;
     const float* lse_h = lse + ((long long)b * H + h) * Sq;
     const float* dl_h = delta + ((long long)b * H + h) * Sq;
-    for (int q0 = k0 / BQ * BQ; q0 < q_end; q0 += BQ) {
+    for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
       __syncthreads();  // the previous tile's readers of Qs, dOs, Ps and dSs are done
       stage(Qs, q + q_off + q0 * q_step, q_step, BQ, Sq - q0, hd, ld);
       stage(dOs, dout + q_off + q0 * q_step, q_step, BQ, Sq - q0, hd, ld);
@@ -197,7 +202,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
         for (int j = 0; j < CJ; ++j) {
           const int r = ty + 16 * i, c = tx + 16 * j;
           const int qp = q0 + r, kp = k0 + c;
-          const bool live = qp < Sq && kp < Sk && qp >= kp && (window <= 0 || qp - kp < window);
+          const bool live = qp < Sq && kp < Sk && (!causal || qp >= kp) &&
+                            (window <= 0 || qp - kp < window);
           const float p = live ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
           Ps[r * (BK + 1) + c] = p;
           dSs[r * (BK + 1) + c] = p * (dp[i][j] - dl_s[r]);
@@ -250,7 +256,8 @@ template <typename T, int HDMAX>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int Sq, int Sk, int H, int KV, int hd, int window, float scale) {
+    T* __restrict__ dq, int Sq, int Sk, int H, int KV, int hd, int causal, int window,
+    float scale) {
   constexpr int DJ = HDMAX / 16;
   extern __shared__ float smem[];
   const int ld = hd + 1;
@@ -283,7 +290,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
-  const int k_end = min(Sk, min(q0 + BQ, Sq));  // causal: keys up to the tile's last row
+  // Causal: keys up to the tile's last row; unmasked: every key.
+  const int k_end = causal ? min(Sk, min(q0 + BQ, Sq)) : Sk;
   // A window: keys from the tile of the first row's first key, q0 - window + 1.
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
@@ -300,7 +308,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
       for (int j = 0; j < CJ; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
         const int qp = q0 + r, kp = k0 + c;
-        const bool live = qp < Sq && kp < Sk && qp >= kp && (window <= 0 || qp - kp < window);
+        const bool live = qp < Sq && kp < Sk && (!causal || qp >= kp) &&
+                          (window <= 0 || qp - kp < window);
         const float p = live ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
         dSs[r * (BK + 1) + c] = p * (dp[i][j] - dl_s[r]);
       }
@@ -332,7 +341,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
 template <typename T, int HDMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int Sq,
-                   int Sk, int H, int KV, int hd, int window, float scale, cudaStream_t stream) {
+                   int Sk, int H, int KV, int hd, int causal, int window, float scale,
+                   cudaStream_t stream) {
   const long long rows = (long long)B * Sq * H;
   flash_bwd_dot_kernel<T><<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta), Sq, H,
@@ -348,7 +358,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KV,
-      hd, window, scale);
+      hd, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -359,20 +369,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   dqk<<<dim3((Sq + BQ - 1) / BQ, H, B), NT, s2, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, H, KV, hd, window, scale);
+      static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, H, KV, hd, causal, window,
+      scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv,
-                     int B, int Sq, int Sk, int H, int KV, int hd, int window, float scale,
-                     cudaStream_t stream) {
+                     int B, int Sq, int Sk, int H, int KV, int hd, int causal, int window,
+                     float scale, cudaStream_t stream) {
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd, window,
-                         scale, stream);
-  return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd, window,
-                        scale, stream);
+    return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd, causal,
+                         window, scale, stream);
+  return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd, causal,
+                        window, scale, stream);
 }
 
 // ------------------------------------------------------------------- mma
@@ -460,7 +471,7 @@ __global__ void __launch_bounds__(MT) flash_bwd_dkdv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
-    int Sk, int H, int KV, int window, float scale) {
+    int Sk, int H, int KV, int causal, int window, float scale) {
   constexpr int LD = HD + 8;
   extern __shared__ __align__(16) uint8_t smem_mma[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_mma);  // [KB][LD]
@@ -490,13 +501,15 @@ __global__ void __launch_bounds__(MT) flash_bwd_dkdv_mma_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
-  // Causal: rows q >= k0 see the tile; a window, up to k0 + KB - 1 + window - 1.
+  // Causal: rows q >= k0 see the tile; a window, up to k0 + KB - 1 + window
+  // - 1.  Unmasked: every row.
+  const int q_begin = causal ? k0 / QT * QT : 0;
   const int q_end = window > 0 ? min(Sq, k0 + KB - 1 + window) : Sq;
   for (int h = kvh * G; h < (kvh + 1) * G; ++h) {
     const long long q_off = ((long long)b * Sq * H + h) * HD;
     const float* lse_h = lse + ((long long)b * H + h) * Sq;
     const float* dl_h = delta + ((long long)b * H + h) * Sq;
-    for (int q0 = k0 / QT * QT; q0 < q_end; q0 += QT) {
+    for (int q0 = q_begin; q0 < q_end; q0 += QT) {
       __syncthreads();  // the previous step's readers of Qs, Os, lse_s and dl_s are done
       load_rows<HD>(Qs, q + q_off + (long long)q0 * q_step, q_step, QT, Sq - q0);
       load_rows<HD>(Os, dout + q_off + (long long)q0 * q_step, q_step, QT, Sq - q0);
@@ -541,7 +554,8 @@ __global__ void __launch_bounds__(MT) flash_bwd_dkdv_mma_kernel(
         for (int e = 0; e < 4; ++e) {
           const int r = 8 * j + 2 * t + (e & 1);
           const int qp = q0 + r, kp = e < 2 ? kp0 : kp1;
-          const bool live = qp < Sq && kp < Sk && qp >= kp && (window <= 0 || qp - kp < window);
+          const bool live = qp < Sq && kp < Sk && (!causal || qp >= kp) &&
+                            (window <= 0 || qp - kp < window);
           p[e] = live ? expf(st[j][e] * scale - lse_s[r]) : 0.f;
           ds[e] = p[e] * (dpt[j][e] - dl_s[r]);
         }
@@ -590,7 +604,7 @@ __global__ void __launch_bounds__(MT) flash_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk, int H, int KV,
-    int window, float scale) {
+    int causal, int window, float scale) {
   constexpr int LD = HD + 8;
   extern __shared__ __align__(16) uint8_t smem_mma[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_mma);  // [QB][LD]
@@ -623,7 +637,8 @@ __global__ void __launch_bounds__(MT) flash_bwd_dq_mma_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  const int k_end = min(Sk, min(q0 + QB, Sq));  // causal: keys up to the block's last row
+  // Causal: keys up to the block's last row; unmasked: every key.
+  const int k_end = causal ? min(Sk, min(q0 + QB, Sq)) : Sk;
   // A window: keys from the step of the first row's first key, q0 - window + 1.
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / KT * KT : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += KT) {
@@ -664,7 +679,8 @@ __global__ void __launch_bounds__(MT) flash_bwd_dq_mma_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qp = e < 2 ? qp0 : qp1, kp = k0 + 8 * j + 2 * t + (e & 1);
-        const bool live = qp < Sq && kp < Sk && qp >= kp && (window <= 0 || qp - kp < window);
+        const bool live = qp < Sq && kp < Sk && (!causal || qp >= kp) &&
+                          (window <= 0 || qp - kp < window);
         const float p = live ? expf(s[j][e] * scale - (e < 2 ? lse0 : lse1)) : 0.f;
         ds[e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1));
       }
@@ -701,8 +717,8 @@ __global__ void __launch_bounds__(MT) flash_bwd_dq_mma_kernel(
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const void* lse, void* delta, void* dq, void* dk,
-                       void* dv, int B, int Sq, int Sk, int H, int KV, int window, float scale,
-                       cudaStream_t stream) {
+                       void* dv, int B, int Sq, int Sk, int H, int KV, int causal, int window,
+                       float scale, cudaStream_t stream) {
   const long long rows = (long long)B * Sq * H;
   flash_bwd_dot_kernel<bf16><<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(delta),
@@ -717,7 +733,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk,
-      H, KV, window, scale);
+      H, KV, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto dqk = flash_bwd_dq_mma_kernel<HD>;
@@ -726,7 +742,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   dqk<<<dim3((Sq + QB - 1) / QB, H, B), MT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Sk, H, KV, window, scale);
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Sk, H, KV, causal, window,
+      scale);
   return cudaGetLastError();
 }
 
@@ -737,48 +754,51 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 extern "C" int flash_attention_bwd_mma(int dtype, const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
                                        void* delta, void* dq, void* dk, void* dv, int B, int Sq,
-                                       int Sk, int H, int KV, int hd, int window, float scale,
-                                       void* stream) {
+                                       int Sk, int H, int KV, int hd, int causal, int window,
+                                       float scale, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
                           reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
                           reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
   if (dtype != kBFloat16 || B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV ||
-      H > 65535 || B > 65535 || KV > 65535 || window < 0 || (align & 15))
+      H > 65535 || B > 65535 || KV > 65535 || window < 0 || (!causal && window > 0) ||
+      (align & 15))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
-      return launch_mma<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, window,
-                            scale, s);
+      return launch_mma<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, causal,
+                            window, scale, s);
     case 128:
-      return launch_mma<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, window,
-                             scale, s);
+      return launch_mma<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, causal,
+                             window, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// Causal attention's gradient (the `simt` variant).  q, o, dout, dq: [B, Sq, H, hd]; k, v, dk,
-// dv: [B, Sk, KV, hd]; all contiguous, of `dtype` (DTypeCode).  lse: [B, H,
-// Sq] fp32 from the forward; delta: [B, H, Sq] fp32 scratch.  hd a multiple
-// of 16 up to 128; window the sliding window's width, 0 for none.  Returns
-// the cudaError_t of the launches (0 on success).
+// Attention's gradient (the `simt` variant).  q, o, dout, dq: [B, Sq, H,
+// hd]; k, v, dk, dv: [B, Sk, KV, hd]; all contiguous, of `dtype`
+// (DTypeCode).  lse: [B, H, Sq] fp32 from the forward; delta: [B, H, Sq]
+// fp32 scratch.  hd a multiple of 16 up to 128; causal 1 (top-left aligned)
+// or 0 (unmasked); window the sliding window's width, 0 for none (causal
+// only).  Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse, void* delta,
                                    void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
-                                   int KV, int hd, int window, float scale, void* stream) {
+                                   int KV, int hd, int causal, int window, float scale,
+                                   void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV || hd < 16 || hd > 128 || hd % 16 ||
-      H > 65535 || B > 65535 || KV > 65535 || window < 0)
+      H > 65535 || B > 65535 || KV > 65535 || window < 0 || (!causal && window > 0))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
       return dispatch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd,
-                             window, scale, s);
+                             causal, window, scale, s);
     case kBFloat16:
       return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV,
-                                     hd, window, scale, s);
+                                     hd, causal, window, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -6,13 +6,14 @@
 // computes the same function and is kept, unrouted, as a yardstick.
 //
 // The gradient of the TPU kernel repro/kernels/flash_attention.py:99
-// `flash_attention` (causal, GQA, with or without a sliding window; no
-// softcap), which the reference takes by XLA autodiff of `mha_dense`
-// (repro/models/attention.py:157-182).  Given q [B,Sq,H,hd], k, v
+// `flash_attention` (causal, with or without a sliding window, or unmasked;
+// GQA; no softcap), which the reference takes by XLA autodiff of `mha_dense`
+// and `_sdpa` (repro/models/attention.py:157-182).  Given q [B,Sq,H,hd], k, v
 // [B,Sk,KV,hd], the forward's output o and its log-sum-exp lse [B,H,Sq], and
-// dO, with P = exp(q k^T * scale - lse) (0 where masked; row i sees keys k
-// <= i, top-left aligned, and with a window W > 0 only those with i - k < W,
-// the reference's `_causal_window_mask`):
+// dO, with P = exp(q k^T * scale - lse) (0 where masked; causal, row i sees
+// keys k <= i, top-left aligned, and with a window W > 0 only those with
+// i - k < W, the reference's `_causal_window_mask`; unmasked, every key, at
+// any Sq and Sk: whisper's encoder and its cross attention):
 //
 //   D_i = sum_d dO_i,d o_i,d                       (the prepass)
 //   dV  = P^T dO,   dP = dO V^T,   dS = P (dP - D)
@@ -29,7 +30,9 @@
 // (21.8 us at 989 TFLOP/s), and 84 MB moved (25.1 us at 3.35 TB/s): bytes,
 // by a little.  At hymba-1.5b's, B4 S2048 H25 KV5 hd64 with a window of
 // 1024, 1,573,376 live pairs a head, 100.7 GFLOP (101.8 us), and about 128
-// MB (38 us): operations.
+// MB (38 us): operations.  At whisper-large-v3's encoder, B4 S1500 H20 hd64
+// unmasked, 115.2 GFLOP (116.5 us); its cross attention, 448 queries against
+// 1500 keys, 34.4 GFLOP (34.8 us): operations.
 //
 // The window only narrows the tile ranges: a key tile [k0, k0 + 64) is seen
 // by q rows up to k0 + 63 + W - 1, so the dK/dV block stops its q tiles
@@ -41,6 +44,19 @@
 // beside its runtime width, so that the causal instantiation carries none of
 // this arithmetic: with it in every step the causal kernels ran 8% (qwen3-4b's
 // layout) and 16% (hymba's global layers) slower (PERF.md).
+//
+// Unmasked attention is the template flag CAUSAL = false (never with WIN):
+// a dK/dV block visits every q tile from row 0, a dQ block every key tile up
+// to Sk, and only a step on a ragged edge (rows past Sq, keys past Sk) turns
+// the element masks on.  A row past Sq loads zeros and an LSE of 0, so its P
+// would be exp(0) = 1: the mask sets it to 0 before it enters dV or dS (it
+// is assigned, never multiplied, so an overflowed exponential of a padded
+// pair cannot make a NaN), and a key past Sk adds nothing to dQ and is not
+// written to dK or dV.  The causal instantiations compile to the PTX they had
+// before the flag, instruction for instruction: the element masks are
+// written out under `if constexpr`, since folding `(!CAUSAL || qp >= kp)`
+// into the window's mask changed the window kernels' PTX and cost them 12%
+// (PERF.md).
 //
 // Design.  Three launches and no atomics, as `mma`, so two runs give equal
 // bits: a prepass writes D (fp32 [B,H,Sq]), a block for each position of
@@ -92,8 +108,8 @@
 // and dP^T 32 each; the bf16 P^T and dS^T fragments (16 each) replace S^T
 // and dP^T as they are formed.  ptxas for sm_90a at -O3 (chip_smoke.py's
 // phase 2 prints it): dK/dV 254 registers at hd 128 and 194 at hd 64, dQ
-// 183 and 138 (with the window: 255, 191, 184, 133), the prepass 32, none
-// spilling.
+// 183 and 138 (with the window: 255, 191, 184, 133; unmasked: 253, 192, 186,
+// 128), the prepass 32, none spilling.
 //
 // What bounds it (a probe timing copies of this file without the streamed
 // loads and/or the exponentials; PERF.md): at the training shape the
@@ -240,7 +256,7 @@ constexpr size_t dq_smem() {
 // q tile) are dealt to the two warpgroups in turn; each runs its own ring
 // and barrier, and at the end warpgroup 1 hands its sums to warpgroup 0
 // through shared memory.
-template <int HD, bool WIN>
+template <int HD, bool CAUSAL, bool WIN>
 __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -261,15 +277,17 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
   const long long q_stride = (long long)H * HD, kv_stride = (long long)KV * HD;
   const long long kv_off = ((long long)b * Sk * KV + kvh) * HD + (long long)k0 * kv_stride;
   // Causal: q tiles from row k0 on; a window ends them at the last row that
-  // sees the tile's last key, k0 + TR - 1 + window - 1.
+  // sees the tile's last key, k0 + TR - 1 + window - 1.  Unmasked: every q
+  // tile, from row 0.
+  const int q_begin = CAUSAL ? k0 : 0;
   const int q_end = WIN ? min(Sq, k0 + TR - 1 + window) : Sq;
-  const int n_q = q_end > k0 ? (q_end - k0 + TR - 1) / TR : 0;
+  const int n_q = q_end > q_begin ? (q_end - q_begin + TR - 1) / TR : 0;
   const int n_steps = hs * n_q;
   const int my_steps = (n_steps - wg + 1) / 2;  // this warpgroup's: j = wg, wg + 2, ...
 
-  // Step j: query head h0 + j / n_q, q rows from k0 + (j % n_q) 64.
+  // Step j: query head h0 + j / n_q, q rows from q_begin + (j % n_q) 64.
   auto load_step = [&](int j, uint32_t st) {
-    const int h = h0 + j / n_q, q0 = k0 + (j % n_q) * TR;
+    const int h = h0 + j / n_q, q0 = q_begin + (j % n_q) * TR;
     const long long off = ((long long)b * Sq * H + h) * HD + (long long)q0 * q_stride;
     load_tile<HD, WG>(st, q + off, q_stride, Sq - q0, wtid);
     load_tile<HD, WG>(st + TILE, dout + off, q_stride, Sq - q0, wtid);
@@ -300,7 +318,7 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
   for (int t = 0; t < my_steps; ++t) {
     const int j = wg + 2 * t;
     const uint32_t st = ring + (t & 1) * STAGE;
-    const int q0 = k0 + (j % n_q) * TR;
+    const int q0 = q_begin + (j % n_q) * TR;
     if (t > 0) {
       cp_async_wait<0>();  // step j has landed (this thread's copies)
       fence_proxy_async();
@@ -320,11 +338,11 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
     fence_regs(dp);
 
     // P^T and dS^T as bf16 A fragments over k = the step's q rows.  Only a
-    // step on the diagonal, across the window's lower edge or on a ragged
-    // edge has a masked pair.
+    // step on the diagonal (causal), across the window's lower edge or on a
+    // ragged edge has a masked pair.
     const float* lse_s = reinterpret_cast<const float*>(smem_raw + (st - raw) + 2 * TILE);
     const float* dl_s = lse_s + TR;
-    const bool edge = q0 < k0 + TR || q0 + TR > Sq || k0 + TR > Sk ||
+    const bool edge = (CAUSAL && q0 < k0 + TR) || q0 + TR > Sq || k0 + TR > Sk ||
                       (WIN && q0 + TR - 1 - k0 >= window);
     uint32_t pa[16], sa[16];
 #pragma unroll
@@ -339,7 +357,11 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
         float x = fast_exp2(fmaf(s[4 * i + e], sl2, -l * LOG2E));
         if (edge) {
           const int qp = q0 + c + (e & 1), kp = e < 2 ? kp0 : kp1;
-          if (!(qp < Sq && kp < Sk && qp >= kp && (!WIN || qp - kp < window))) x = 0.f;
+          if constexpr (CAUSAL) {
+            if (!(qp < Sq && kp < Sk && qp >= kp && (!WIN || qp - kp < window))) x = 0.f;
+          } else {
+            if (!(qp < Sq && kp < Sk)) x = 0.f;
+          }
         }
         p[e] = x;
         ds[e] = x * (dp[4 * i + e] - d);
@@ -403,7 +425,7 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
 
 // dQ of 64 q rows (tile gridDim.z - 1 - blockIdx.z) of head blockIdx.x,
 // batch blockIdx.y.
-template <int HD, bool WIN>
+template <int HD, bool CAUSAL, bool WIN>
 __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -422,7 +444,8 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
   const long long q_stride = (long long)H * HD, kv_stride = (long long)KV * HD;
   const long long q_off = ((long long)b * Sq * H + h) * HD + (long long)q0 * q_stride;
   const long long kv_off = ((long long)b * Sk * KV + kvh) * HD;
-  const int k_end = min(Sk, min(q0 + TR, Sq));  // causal: keys up to the tile's last row
+  // Causal: keys up to the tile's last row; unmasked: every key.
+  const int k_end = CAUSAL ? min(Sk, min(q0 + TR, Sq)) : Sk;
   // A window starts at the tile of the first row's first key, q0 - window + 1.
   const int j0 = WIN ? max(0, q0 - window + 1) / TR : 0;
   const int n_k = (k_end + TR - 1) / TR;
@@ -470,7 +493,7 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
     fence_regs(s);
     fence_regs(dp);
 
-    const bool edge = k0 + TR > q0 || k0 + TR > Sk || q0 + TR > Sq ||
+    const bool edge = (CAUSAL && k0 + TR > q0) || k0 + TR > Sk || q0 + TR > Sq ||
                       (WIN && q0 + TR - 1 - k0 >= window);
     uint32_t sa[16];  // dS as bf16 A fragments over k = the step's keys
 #pragma unroll
@@ -481,7 +504,11 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
         float x = fast_exp2(fmaf(s[4 * i + e], sl2, -(e < 2 ? l0 : l1)));
         if (edge) {
           const int qp = e < 2 ? qp0 : qp1, kp = k0 + 8 * i + cq + (e & 1);
-          if (!(qp < Sq && kp < Sk && qp >= kp && (!WIN || qp - kp < window))) x = 0.f;
+          if constexpr (CAUSAL) {
+            if (!(qp < Sq && kp < Sk && qp >= kp && (!WIN || qp - kp < window))) x = 0.f;
+          } else {
+            if (!(qp < Sq && kp < Sk)) x = 0.f;
+          }
         }
         ds[e] = x * (dp[4 * i + e] - (e < 2 ? d0 : d1));
       }
@@ -513,7 +540,7 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
   }
 }
 
-template <int HD, bool WIN>
+template <int HD, bool CAUSAL, bool WIN>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
                    const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int Sq,
                    int Sk, int H, int KV, int window, float scale, cudaStream_t stream) {
@@ -521,7 +548,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dkdv = flash_bwd_dkdv_wgmma_kernel<HD, WIN>;
+  auto dkdv = flash_bwd_dkdv_wgmma_kernel<HD, CAUSAL, WIN>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dkdv_smem<HD>());
   if (err != cudaSuccess) return err;
@@ -530,7 +557,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dqk = flash_bwd_dq_wgmma_kernel<HD, WIN>;
+  auto dqk = flash_bwd_dq_wgmma_kernel<HD, CAUSAL, WIN>;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem<HD>());
   if (err != cudaSuccess) return err;
   dqk<<<dim3(H, B, (Sq + TR - 1) / TR), WG, dq_smem<HD>(), stream>>>(
@@ -538,25 +565,36 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t dispatch(bool causal, bool win, const bf16* q, const bf16* k, const bf16* v,
+                     const bf16* o, const bf16* dout, const float* lse, float* delta, bf16* dq,
+                     bf16* dk, bf16* dv, int B, int Sq, int Sk, int H, int KV, int window,
+                     float scale, cudaStream_t stream) {
+  auto fn = !causal ? launch<HD, false, false> : win ? launch<HD, true, true>
+                                                     : launch<HD, true, false>;
+  return fn(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, window, scale, stream);
+}
+
 }  // namespace
 
-// Causal attention's gradient on wgmma.  q, o, dout, dq: [B, Sq, H, hd]; k,
-// v, dk, dv: [B, Sk, KV, hd]; all contiguous bf16 (DTypeCode) with 16-byte
-// aligned base addresses; hd 64 or 128; window the sliding window's width,
-// 0 for none.  lse: [B, H, Sq] fp32 from the forward; delta: [B, H, Sq]
-// fp32 scratch.  Returns the cudaError_t of the launches (0 on success).
+// Attention's gradient on wgmma.  q, o, dout, dq: [B, Sq, H, hd]; k, v, dk,
+// dv: [B, Sk, KV, hd]; all contiguous bf16 (DTypeCode) with 16-byte aligned
+// base addresses; hd 64 or 128; causal 1 (top-left aligned) or 0 (unmasked);
+// window the sliding window's width, 0 for none (causal only).  lse: [B, H,
+// Sq] fp32 from the forward; delta: [B, H, Sq] fp32 scratch.  Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_bwd_wgmma(int dtype, const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* lse,
                                          void* delta, void* dq, void* dk, void* dv, int B, int Sq,
-                                         int Sk, int H, int KV, int hd, int window, float scale,
-                                         void* stream) {
+                                         int Sk, int H, int KV, int hd, int causal, int window,
+                                         float scale, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
                           reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
                           reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
   if (dtype != kBFloat16 || B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV ||
       H > 65535 || B > 65535 || (long long)B * Sq > 0x7fffffff || (Sq + TR - 1) / TR > 65535 ||
-      (Sk + TR - 1) / TR > 65535 || window < 0 || (align & 15))
+      (Sk + TR - 1) / TR > 65535 || window < 0 || (!causal && window > 0) || (align & 15))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qb = static_cast<const bf16*>(q);
@@ -569,15 +607,13 @@ extern "C" int flash_attention_bwd_wgmma(int dtype, const void* q, const void* k
   auto* dqb = static_cast<bf16*>(dq);
   auto* dkb = static_cast<bf16*>(dk);
   auto* dvb = static_cast<bf16*>(dv);
-  const bool win = window > 0;
   switch (hd) {
     case 64:
-      return (win ? launch<64, true> : launch<64, false>)(qb, kb, vb, ob, gb, lf, df, dqb, dkb,
-                                                          dvb, B, Sq, Sk, H, KV, window, scale, s);
+      return dispatch<64>(causal != 0, window > 0, qb, kb, vb, ob, gb, lf, df, dqb, dkb, dvb, B,
+                          Sq, Sk, H, KV, window, scale, s);
     case 128:
-      return (win ? launch<128, true> : launch<128, false>)(qb, kb, vb, ob, gb, lf, df, dqb, dkb,
-                                                            dvb, B, Sq, Sk, H, KV, window, scale,
-                                                            s);
+      return dispatch<128>(causal != 0, window > 0, qb, kb, vb, ob, gb, lf, df, dqb, dkb, dvb, B,
+                           Sq, Sk, H, KV, window, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

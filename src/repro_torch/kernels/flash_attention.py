@@ -33,15 +33,19 @@ log-sum-exp, ``m + log l`` in fp32 [B, H, Sq], which the backward needs;
 serving leaves it off, so its kernels write nothing more.
 
 ``flash_attention_bwd`` is the gradient of causal attention, with or
-without a sliding window, and no softcap, at head dims up to 128: from q,
-k, v, the output o, dO and the LSE it returns dq, dk and dv in q's dtype,
-recomputing P from the LSE.  ``check_bwd_supported`` is the one place
-that decides what the gradient takes, on every device: it refuses
-unmasked attention, a softcap, head dims above ``BWD_MAX_HEAD_DIM`` and a
-window with Sq > Sk (rows left without a live key) with
-NotImplementedError naming ROADMAP B2d, before any kernel or plain code
-runs.  The window only narrows each kernel block's tile range and adds
-``q - k < window`` to the masks.  ``bwd_variant`` names its kernel:
+without a sliding window, and of unmasked attention (an encoder's self
+attention, a decoder's cross attention, at any Sq and Sk), with no softcap,
+at head dims up to 128: from q, k, v, the output o, dO and the LSE it
+returns dq, dk and dv in q's dtype, recomputing P from the LSE.
+``check_bwd_supported`` is the one place that decides what the gradient
+takes, on every device: it refuses a softcap, head dims above
+``BWD_MAX_HEAD_DIM``, a window with Sq > Sk (rows left without a live key)
+and unmasked attention with a window with NotImplementedError naming
+ROADMAP B2d, before any kernel or plain code runs.  The window only narrows
+each kernel block's tile range and adds ``q - k < window`` to the masks;
+unmasked attention widens the ranges to every tile and keeps only the
+ragged edges' masks.  The kernels take both as arguments beside the
+tensors (``int causal, int window``).  ``bwd_variant`` names its kernel:
 ``"wgmma"``
 (``csrc/flash_attention_bwd_wgmma.cu``: bf16 at head dim 64 or 128 with
 16-byte aligned tensors, on Hopper's warpgroup MMA; it rounds P and dS to
@@ -99,7 +103,7 @@ def block_shape(dtype: torch.dtype, hd: int) -> tuple[int, int]:
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
              ctypes.c_float, _P]
-_BWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+_BWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                  ctypes.c_float, _P]
 BWD_MAX_HEAD_DIM = 128
 BWD_NOT_PORTED = "is not yet ported, see ROADMAP.md queue B item 2 (B2d)"
@@ -218,30 +222,33 @@ flash_attention.variant_launches = {"wgmma": 0, "simt": 0}
 # ---------------------------------------------------------------- backward
 def check_bwd_supported(causal, window, softcap, hd: int, sq: int, sk: int) -> None:
     """Raise NotImplementedError for attention whose gradient is not ported,
-    on every device alike: it takes causal attention at head dims up to
-    ``BWD_MAX_HEAD_DIM``, with or without a ``window`` (then Sq <= Sk, so
-    that every row keeps a live key), and no softcap."""
+    on every device alike: it takes causal attention, with or without a
+    ``window`` (then Sq <= Sk, so that every row keeps a live key), and
+    unmasked attention without a window at any Sq and Sk, at head dims up to
+    ``BWD_MAX_HEAD_DIM`` and with no softcap."""
     why = None
-    if not causal:
-        why = "unmasked attention"
-    elif softcap:
+    if softcap:
         why = f"a softcap ({softcap})"
     elif hd > BWD_MAX_HEAD_DIM:
         why = f"head dim {hd} (above {BWD_MAX_HEAD_DIM})"
+    elif window is not None and not causal:
+        why = f"unmasked attention with a window ({window})"
     elif window is not None and sq > sk:
         why = f"a window with Sq {sq} > Sk {sk} (rows with no live key)"
     if why:
         raise NotImplementedError(
             f"the gradient of attention with {why} {BWD_NOT_PORTED}: it is ported for causal "
-            f"attention, with or without a window, at head dims up to {BWD_MAX_HEAD_DIM}")
+            f"attention, with or without a window, and unmasked attention without one, at head "
+            f"dims up to {BWD_MAX_HEAD_DIM}")
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True, window=None, softcap=None,
                               scale=None):
-    """The gradient of causal attention, with or without a window, in fp32:
-    q, o, do [B,Sq,H,hd], k/v [B,Sk,KV,hd], lse [B,H,Sq] fp32 -> (dq, dk,
-    dv) in q's dtype.  P is recomputed from the LSE, as the kernel does; D
-    = rowsum(dO * o) uses the forward's output as given."""
+    """The gradient of causal attention, with or without a window, or of
+    unmasked attention, in fp32: q, o, do [B,Sq,H,hd], k/v [B,Sk,KV,hd], lse
+    [B,H,Sq] fp32 -> (dq, dk, dv) in q's dtype.  P is recomputed from the
+    LSE, as the kernel does; D = rowsum(dO * o) uses the forward's output as
+    given."""
     check_bwd_supported(causal, window, softcap, q.shape[-1], q.shape[1], k.shape[1])
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -253,7 +260,7 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True, window=None, 
     dof = do.float().transpose(1, 2)
     offset = (torch.arange(Sq, device=q.device)[:, None]
               - torch.arange(Sk, device=q.device)[None, :])
-    live = offset >= 0
+    live = offset >= 0 if causal else torch.ones_like(offset, dtype=torch.bool)
     if window is not None:
         live &= offset < window
     p = torch.where(live, torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[..., None]), 0.0)
@@ -293,7 +300,7 @@ def bwd_variant(o, do) -> str:
     return "wgmma" if wgmma and aligned else "simt"
 
 
-def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float, window=None):
+def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float, window=None, causal=True):
     """Run backward kernel ``var`` (``"wgmma"``, ``"mma"`` or ``"simt"``) on
     arguments that ``check_bwd_args`` passed; count nothing."""
     B, Sq, H, hd = q.shape
@@ -308,21 +315,21 @@ def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float, window=None):
     symbol = {"wgmma": lib, "mma": "flash_attention_bwd_mma"}.get(var, "flash_attention_bwd")
     fn = _build.function(lib, symbol, _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
-        err = fn(*args, B, Sq, Sk, H, KV, hd, window or 0, float(scale), stream)
+        err = fn(*args, B, Sq, Sk, H, KV, hd, int(causal), window or 0, float(scale), stream)
     _build.check(lib, err)
     return dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None, softcap=None,
                         scale=None):
-    """The gradient of causal attention, with or without a window, through
-    the kernel that ``bwd_variant`` names: -> (dq, dk, dv), each like its
-    input."""
+    """The gradient of causal attention, with or without a window, or of
+    unmasked attention, through the kernel that ``bwd_variant`` names: ->
+    (dq, dk, dv), each like its input."""
     check_bwd_supported(causal, window, softcap, q.shape[-1], q.shape[1], k.shape[1])
     check_bwd_args(q, k, v, o, do, lse, window)
     scale = scale if scale is not None else q.shape[-1]**-0.5
     var = bwd_variant(o, do)
-    out = _launch_bwd(var, q, k, v, o, do, lse, scale, window)
+    out = _launch_bwd(var, q, k, v, o, do, lse, scale, window, causal)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.variant_launches[var] += 1
     return out

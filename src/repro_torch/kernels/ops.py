@@ -106,8 +106,9 @@ torch.library.register_autograd("repro_torch::ssd_scan", _ssd_backward, setup_co
 def flash_mha(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
     """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd] (blockwise attention).
     Differentiable for causal attention, with or without a window (Sq <=
-    Sk), at head dims up to 128 and without a softcap; asking for the
-    gradient of any other raises NotImplementedError naming B2d."""
+    Sk), and for unmasked attention without a window at any Sq and Sk, at
+    head dims up to 128 and without a softcap; asking for the gradient of
+    any other raises NotImplementedError naming B2d."""
     if _needs_grad(q, k, v):
         check_bwd_supported(causal, window, softcap, q.shape[-1], q.shape[1], k.shape[1])
         return _OPS.flash_attention_lse(q, k, v, causal, window, softcap, scale)[0]

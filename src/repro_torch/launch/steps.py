@@ -28,7 +28,8 @@ def build_train_step(model, cfg: ModelConfig, *, lr: float = 3e-4, remat: bool =
     """(params, opt_state, batch, step) -> (params, opt_state, metrics).
 
     ``batch`` holds [B, S] int tensors (and a vision stub's patches [B,
-    npatch, D] and M-RoPE positions [3, B, S]); with ``accum_steps`` > 1 it
+    npatch, D] and M-RoPE positions [3, B, S], or an encoder-decoder's
+    frames [B, enc_seq, D]); with ``accum_steps`` > 1 it
     is cut into that many micro-batches along B, as the reference's reshape
     does, the positions along their axis 1 (the reference's reshape cuts
     their axis 0, the three channels, which fails).

@@ -6,10 +6,13 @@ random fp32 master parameters from ``torch.Generator(device)`` seeded with
 (``repro_torch.data``, batches equal to the reference's for the same seed),
 per-layer remat and the chunked cross-entropy.  Any model whose layers
 ``Model.loss`` trains: full-attention dense models (qwen3-4b, starcoder2-7b,
-qwen2-vl-7b, ...) and the MoE models (deepseek-v2-lite-16b with MLA,
+qwen2-vl-7b, ...), the MoE models (deepseek-v2-lite-16b with MLA,
 llama4-maverick), whose loss adds 0.01 times the layers' summed aux loss
-(the reference's); Mamba-2, hybrid, window, softcap and encoder-decoder
-training raise, naming the ROADMAP item they wait for.  Computation runs in
+(the reference's), Mamba-2 (mamba2-370m) and hybrid layers with a window
+(hymba-1.5b), and the encoder-decoder (whisper-large-v3, through
+``EncDecModel.loss``, its batch holding zero frames as the reference's);
+a head dim above 128 or a softcap in attention's gradient (the gemmas)
+raises, naming the ROADMAP item it waits for.  Computation runs in
 ``cfg.dtype`` (bf16 for the full configs): each use casts the masters, as
 the reference's ``.astype`` does.  Runs on CUDA unless ``--device cpu`` is
 given, and raises on a host without CUDA rather than falling back.  On the
@@ -77,6 +80,8 @@ Usage:
       --device cpu --steps 5 [--plan --plan-cache /tmp/plans]
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama4-maverick-400b-a17b --smoke \\
       --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-large-v3 --smoke \\
+      --device cpu --steps 2 --batch 2 --seq 16
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 2 \\
       --batch 2 --seq 32 --plan --plan-cache /tmp/plans
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 2 \\
@@ -103,12 +108,15 @@ from repro_torch.models import build_model
 from repro_torch.optim import adamw_init
 
 
-def vision_inputs(cfg, batch: int, seq: int, device) -> dict:
-    """The vision stub's inputs of a training batch, as the reference's
-    ``make_batch_fn`` (its ``:53-58``): zero patch embeddings [batch,
-    min(num_patch_tokens, 8), d_model] fp32 and the arange over the patches
-    and the text in all three channels [3, batch, npatch + seq] int64;
-    nothing for another frontend."""
+def frontend_inputs(cfg, batch: int, seq: int, device) -> dict:
+    """The stub frontends' inputs of a training batch, as the reference's
+    ``make_batch_fn`` (its ``:53-61``): for the vision stub, zero patch
+    embeddings [batch, min(num_patch_tokens, 8), d_model] fp32 and the
+    arange over the patches and the text in all three channels [3, batch,
+    npatch + seq] int64; for an encoder-decoder, zero frames [batch,
+    enc_seq, d_model] fp32; nothing for another model."""
+    if cfg.is_encoder_decoder:
+        return {"frames": torch.zeros(batch, cfg.enc_seq, cfg.d_model, device=device)}
     if cfg.frontend != "vision_stub":
         return {}
     npatch = min(cfg.num_patch_tokens, 8)
@@ -119,9 +127,10 @@ def vision_inputs(cfg, batch: int, seq: int, device) -> dict:
 
 def make_batch_fn(cfg, batch: int, seq: int, seed: int, device):
     """step -> {"tokens", "labels"} [batch, seq] int64 on ``device``, with
-    ``vision_inputs`` where the config has the vision stub."""
+    ``frontend_inputs`` where the config has a stub frontend (the same
+    tensors every step, as the reference's are zeros)."""
     ds = SyntheticTokens(cfg.vocab_size, seq, batch, seed=seed)
-    extra = vision_inputs(cfg, batch, seq, device)
+    extra = frontend_inputs(cfg, batch, seq, device)
 
     def at(step: int) -> dict:
         b = {k: torch.from_numpy(v).to(device=device, dtype=torch.long)
@@ -145,7 +154,7 @@ def step_planner(model, arch: str, batch: int, seq: int, smoke: bool, plan_cache
 
     probe = {k: torch.empty(batch, seq, dtype=torch.long, device="meta")
              for k in ("tokens", "labels")}
-    probe.update(vision_inputs(model.cfg, batch, seq, "meta"))
+    probe.update(frontend_inputs(model.cfg, batch, seq, "meta"))
     pshapes = model.init_shapes(torch.float32)
 
     def step_probe(params, batch):

@@ -139,9 +139,9 @@ def apply_attention(p, x, cfg: ModelConfig, spec: LayerSpec, angles, causal: boo
     x [B,S,D] -> [B,S,D].  The reference's ``mha_dense``/``mha_chunked``
     become the flash kernel at every S, with the layer's window, through
     ``ops.flash_mha``.  It is differentiable when causal, with the layer's
-    window or without one, at head dims up to 128 and without a softcap;
-    asking for the gradient of any other (an encoder's unmasked attention,
-    gemma's head dim 256 and softcap) raises NotImplementedError
+    window or without one, and unmasked (an encoder's) without a window, at
+    head dims up to 128 and without a softcap; asking for the gradient of
+    any other (gemma's head dim 256 and softcap) raises NotImplementedError
     (``check_bwd_supported``) until its backward lands (ROADMAP B2d)."""
     check_spec(spec)
     q, k, v = _project(p, x, cfg, angles)
@@ -160,7 +160,9 @@ def encode_cross_kv(p, enc_out, cfg: ModelConfig):
 def apply_cross_attention(p, x, enc_kv, cfg: ModelConfig):
     """Cross attention over the whole prompt: x [B,S,D] against ``enc_kv`` =
     (k, v) from ``encode_cross_kv``, unmasked, through ``ops.flash_mha``
-    (the reference's ``_sdpa`` with no mask computes the same function)."""
+    (the reference's ``_sdpa`` with no mask computes the same function).
+    Differentiable in x and in k, v (so in the encoder's output), at any S
+    and Se: the flash gradient takes unmasked attention with Sq != Sk."""
     k, v = enc_kv
     out = ops.flash_mha(_heads(x, p["wq"]), k, v, causal=False, softcap=cfg.attn_softcap,
                         scale=_scale(cfg))

@@ -1,4 +1,4 @@
-"""Encoder-decoder LM (whisper-large-v3's backbone): serving.
+"""Encoder-decoder LM (whisper-large-v3's backbone): training and serving.
 
 Counterpart of ``repro/models/encdec.py``.  The audio frontend is the
 reference's stub: the batch carries post-conv frame embeddings
@@ -16,20 +16,32 @@ output; decode reads both.
 As ``transformer.Model``, the layers are a Python loop over one parameter
 dict and one cache dict per layer (``models/convert.py`` unstacks a JAX
 pytree into this form), the cache is updated in place, and ``pos`` is a
-0-d tensor on the device that nothing reads on the host.  Training waits
-for the unmasked flash gradient (``loss`` raises).
+0-d tensor on the device that nothing reads on the host.
+
+``loss`` is the reference's (``repro/models/encdec.py:83-94``): the encoder
+runs without remat, as the reference's ``apply_program`` does by default,
+so its activations are kept; each decoder layer runs under per-layer remat
+(``checkpoint``), or through an offload policy's ``run_layer``, as the
+reference passes ``remat`` and ``remat_policy`` to the decoder only.  The
+encoder's gradient is the sum of the 32 cross attentions' gradients of its
+output: the flash gradient of unmasked attention with Sq != Sk, beside the
+encoder's own unmasked self attention at Sq = Sk = enc_seq.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import tree_leaves
 from .layers import (
     ShapeOnly,
     apply_norm,
+    chunked_softmax_xent,
     dtype_of,
     embed_tokens,
     init_embedding,
@@ -46,10 +58,6 @@ from .transformer import (
     prefill_layer,
     train_layer,
 )
-
-NOT_TRAINED = ("is not yet ported: the encoder and cross attention need the gradient of "
-               "unmasked attention, see ROADMAP.md queue B item 2 (B2d)")
-
 
 def sinusoid(pos0: int, seq: int, d: int, dtype, device=None) -> torch.Tensor:
     """The sinusoid rows of positions [pos0, pos0 + seq): [seq, d], each row
@@ -126,7 +134,34 @@ class EncDecModel:
 
     # ---- training ----
     def loss(self, params, batch, remat: bool = True, remat_policy=None):
-        raise NotImplementedError(f"{self.cfg.name} training {NOT_TRAINED}")
+        """Mean next-token CE of the decoder over ``batch`` {"frames" [B,
+        enc_seq, D], "tokens", "labels" [B, S] int} -> (ce, {"ce", "aux": 0}),
+        as the reference's: position i is scored against labels[i + 1]
+        (ROADMAP queue C's double shift, kept).  ``remat`` recomputes each
+        decoder layer in backward; with it, a ``remat_policy``
+        (``OffloadPolicy``) runs each decoder layer instead, with the
+        encoder's output among the tensors it owes a gradient.  The encoder
+        is never rematerialised."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch["frames"])
+        x = self._embed_dec(params, batch["tokens"])
+        for p, spec in zip(params["decoder"], layer_specs(cfg.program)):
+            # An alias a layer: the gradients of the layer's cross k and v
+            # meet there before the layers' sums meet at enc_out, in every
+            # path alike (a policy's layer returns its sum as one tensor), so
+            # remat, no remat and a policy give the same bits.
+            e = enc_out.view_as(enc_out)
+            if remat and remat_policy is not None:
+                fn = partial(train_layer, p, cfg=cfg, spec=spec, angles=None, enc_out=e)
+                x, _ = remat_policy.run_layer(fn, x, tree_leaves(p) + [e])
+            elif remat:  # no layer draws random numbers, so no RNG state is saved
+                x, _ = checkpoint(train_layer, p, x, cfg, spec, None, e, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, _ = train_layer(p, x, cfg, spec, None, enc_out=e)
+        x = apply_norm(params["final_norm"], x, cfg)
+        ce = chunked_softmax_xent(x[:, :-1], params["embed"], batch["labels"][:, 1:], cfg)
+        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
     # ---- serving ----
     def init_cache(self, batch: int, max_seq: int):

@@ -10,8 +10,8 @@ position tables, LayerNorm, the GELU FFN, cross attention, ``encode``,
 prefill logits with every layer's self and cross caches (through
 ``cache_from_jax``), and four decode steps.  Also: the full config's shapes
 and cache bytes, the specs, which kernels a forward reaches, the tracer's
-price of unmasked flash, the entry point with and without plans, and the
-training guard.
+price of unmasked flash, the entry point with and without plans, and that
+the smoke loss runs.
 """
 
 import dataclasses
@@ -439,11 +439,15 @@ def test_serve_whisper_smoke_with_and_without_plans(tmp_path, capsys):
 
 
 def test_encdec_training_raises():
+    """The training guard is gone: the smoke loss runs and is a finite fp32
+    scalar, with aux 0 (tests/test_torch_encdec_train.py holds it to the
+    reference)."""
     cfg = get_smoke_config(ARCH)
     model = build_model(cfg, "cpu")
     params = model.init(torch.Generator().manual_seed(0))
     batch = {"frames": torch.zeros((1, cfg.enc_seq, cfg.d_model)),
              "tokens": torch.zeros((1, 8), dtype=torch.long),
              "labels": torch.zeros((1, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="B2d"):
-        model.loss(params, batch)
+    loss, metrics = model.loss(params, batch)
+    assert loss.shape == () and loss.dtype == torch.float32 and torch.isfinite(loss)
+    assert float(metrics["ce"]) == float(loss) and float(metrics["aux"]) == 0.0

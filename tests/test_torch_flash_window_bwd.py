@@ -12,7 +12,7 @@ q tiles a key tile's dK/dV block visits, the first key tile of a dQ block,
 the ``edge`` predicate that turns the element masks on), held to a dense
 enumeration of live pairs: every live pair lies in a visited tile, and a
 step that masks nothing holds live pairs only.  Also the refusals that are
-left (B2d), ``ops.flash_mha`` routing a window's gradient to the plain
+left (B2d; unmasked attention with a window among them), ``ops.flash_mha`` routing a window's gradient to the plain
 version on CPU tensors, and the tracer pricing a window's backward node.
 Inputs are drawn with numpy.
 """
@@ -148,49 +148,56 @@ def test_flash_mha_takes_a_windows_gradient_through_the_operators():
 # (TR = 64 for key tiles, q tiles and both kernels' steps) and
 # csrc/flash_attention_bwd.cu (`simt`: BQ = BK = 64; `mma`: a dK/dV block of
 # KB = 64 keys stepping over QT = 32 q rows, a dQ block of QB = 64 rows
-# stepping over KT = 32 keys), written as the sources compute it.
-def dkdv_q_steps(k0, kb, qt, Sq, window):
+# stepping over KT = 32 keys), written as the sources compute it.  With
+# ``causal=False`` (unmasked attention, never with a window) the blocks visit
+# every tile and only the ragged edges mask (tests/test_torch_flash_unmasked_bwd.py).
+def dkdv_q_steps(k0, kb, qt, Sq, window, causal=True):
     """The q rows a dK/dV block of keys [k0, k0 + kb) steps over, qt at a
-    time: from k0's step, up to the last row that sees its last key."""
+    time: from k0's step (unmasked: from row 0), up to the last row that
+    sees its last key."""
     q_end = min(Sq, k0 + kb - 1 + window) if window else Sq
-    return range(k0 // qt * qt, q_end, qt)
+    return range(k0 // qt * qt if causal else 0, q_end, qt)
 
 
-def wgmma_dkdv_q_steps(k0, Sq, window, TR=64):
-    """The wgmma dK/dV kernel's form: n_q steps of TR rows from k0."""
+def wgmma_dkdv_q_steps(k0, Sq, window, TR=64, causal=True):
+    """The wgmma dK/dV kernel's form: n_q steps of TR rows from q_begin (k0,
+    or 0 unmasked)."""
+    q_begin = k0 if causal else 0
     q_end = min(Sq, k0 + TR - 1 + window) if window else Sq
-    n_q = (q_end - k0 + TR - 1) // TR if q_end > k0 else 0
-    return [k0 + j * TR for j in range(n_q)]
+    n_q = (q_end - q_begin + TR - 1) // TR if q_end > q_begin else 0
+    return [q_begin + j * TR for j in range(n_q)]
 
 
-def dq_k_steps(q0, qb, kt, Sq, Sk, window):
+def dq_k_steps(q0, qb, kt, Sq, Sk, window, causal=True):
     """The keys a dQ block of rows [q0, q0 + qb) steps over, kt at a time:
-    from the step of its first row's first key up to its last row."""
-    k_end = min(Sk, q0 + qb, Sq)
+    from the step of its first row's first key up to its last row (unmasked:
+    every key)."""
+    k_end = min(Sk, q0 + qb, Sq) if causal else Sk
     k_begin = max(0, q0 - window + 1) // kt * kt if window else 0
     return range(k_begin, k_end, kt)
 
 
-def wgmma_dq_k_steps(q0, Sq, Sk, window, TR=64):
+def wgmma_dq_k_steps(q0, Sq, Sk, window, TR=64, causal=True):
     """The wgmma dQ kernel's form: key tiles j0 .. n_k - 1."""
-    k_end = min(Sk, q0 + TR, Sq)
+    k_end = min(Sk, q0 + TR, Sq) if causal else Sk
     j0 = max(0, q0 - window + 1) // TR if window else 0
     return [j * TR for j in range(j0, (k_end + TR - 1) // TR)]
 
 
-def edge_dkdv(q0, k0, Sq, Sk, window, TR=64):
-    return (q0 < k0 + TR or q0 + TR > Sq or k0 + TR > Sk
+def edge_dkdv(q0, k0, Sq, Sk, window, TR=64, causal=True):
+    return ((causal and q0 < k0 + TR) or q0 + TR > Sq or k0 + TR > Sk
             or bool(window and q0 + TR - 1 - k0 >= window))
 
 
-def edge_dq(q0, k0, Sq, Sk, window, TR=64):
-    return (k0 + TR > q0 or k0 + TR > Sk or q0 + TR > Sq
+def edge_dq(q0, k0, Sq, Sk, window, TR=64, causal=True):
+    return ((causal and k0 + TR > q0) or k0 + TR > Sk or q0 + TR > Sq
             or bool(window and q0 + TR - 1 - k0 >= window))
 
 
-def _live(Sq, Sk, window):
+def _live(Sq, Sk, window, causal=True):
     off = np.arange(Sq)[:, None] - np.arange(Sk)[None, :]
-    return (off >= 0) & (off < window if window else True)
+    return ((off >= 0) if causal else np.ones(off.shape, bool)) & \
+        (off < window if window else True)
 
 
 def _blocks(S, t):
@@ -273,9 +280,11 @@ def test_a_window_at_least_s_runs_the_causal_steps():
 # ------------------------------------------------------------ refusals, tracer
 def test_refusals_left_name_b2d():
     """What the gradient does not take raises before any code runs, on the
-    CPU as on the card: unmasked attention, a softcap, head dim 256, and a
-    window with Sq > Sk."""
-    cases = [((1, 8, 2, 16), 8, dict(causal=False)), ((1, 8, 2, 16), 8, dict(softcap=30.0)),
+    CPU as on the card: unmasked attention with a window, a softcap, head
+    dim 256, and a window with Sq > Sk.  (Unmasked attention without a
+    window is taken since its kernels landed: tests/test_torch_flash_unmasked_bwd.py.)"""
+    cases = [((1, 8, 2, 16), 8, dict(causal=False, window=4)),
+             ((1, 8, 2, 16), 8, dict(softcap=30.0)),
              ((1, 8, 2, 256), 8, {}), ((1, 8, 2, 16), 4, dict(window=4))]
     for qshape, sk, kw in cases:
         q = torch.zeros(qshape)

@@ -19,8 +19,8 @@ import torch
 
 from repro.kernels import ref as jax_ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (bwd_variant, flash_attention_bwd_plain,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (bwd_variant, check_bwd_supported,
+                                                 flash_attention_bwd_plain, flash_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain, rmsnorm_plain
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py's
@@ -130,10 +130,11 @@ def test_flash_plain_lse_matches_reference_logsumexp(shape):
 
 
 def test_flash_bwd_raises_outside_causal():
-    """Unmasked attention, a softcap, head dim 256 and a window with Sq > Sk
-    are refused, naming B2d; a window with Sq <= Sk is taken."""
-    for hd, sk, kw in ((16, 8, dict(causal=False)), (16, 8, dict(softcap=30.0)), (256, 8, {}),
-                       (16, 4, dict(window=4))):
+    """Unmasked attention with a window, a softcap, head dim 256 and a window
+    with Sq > Sk are refused, naming B2d; a window with Sq <= Sk, and
+    unmasked attention without one, are taken."""
+    for hd, sk, kw in ((16, 8, dict(causal=False, window=4)), (16, 8, dict(softcap=30.0)),
+                       (256, 8, {}), (16, 4, dict(window=4))):
         q = torch.zeros(1, 8, 2, hd)
         k = torch.zeros(1, sk, 2, hd)
         lse = torch.zeros(1, 2, 8)
@@ -141,6 +142,8 @@ def test_flash_bwd_raises_outside_causal():
             flash_attention_bwd_plain(q, k, k, q, q, lse, **kw)
         with pytest.raises(NotImplementedError, match="B2d"):
             ops.flash_mha(q.clone().requires_grad_(), k, k, **kw)
+    for causal, window, sq, sk in ((True, 4, 8, 8), (False, None, 8, 3), (False, None, 3, 8)):
+        check_bwd_supported(causal, window, None, 128, sq, sk)
 
 
 # ------------------------------------------------------------------ routing

@@ -39,10 +39,10 @@ def _flash(rng, B, Sq, Sk, H, KV, hd, dtype, grad=False, causal=True, window=Non
             _t(rng, B, Sk, KV, hd, dtype=dtype, grad=grad), causal, window, softcap, scale)
 
 
-def _flash_bwd(rng, B, S, H, KV, hd, dtype, window=None, scale=None):
-    q, k, v = (a.detach() for a in _flash(rng, B, S, S, H, KV, hd, dtype)[:3])
-    o, lse = O.flash_attention_lse(q, k, v, True, window, None, scale)
-    return q, k, v, o, _t(rng, B, S, H, hd, dtype=dtype), lse, True, window, None, scale
+def _flash_bwd(rng, B, S, H, KV, hd, dtype, window=None, scale=None, causal=True, Sk=None):
+    q, k, v = (a.detach() for a in _flash(rng, B, S, Sk or S, H, KV, hd, dtype)[:3])
+    o, lse = O.flash_attention_lse(q, k, v, causal, window, None, scale)
+    return q, k, v, o, _t(rng, B, S, H, hd, dtype=dtype), lse, causal, window, None, scale
 
 
 def _ssd(rng, b, s, h, p, g, n, dtype):
@@ -74,6 +74,9 @@ CASES = {
     "flash_attention_lse-odd": (O.flash_attention_lse,
                                 lambda rng: _flash(rng, 1, 37, 37, 3, 1, 16, torch.bfloat16,
                                                    grad=True)),
+    "flash_attention_lse-unmasked": (O.flash_attention_lse,
+                                     lambda rng: _flash(rng, 1, 70, 37, 4, 2, 16, torch.float32,
+                                                        grad=True, causal=False)),
     "flash_attention_bwd": (O.flash_attention_bwd,
                             lambda rng: _flash_bwd(rng, 1, 64, 4, 2, 16, torch.float32)),
     "flash_attention_bwd-odd": (O.flash_attention_bwd,
@@ -81,6 +84,9 @@ CASES = {
     "flash_attention_bwd-window": (O.flash_attention_bwd,
                                    lambda rng: _flash_bwd(rng, 2, 70, 5, 1, 16, torch.float32,
                                                           window=9, scale=0.3)),
+    "flash_attention_bwd-unmasked": (O.flash_attention_bwd,
+                                     lambda rng: _flash_bwd(rng, 2, 37, 4, 2, 16, torch.float32,
+                                                            causal=False, Sk=70)),
     "ssd_scan": (O.ssd_scan, lambda rng: _ssd(rng, 1, 64, 2, 8, 1, 4, torch.float32)),
     "ssd_scan-odd": (O.ssd_scan, lambda rng: _ssd(rng, 2, 70, 4, 12, 2, 5, torch.bfloat16)),
 }
