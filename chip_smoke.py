@@ -36,7 +36,7 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               counting no launch).  The training path's kernels
               too: the RMSNorm backward (dx, and dscale bit-equal across
               two runs) and the flash backward (dq, dk, dv; ``wgmma`` for
-              bf16 at head dim 64 or 128, bit-equal across two runs, with
+              bf16 at head dim 64, 128 or 256, bit-equal across two runs, with
               the ``mma`` kernel it replaced timed beside it; ``simt`` the
               rest), each beside the library
               call's backward (``torch.autograd.grad`` through
@@ -273,8 +273,8 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (b) ``examples/train_100m_torch.py`` (fp32) with ``--steps
               60`` and then ``--steps 70`` in the same directory, which must
               resume at step 60; exact launch counts (flash ``simt``).
- 18. train mamba2  mamba2-370m trained at every published width, all 48
-              layers (368,338,432 parameters, 5,893,414,912 B of fp32
+ 18. train mamba2  mamba2-370m trained at every published width (its 48
+              layers: 368,338,432 parameters, 5,893,414,912 B of fp32
               state), each part after the memory of the earlier ones is
               dropped:
               (a) the SSD scan's backward kernels (``ssd_scan_bwd``, the
@@ -291,11 +291,13 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (b) one train step of two Mamba-2 layers in fp32 (B1 S300,
               which pads to two chunks of 256) on the card against the CPU,
               as phase 8;
-              (c) the 48 layers through ``train.train`` at B4 S2048 for 5
-              steps: finite losses, ms a step, tokens/s, the peak beside the
+              (c) 12 of the 48 layers (``train_cut``: the script trained
+              all 48 until phase 21 came, and cuts them for its time
+              limit) through ``train.train`` at B4 S2048 for 5 steps:
+              finite losses, ms a step, tokens/s, the peak beside the
               state's arithmetic, exact launch counts by variant (a step:
-              SSD 96 forward and 48 backward ``tc``, RMSNorm 193 forward and
-              97 backward ``vector``); a warm step profiled (the SSD
+              SSD 24 forward and 12 backward ``tc``, RMSNorm 49 forward and
+              25 backward ``vector``); a warm step profiled (the SSD
               backward's share, the idle share);
               (d) the loss step ``train --plan`` plans, traced and planned
               under H100_SXM, its w beside the real peak of the loss run at
@@ -303,9 +305,9 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (or a quarter, an eighth, until a label is named) executed for
               (c)'s steps, seed and batches: losses equal to (c)'s bit for
               bit, the same launch counts, and the bytes each way a step
-              exactly 48 x the names x one [4, 2048, 1024] bf16 activation.
- 19. train hymba  hymba-1.5b trained at every published width, all 32
-              hybrid layers (1,589,773,120 parameters, 25,436,369,920 B of
+              exactly 12 x the names x one [4, 2048, 1024] bf16 activation.
+ 19. train hymba  hymba-1.5b trained at every published width (its 32
+              hybrid layers: 1,589,773,120 parameters, 25,436,369,920 B of
               fp32 state), each part after the memory of the earlier ones
               is dropped:
               (a) the flash backward with a window against its plain
@@ -321,17 +323,18 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (b) one train step of its five segments' layers in fp32 (B1
               S1100, past the window) on the card against the CPU, as
               phase 8 (the ``simt`` backward with a window);
-              (c) the 32 layers through ``train.train`` at B4 S2048 for 5
-              steps: finite losses, ms a step, tokens/s, the peak beside
-              the state's arithmetic, exact launch counts by variant (a
-              step: RMSNorm 321 forward and 161 backward ``vector``, flash
-              64 forward and 32 backward ``wgmma``, SSD 64 forward and 32
-              backward ``tc``); a warm step profiled;
+              (c) 9 of the 32 layers (its 3 global and 6 window layers;
+              all 32 until phase 21 came) through ``train.train`` at B4
+              S2048 for 5 steps: finite losses, ms a step, tokens/s, the
+              peak beside the state's arithmetic, exact launch counts by
+              variant (a step: RMSNorm 91 forward and 46 backward
+              ``vector``, flash 18 forward and 9 backward ``wgmma``, SSD 18
+              forward and 9 backward ``tc``); a warm step profiled;
               (d) as 18 (d), for hymba: losses equal to (c)'s bit for bit,
-              the same launch counts, the bytes each way a step exactly 32 x
+              the same launch counts, the bytes each way a step exactly 9 x
               the names x one [4, 2048, 1600] bf16 activation.
- 20. train whisper  whisper-large-v3 trained at every published width, all
-              32 encoder and 32 decoder layers (1,535,219,200 parameters,
+ 20. train whisper  whisper-large-v3 trained at every published width (its
+              32 encoder and 32 decoder layers: 1,535,219,200 parameters,
               24,563,507,200 B of fp32 state), each part after the memory
               of the earlier ones is dropped, each part's seconds printed:
               (a) the flash backward of unmasked attention against its
@@ -349,25 +352,66 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               fp32 over all 1500 frames (standard normal from seed 0) at
               decoder S 300 on the card against the CPU, as phase 8 (the
               ``simt`` backward, unmasked and causal);
-              (c) the 64 layers through ``train.train`` at B4, decoder S
-              448 (whisper's text context), 1500 zero frames, 5 steps:
-              finite losses, ms a step, decoder tokens/s and frames/s, the
-              peak beside the state's arithmetic, exact launch counts by
-              variant (a step: flash 160 forward and 96 backward
-              ``wgmma``, no RMSNorm, no SSD); a warm step profiled (the
-              flash backward's share, the idle share, the top ops);
+              (c) 8 of the 32 encoder and 8 of the 32 decoder layers (all
+              64 until phase 21 came) through ``train.train`` at B4,
+              decoder S 448 (whisper's text context), 1500 zero frames, 5
+              steps: finite losses, ms a step, decoder tokens/s and
+              frames/s, the peak beside the state's arithmetic, exact
+              launch counts by variant (a step: flash 40 forward and 24
+              backward ``wgmma``, no RMSNorm, no SSD); a warm step profiled
+              (the flash backward's share, the idle share, the top ops);
               (d) as 18 (d), for whisper: losses equal to (c)'s bit for
               bit, the same launch counts, the bytes each way a step
-              exactly 32 x the names x one [4, 448, 1280] bf16 activation.
+              exactly 8 x the names x one [4, 448, 1280] bf16 activation.
+ 21. train gemmas  gemma3-4b trained at every published width, all 34
+              layers (3,880,099,328 parameters, 62,081,589,248 B of fp32
+              state), and gemma2-9b cut to 6 of its (window, global) pairs
+              at every published width (``gemma2-9b-cut12``: 3,295,849,984
+              parameters, 52,733,599,744 B; the whole model's 147.87 GB of
+              state exceeds the card), each part after the memory of the
+              earlier ones is dropped, each part's seconds printed:
+              (a) the flash backward at head dim 256 and with the tanh
+              softcap against its plain version: ``wgmma`` (bf16) at
+              gemma3's layouts (B4 S2048 H8 KV4, causal and with its
+              window of 1024) and gemma2's (B1 S8192 H16 KV8, softcap 50,
+              scale 224^-0.5, causal and with its window of 4096), a ragged
+              length, unmasked Sq > Sk with a softcap, the softcap at hd 128
+              and at hd 64 with a window, and a cap of 2 on scores of
+              several caps, where the plain gradient without 1 - t^2 must
+              move dq and dk beyond ten times the tolerance; each bit for
+              bit across two calls, with ``simt`` timed on the same inputs;
+              ``simt`` (fp32) at hd 256, causal, with a window, with the
+              softcap, and unmasked; the forward with the LSE at gemma2's
+              window-and-softcap layout; the RMSNorm backward at the
+              gemmas' training rows; each beside its bound and the library
+              call's backward (none computes a softcap);
+              (b) one train step of each gemma's last (window, global) pair
+              in fp32 on the card against the CPU, as phase 8 (the
+              ``simt`` backward at hd 256): gemma3 at S 1100, past its
+              window, gemma2 at S 300;
+              (c) the 34 layers of gemma3-4b through ``train.train`` at B4
+              S2048 for 5 steps: finite losses, ms a step, tokens/s, the
+              peak beside the state's arithmetic, exact launch counts by
+              variant (a step: RMSNorm 409 forward and 205 backward
+              ``vector``, flash 68 forward and 34 backward ``wgmma``, 58
+              and 29 of them with the window); a warm step profiled;
+              (d) as 18 (d), for gemma3-4b: losses equal to (c)'s bit for
+              bit, the same launch counts, the bytes each way a step
+              exactly 34 x the names x one [4, 2048, 2560] bf16 activation;
+              (e) gemma2-9b-cut12 through ``train.train`` at B1 S8192 for 5
+              steps, as (c) (a step: RMSNorm 97 forward and 49 backward,
+              flash 24 forward and 12 backward ``wgmma``, all with the
+              softcap, half with the window); a warm step profiled.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the main paths, the serve runs, plain
 and planned, the train runs, plain and with the offload plan, the CNN
 phase, the long decode, the example, deepseek's train runs, phase 17's
-runs, mamba2's, hymba's and whisper's train runs, with each path's own
-count in ``launches_by_path``; the flash backward's entry also holds
-hymba's window case and whisper's unmasked encoder and cross cases, the
-forward's the LSE with the window and unmasked), the nvidia-smi line, and
+runs, mamba2's, hymba's, whisper's and the gemmas' train runs, with each
+path's own count in ``launches_by_path``; the flash backward's entry also
+holds hymba's window case, whisper's unmasked encoder and cross cases and
+the gemmas' four hd-256 layouts, the forward's the LSE with the window,
+unmasked, and with gemma2's window and softcap), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -705,12 +749,14 @@ def flash_padding_probe(B, Sq, Sk, H, KV, hd, gen):
                 f"last tile's mass off by {mass_rel:.3e} of its largest value")
 
 
-def flash_lse_case(B, S, H, KV, hd, dtype, gen, window=None, causal=True, Sk=None):
+def flash_lse_case(B, S, H, KV, hd, dtype, gen, window=None, causal=True, Sk=None, softcap=None,
+                   scale=None):
     """Flash with the LSE written (as training runs it), causal with
     ``window`` where given or unmasked (``causal=False``, ``Sk`` keys, S by
-    default), against the plain version's output and LSE; the LSE at fp32's
-    tolerance in either type, since both sum fp32 scores of the same
-    inputs.  A window's library call is SDPA with its boolean band mask."""
+    default), with ``softcap`` and ``scale`` where given, against the plain
+    version's output and LSE; the LSE at fp32's tolerance in either type,
+    since both sum fp32 scores of the same inputs.  A window's library call
+    is SDPA with its boolean band mask; a softcap has none."""
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
                                                      variant)
 
@@ -720,13 +766,14 @@ def flash_lse_case(B, S, H, KV, hd, dtype, gen, window=None, causal=True, Sk=Non
     v = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
     var = variant(dtype, hd)
 
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+
     def op(q, k, v):
-        return torch.ops.repro_torch.flash_attention_lse(q, k, v, causal, window, None, None)
+        return torch.ops.repro_torch.flash_attention_lse(q, k, v, causal, window, softcap, scale)
 
     before = flash_attention.variant_launches[var]
     (out, lse), (out_want, lse_want) = (op(q, k, v),
-                                        flash_attention_plain(q, k, v, causal=causal,
-                                                              window=window, return_lse=True))
+                                        flash_attention_plain(q, k, v, return_lse=True, **kw))
     torch.cuda.synchronize()
     require(flash_attention.variant_launches[var] == before + 1,
             f"flash with LSE B{B} S{S} hd{hd} {dtype} did not launch the {var} kernel")
@@ -748,29 +795,53 @@ def flash_lse_case(B, S, H, KV, hd, dtype, gen, window=None, causal=True, Sk=Non
     return {
         "case": f"flash+lse [{var}] B{B} S{S}{f' Sk{Sk}' if Sk != S else ''} H{H} KV{KV} hd{hd} "
                 f"{str(dtype)[6:]} {'causal' if causal else 'unmasked'}"
-                f"{f' window={window}' if window else ''} (max_abs_err of the LSE)",
+                f"{f' window={window}' if window else ''}{f' softcap={softcap}' if softcap else ''}"
+                f"{f' scale={scale:.6f}' if scale else ''} (max_abs_err of the LSE)",
         "variant": var, "max_abs_err": err, "ok": ok,
         "check": f"LSE {lse_check}; output {out_check}",
         "ms": time_ms(op, sets, 20),
-        "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, causal=causal, window=window,
-                                                             return_lse=True), sets, 3),
-        "library_ms": time_ms(sdpa, sets, 20), "bound_ms": b_ms, "bound_by": b_by,
+        "plain_ms": time_ms(lambda *a: flash_attention_plain(*a, return_lse=True, **kw), sets, 3),
+        "library_ms": None if softcap else time_ms(sdpa, sets, 20), "bound_ms": b_ms,
+        "bound_by": b_by,
     }
 
 
+def bwd_without_slope(q, k, v, o, do, lse, softcap, scale):
+    """The causal gradient with a softcap's P but without its factor 1 - t^2
+    in dS, in fp32: what a kernel that dropped the factor would give."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    s = softcap * torch.tanh(qf @ kf.transpose(-1, -2) * scale / softcap)
+    live = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - (dof * o.float().transpose(1, 2)).sum(-1, True))
+    dq = ds @ kf * scale
+    dk = (ds.transpose(-1, -2) @ qf * scale).view(B, -1, G, S, hd).sum(2)
+    return dq.transpose(1, 2), dk.transpose(1, 2)
+
+
 def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant, window=None, yardstick="mma",
-                   causal_bits=False, causal=True, Sk=None, also=None):
+                   causal_bits=False, causal=True, Sk=None, also=None, softcap=None, scale=None,
+                   q_gain=1.0, bite=False):
     """flash_attention_bwd against flash_attention_bwd_plain on the same q, k,
     v, dO and the kernel forward's o and LSE, causal with ``window`` where
-    given, or unmasked (``causal=False``) with ``Sk`` keys (Sq by default):
-    dq, dk and dv at the dtype's tolerance.  A wgmma case must also give
-    equal bits in two runs, and the mma kernel (the variant it replaced,
-    through ``_launch_bwd``, counting no launch) is held to the same plain
-    version at the same tolerance; ``yardstick`` (mma, or simt), and
-    ``also`` where given, are timed beside it on the same inputs.
+    given, or unmasked (``causal=False``) with ``Sk`` keys (Sq by default),
+    with ``softcap`` and ``scale`` where given: dq, dk and dv at the dtype's
+    tolerance.  A wgmma case must also give equal bits in two runs, and,
+    at head dims 64 and 128 without a softcap, the mma kernel (the variant
+    it replaced, through ``_launch_bwd``, counting no launch) is held to the
+    same plain version at the same tolerance; ``yardstick`` (mma, or simt),
+    and ``also`` where given, are timed beside it on the same inputs.
     ``causal_bits``: the window reaches past every row, and the result must
-    equal the causal call's bit for bit.  The library call is SDPA's
-    backward (a window: its boolean band mask)."""
+    equal the causal call's bit for bit.  ``q_gain`` scales q; with
+    ``bite`` the plain gradient without the softcap's factor 1 - t^2 must
+    move dq and dk beyond ten times the tolerance.  The library call is
+    SDPA's backward (a window: its boolean band mask; none computes a
+    softcap)."""
     from repro_torch.kernels.flash_attention import (_launch_bwd, bwd_variant, flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_plain)
@@ -779,21 +850,22 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant, window=None, yard
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     Sk = Sk or Sq
-    q, k, v, do = randn(B, Sq, H, hd), randn(B, Sk, KV, hd), randn(B, Sk, KV, hd), \
-        randn(B, Sq, H, hd)
-    o, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    q, k, v, do = (randn(B, Sq, H, hd) * q_gain).to(dtype), randn(B, Sk, KV, hd), \
+        randn(B, Sk, KV, hd), randn(B, Sq, H, hd)
+    attn = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    o, lse = flash_attention(q, k, v, return_lse=True, **attn)
     var = bwd_variant(o, do)
     mask = "causal" if causal else "unmasked"
     tag = (f"flash_bwd B{B} Sq{Sq} Sk{Sk} hd{hd} {dtype} {mask}"
-           f"{f' window={window}' if window else ''}")
+           f"{f' window={window}' if window else ''}{f' softcap={softcap}' if softcap else ''}")
     require(var == want_variant, f"{tag} routes to {var}, want {want_variant}")
+    sc = scale if scale is not None else hd**-0.5
 
     def op(*args, window=window):
-        return torch.ops.repro_torch.flash_attention_bwd(*args, causal, window, None, None)
+        return torch.ops.repro_torch.flash_attention_bwd(*args, causal, window, softcap, scale)
 
     before = flash_attention_bwd.variant_launches[var]
-    got, want = (op(q, k, v, o, do, lse),
-                 flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal, window=window))
+    got, want = (op(q, k, v, o, do, lse), flash_attention_bwd_plain(q, k, v, o, do, lse, **attn))
     torch.cuda.synchronize()
     require(flash_attention_bwd.variant_launches[var] == before + 1,
             f"{tag} did not launch the {var} kernel")
@@ -809,12 +881,19 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant, window=None, yard
     ok = all(c[0] for c in checks)
     check = "; ".join(f"{n} {c[2]}" for n, c in zip(("dq", "dk", "dv"), checks))
     mma_check = ""
-    if var == "wgmma":
+    if var == "wgmma" and hd <= 128 and not softcap:
         mma = [close(g, w, tol) for g, w in
-               zip(_launch_bwd("mma", q, k, v, o, do, lse, hd**-0.5, window, causal), want)]
+               zip(_launch_bwd("mma", q, k, v, o, do, lse, sc, window, causal), want)]
         mma_check = "; mma max excess " + ", ".join(f"{c[1]:.2e}" for c in mma)
         require(all(c[0] for c in mma), f"{tag} [mma]: " +
                 "; ".join(f"{n} {c[2]}" for n, c in zip(("dq", "dk", "dv"), mma)))
+    if bite:  # how far a gradient without 1 - t^2 would land from the plain one
+        moved = min(close(f, w, tol)[1] for f, w in
+                    zip(bwd_without_slope(q, k, v, o, do, lse, softcap, sc), want[:2]))
+        mma_check += (f"; without 1 - t^2 the plain dq, dk move {moved:.3e} beyond the "
+                      f"tolerance (> 10 x {tol:g})")
+        require(moved > 10 * tol, f"{tag}: the cap does not bite (a gradient without 1 - t^2 "
+                                  f"is {moved:.3e} beyond the tolerance)")
     errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
     rels = [e / w.float().abs().max().item() for e, w in zip(errs, want)]
     args = (q, k, v, o, do, lse)
@@ -828,25 +907,29 @@ def flash_bwd_case(B, Sq, H, KV, hd, dtype, gen, want_variant, window=None, yard
         q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                              v.transpose(1, 2), attn_mask=band,
-                                             is_causal=causal and band is None, enable_gqa=True)
+                                             is_causal=causal and band is None, scale=scale,
+                                             enable_gqa=True)
         return out, (q, k, v), do.transpose(1, 2)
 
     def timed(name):
-        return name, time_ms(lambda *a: _launch_bwd(name, *a, hd**-0.5, window, causal), sets, 10)
+        return name, time_ms(lambda *a: _launch_bwd(name, *a, sc, window, causal, softcap), sets,
+                             10)
 
     other = timed(yardstick) if var == "wgmma" else None
     return {
         "case": f"flash_bwd [{var}] B{B} S{Sq}{f' Sk{Sk}' if Sk != Sq else ''} H{H} KV{KV} "
-                f"hd{hd} {str(dtype)[6:]} {mask}{f' window={window}' if window else ''} "
+                f"hd{hd} {str(dtype)[6:]} {mask}{f' window={window}' if window else ''}"
+                f"{f' softcap={softcap}' if softcap else ''}{f' scale={scale:.6f}' if scale else ''}"
+                f"{f' q x {q_gain:g}' if q_gain != 1 else ''} "
                 f"(dq, dk, dv abs err {errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e}; relative to "
                 f"max|want| {max(rels):.2e}{'; bit-equal across two runs' * (var == 'wgmma')}"
                 f"{'; bit-equal to the causal call' * causal_bits}{mma_check})",
         "variant": var, "max_abs_err": max(errs), "check": check, "ok": ok,
         "ms": time_ms(op, sets, 10),
-        "plain_ms": time_ms(lambda *a: flash_attention_bwd_plain(*a, causal=causal, window=window),
-                            sets, 3),
-        "library_ms": grad_ms(sdpa, sets, 10), "bound_ms": b_ms, "bound_by": b_by,
-        "other": other, "also": timed(also) if var == "wgmma" and also else None,
+        "plain_ms": time_ms(lambda *a: flash_attention_bwd_plain(*a, **attn), sets, 3),
+        "library_ms": None if softcap else grad_ms(sdpa, sets, 10), "bound_ms": b_ms,
+        "bound_by": b_by, "other": other,
+        "also": timed(also) if var == "wgmma" and also else None,
     }
 
 
@@ -1284,14 +1367,15 @@ def phase_parity(arch: str, P: int, tail: int | None = None):
     require(torch.isfinite(l_gpu).all().item(), f"{arch}: non-finite logits in the parity run")
 
 
-def phase_train_parity(arch: str, S: int, phase: str | None = None):
+def phase_train_parity(arch: str, S: int, phase: str | None = None, tail: int | None = None):
     """One train step of ``depth_cut(arch)`` in fp32 (B1; qwen3-4b: two of its
     layers; deepseek-v2-lite-16b: its dense layer, then an MoE layer;
     mamba2-370m: two Mamba-2 layers, whose SSD runs the simt kernels forward
     and backward; whisper-large-v3: two encoder and two decoder layers over
     all 1500 frames, standard normal from seed 0, whose unmasked and
-    causal flash runs the simt kernels), printed under ``phase`` (by default
-    8, or 16a for an MoE model): the
+    causal flash runs the simt kernels; with ``tail``, the last ``tail``
+    layers of its first segment's unit, as phase 4 cuts the gemmas),
+    printed under ``phase`` (by default 8, or 16a for an MoE model): the
     loss and its gradients through ``Model.loss`` and ``torch.autograd.grad``,
     then ``adamw_step``, as ``build_train_step`` runs them; through the
     kernels on the card (forward and backward) against the plain path on the
@@ -1321,7 +1405,7 @@ def phase_train_parity(arch: str, S: int, phase: str | None = None):
     from repro_torch.optim import adamw_init, adamw_step
     from repro_torch.tree import map_tree, tree_leaves
 
-    cfg = depth_cut(get_config(arch))
+    cfg = depth_cut(get_config(arch), tail)
     n_moe = sum(spec.ffn == "moe" for spec in layer_specs(cfg.program))
     lr = 3e-4  # build_train_step's default
     t0 = time.perf_counter()
@@ -1330,13 +1414,18 @@ def phase_train_parity(arch: str, S: int, phase: str | None = None):
     if cfg.is_encoder_decoder:  # all enc_seq frames, standard normal from the seed
         batch["frames"] = torch.randn((1, cfg.enc_seq, cfg.d_model),
                                       generator=torch.Generator("cpu").manual_seed(0))
-    p_init = build_model(cfg, "cpu").init(torch.Generator("cpu").manual_seed(0), torch.float32)
-    runs = [("cpu", map_tree(torch.clone, p_init)), ("cuda", to_device(p_init, "cuda"))]
+    # The masters are drawn on the card from the seed and copied to the CPU:
+    # the CPU's generator drew the 0.4-1.3 B parameters of the tied tables
+    # several times slower.
+    p_dev = build_model(cfg, "cuda").init(torch.Generator("cuda").manual_seed(0), torch.float32)
+    p_init = map_tree(lambda t: t.cpu(), p_dev)
+    runs = [("cpu", map_tree(torch.clone, p_init)), ("cuda", p_dev)]
     if n_moe:
         runs.append(("cuda again", to_device(p_init, "cuda")))
-    out, routing = {}, {}
+    out, routing, secs = {}, {}, {"set-up": time.perf_counter() - t0}
     for tag, params in runs:
         dev = tag.split()[0]
+        t1 = time.perf_counter()
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
@@ -1352,19 +1441,29 @@ def phase_train_parity(arch: str, S: int, phase: str | None = None):
         out[tag] = (loss.detach(), norm, seen, [t.detach() for t in leaves],
                     metrics["aux"].detach())
         del params, leaves, grads
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t1
+    del p_dev
     (loss_c, norm_c, g_c, p_c, aux_c), (loss_g, norm_g, g_g, p_g, aux_g) = out["cpu"], out["cuda"]
 
+    # The comparisons run on the card, each CPU tensor copied there: the
+    # subtractions, absolute values and maxima are exact, so they give the
+    # CPU's numbers, without its passes over up to 1.3 B elements.
     def rel(a, b):
-        return ((a.cpu().float() - b.float()).abs().max() / b.float().abs().max()).item()
+        b = b.to(a.device).float()
+        return ((a.float() - b).abs().max() / b.abs().max()).item()
 
+    t1 = time.perf_counter()
     loss_err = rel(loss_g, loss_c)
     grad_err = max(rel(g, w) for g, w in zip(g_g, g_c))
     replay = [t.clone() for t in tree_leaves(p_init)]
     adamw_step(replay, [g.cpu() for g in g_g], adamw_init(replay), lr)
     update_err = max(rel(p, w) for p, w in zip(p_g, replay))
-    direct_abs = max((p.cpu() - w).abs().max().item() for p, w in zip(p_g, p_c))
-    near_zero = sum(int((gw.abs() <= (g.cpu() - gw).abs().max()).sum())
-                    for g, gw in zip(g_g, g_c))
+    direct_abs = max((p - w.to(p.device)).abs().max().item() for p, w in zip(p_g, p_c))
+    near_zero = 0
+    for g, gw in zip(g_g, g_c):
+        gw = gw.to(g.device)
+        near_zero += int((gw.abs() <= (g - gw).abs().max()).sum())
     kinds = ", ".join(f"{spec.attn}+{spec.ffn}{'+cross' * spec.cross_attn}"
                       for spec in layer_specs(cfg.enc_program + cfg.program))
     aux = ""
@@ -1380,7 +1479,9 @@ def phase_train_parity(arch: str, S: int, phase: str | None = None):
           f"information, held to no limit: the two whole steps' params differ by "
           f"{direct_abs:.3e} at most (AdamW's first update spans 2 lr = {2 * lr:g}), "
           f"{near_zero} element(s) have a CPU gradient within its leaf's disagreement of 0; "
-          f"{time.perf_counter() - t0:.1f}s")
+          f"{time.perf_counter() - t0:.1f}s (" + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + f", the CPU's AdamW on the card's gradients and the comparisons "
+          f"{time.perf_counter() - t1:.1f})")
     require(math.isfinite(float(loss_g)), "train parity: non-finite loss on the card")
     require(loss_err < PARITY_TOL, f"train parity: loss differs by {loss_err:.3e}")
     require(grad_err < PARITY_TOL, f"train parity: a gradient differs by {grad_err:.3e}")
@@ -3239,9 +3340,10 @@ def phase_example_100m(per_step: dict[str, int]) -> dict[str, dict[str, int]]:
     return paths
 
 
-# Phase 18: mamba2-370m trained at every published width on one card: its 48
-# layers hold 368,338,432 parameters, 5,893,414,912 B of fp32 state (16 B a
-# parameter: masters, gradients, AdamW's m and v), so no depth is cut.
+# Phase 18: mamba2-370m trained at every published width on one card.  Its
+# 48 layers hold 368,338,432 parameters, 5,893,414,912 B of fp32 state (16 B
+# a parameter: masters, gradients, AdamW's m and v), which fits; since
+# phase 21 the script trains 12 of them (``train_cut``) for its time limit.
 MAMBA = "mamba2-370m"
 
 
@@ -3347,32 +3449,78 @@ def phase_mamba_bwd_kernels():
     return cases
 
 
-# The models that phases 18 and 19 train whole: (parameters, what the
-# printed line says of the layers).
-FULL_TRAIN = {"mamba2-370m": (368_338_432, "48 Mamba-2 layers at full width"),
-              "hymba-1.5b": (1_589_773_120, "32 hybrid layers at full width, 29 with a window "
-                                            "of 1024"),
-              "whisper-large-v3": (1_535_219_200, "32 encoder and 32 decoder layers at full "
-                                                  "width, 1500 frames")}
+# The models that phases 18 to 21 train, each at every published width:
+# (parameters, what the printed line says of the layers).  gemma3-4b is
+# whole.  The others are depth cuts (``train_cut``, ``gemma2_cut``): the
+# tied or untied token tables and the final norm, then each layer's share.
+# mamba2-370m-cut12: 50,280 x 1,024 + 1,024 and 12 of its 48 Mamba-2 layers
+# of 6,601,056; hymba-1.5b-cut9: 32,001 x 1,600 + 1,600 and 9 of its 32
+# hybrid layers (its 3 global and 6 of its 29 window layers) of 48,080,310;
+# whisper-large-v3-cut8: 8 of its 32 encoder and 8 of its 32 decoder layers;
+# gemma2-9b-cut12: 256,000 x 3,584 + 3,584 and 12 of its 42 layers of
+# 198,195,200 (q, k, v, o, the GeGLU's three, four norms).  Phases 18-20
+# trained the whole of the first three until the gemmas' phase 21 came
+# (PERF.md): cut, the script stays inside its time limit.
+FULL_TRAIN = {"mamba2-370m-cut12": (51_487_744 + 12 * 6_601_056,
+                                    "12 of its 48 Mamba-2 layers at full width"),
+              "hymba-1.5b-cut9": (51_203_200 + 9 * 48_080_310,
+                                  "9 of its 32 hybrid layers at full width, 6 with a window of "
+                                  "1024"),
+              "whisper-large-v3-cut8": (433_600_000, "8 of its 32 encoder and 8 of its 32 decoder "
+                                                     "layers at full width, 1500 frames"),
+              "gemma3-4b": (3_880_099_328, "34 layers at full width, hd 256, 29 with a window "
+                                           "of 1024"),
+              "gemma2-9b-cut12": (917_504_000 + 3_584 + 12 * 198_195_200,
+                                  "12 of its 42 layers at full width, hd 256, softcap 50, 6 "
+                                  "with a window of 4096")}
+
+
+def train_cut(arch: str, keep: int):
+    """``arch`` at every published width with each segment of its program
+    (and of its encoder's) repeated at most ``keep`` times, so that every
+    kind of layer stays, named apart from the full model so that its plans
+    are its own."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    program = tuple((unit, min(reps, keep)) for unit, reps in full.program)
+    enc = ({"enc_program": tuple((unit, min(reps, keep)) for unit, reps in full.enc_program)}
+           if full.is_encoder_decoder else {})
+    layers = sum(len(unit) * reps for unit, reps in program)
+    return full.reduced(name=f"{arch}-cut{layers}", num_layers=layers, program=program, **enc)
+
+
+def gemma2_cut(pairs: int):
+    """gemma2-9b at every published width (d 3584, 16/8 heads of 256, the
+    GeGLU of 14,336, vocab 256,000, softcaps 50 and 30), cut to ``pairs``
+    of its (window, global) layer pairs and named apart from the full
+    model, so that its plans are its own."""
+    from repro_torch.configs import get_config
+
+    full = get_config("gemma2-9b")
+    (unit, _), = full.program
+    return full.reduced(name=f"gemma2-9b-cut{2 * pairs}", num_layers=2 * pairs,
+                        program=((unit, pairs),))
 
 
 def phase_train_full(B: int, S: int, steps: int, want: dict[str, int], extra=None,
-                     phase: str = "18c", what: str = "remat", arch: str = MAMBA):
-    """(18c, 19c, 20c) The full ``arch`` (every layer at every published
-    width, seed 0) through the training launcher's loop (``train.train``:
-    fp32 masters, bf16 compute, per-layer remat, chunked loss, AdamW) at
-    B``B`` S``S`` for ``steps`` steps, ``extra`` its keyword arguments:
-    finite losses, ms a step, tokens/s (an encoder-decoder's decoder tokens,
-    and its frames), the peak beside the state's arithmetic and under the
-    card's memory, and exact launch counts by variant.  -> (launch counts,
-    the ``TrainRun``, peak bytes, output)."""
+                     phase: str = "18c", what: str = "remat", arch: str = MAMBA, cfg=None):
+    """(18c, 19c, 20c, 21c, 21e) The full ``arch`` (every layer at every
+    published width, seed 0), or ``cfg`` (a cut named ``arch``), through the
+    training launcher's loop (``train.train``: fp32 masters, bf16 compute,
+    per-layer remat, chunked loss, AdamW) at B``B`` S``S`` for ``steps``
+    steps, ``extra`` its keyword arguments: finite losses, ms a step,
+    tokens/s (an encoder-decoder's decoder tokens, and its frames), the peak
+    beside the state's arithmetic and under the card's memory, and exact
+    launch counts by variant.  -> (launch counts, the ``TrainRun``, peak
+    bytes, output)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.models import build_model
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     want_n, layers = FULL_TRAIN[arch]
     n = sum(t.numel() for t in tree_leaves(build_model(cfg, "cpu").init_shapes(torch.float32)))
     require(n == want_n, f"{arch}: {n:,} parameters, want {want_n:,}")
@@ -3409,7 +3557,7 @@ def phase_train_full(B: int, S: int, steps: int, want: dict[str, int], extra=Non
 
 
 def phase_train_full_plan(B: int, S: int, steps: int, want: dict[str, int], plain,
-                          phase: str = "18d", arch: str = MAMBA):
+                          phase: str = "18d", arch: str = MAMBA, cfg=None):
     """(18d, 19d, 20d) ``train --arch <arch> --plan`` with the offload plan
     applied: the loss step that ``train.step_planner`` traces, planned under
     H100_SXM (its key the arch's, solved into PLAN_DIR), its w beside the
@@ -3426,7 +3574,7 @@ def phase_train_full_plan(B: int, S: int, steps: int, want: dict[str, int], plai
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.models import build_model
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     L = cfg.num_layers
     t0 = time.perf_counter()
     planner = train.step_planner(build_model(cfg, "cuda"), arch, B, S, False, str(PLAN_DIR))
@@ -3469,7 +3617,7 @@ def phase_train_full_plan(B: int, S: int, steps: int, want: dict[str, int], plai
     require(omega <= real, f"{phase}: w {omega} B exceeds the real peak {real} B")
     counts, run, peak, text = phase_train_full(
         B, S, steps, want, extra=dict(plan=True, hbm_limit_gb=gb, plan_cache=str(PLAN_DIR)),
-        phase=phase, what=f"remat, offloading {plan.offload_names}", arch=arch)
+        phase=phase, what=f"remat, offloading {plan.offload_names}", arch=arch, cfg=cfg)
     per_step = L * len(plan.offload_names) * B * S * cfg.d_model * 2
     print(f"[{phase}] the planned run against the plain one: losses "
           f"{'equal bit for bit' if run.losses == plain.losses else 'NOT equal'}; bytes a step "
@@ -3483,9 +3631,10 @@ def phase_train_full_plan(B: int, S: int, steps: int, want: dict[str, int], plai
     return counts
 
 
-# Phase 19: hymba-1.5b trained at every published width and full depth on one
-# card: 1,589,773,120 parameters, 25,436,369,920 B of fp32 state.  Its 29
-# window layers take the flash gradient with a window of 1024.
+# Phase 19: hymba-1.5b trained at every published width on one card (its 32
+# layers, 25,436,369,920 B of fp32 state, fit; since phase 21 the script
+# trains 9 of them, its 3 global and 6 of its 29 window layers).  The window
+# layers take the flash gradient with a window of 1024.
 HYMBA = "hymba-1.5b"
 
 
@@ -3526,10 +3675,10 @@ def phase_hymba_bwd_kernels():
     return cases, lse
 
 
-# Phase 20: whisper-large-v3 trained at every published width and full depth
-# on one card: 1,535,219,200 parameters, 24,563,507,200 B of fp32 state.  Its
-# 32 encoder layers and its 32 decoder layers' cross attentions take the
-# gradient of unmasked attention.
+# Phase 20: whisper-large-v3 trained at every published width on one card
+# (its 32 + 32 layers, 24,563,507,200 B of fp32 state, fit; since phase 21
+# the script trains 8 + 8).  Its encoder layers and its decoder layers'
+# cross attentions take the gradient of unmasked attention.
 WHISPER = "whisper-large-v3"
 
 
@@ -3570,6 +3719,68 @@ def phase_whisper_bwd_kernels():
     for c in cases + lse:
         require(c["ok"], f"{c['case']} disagrees with its plain version ({c['check']})")
     return cases, lse
+
+
+# Phase 21: gemma3-4b trained at every published width and full depth on one
+# card (3,880,099,328 parameters, 62,081,589,248 B of fp32 state), and
+# gemma2-9b cut to 12 of its 42 layers (its whole 147.87 GB of state does
+# not fit): 3,295,849,984 parameters, 52,733,599,744 B.  Both take the flash
+# gradient at head dim 256, gemma2's with its softcap of 50.
+GEMMA3, GEMMA2 = "gemma3-4b", "gemma2-9b"
+GEMMA2_PAIRS = 6
+GEMMA2_CAP = dict(softcap=50.0, scale=224.0**-0.5)
+
+
+def phase_gemma_bwd_kernels():
+    """(21a) The flash backward at head dim 256 and with the softcap against
+    its plain version: ``wgmma`` (bf16) at gemma3's layouts (B4 S2048 H8 KV4
+    causal, and with its window of 1024) and gemma2's (B1 S8192 H16 KV8,
+    softcap 50, scale 224^-0.5, causal and with its window of 4096), a
+    ragged length (S 1100, window 256), unmasked Sq > Sk with a softcap, the
+    softcap at hd 128 and at hd 64 with a window, and a cap that bites (a
+    cap of 2 on scores of several caps: the plain gradient without 1 - t^2
+    must move beyond ten times the tolerance), each bit for bit across two
+    calls with ``simt`` timed on the same inputs; ``simt`` (fp32) at hd 256,
+    causal, with a window and with the softcap; the forward with the LSE at
+    gemma2's window-and-softcap layout, the instantiation its training runs;
+    and the RMSNorm backward at the gemmas' training rows ([65536, 256]
+    gemma3's q-norm, [8192, 2560], gemma2's [8192, 3584]).  Each beside its
+    bound and SDPA's backward (band mask for a window; none computes a
+    softcap) or ``F.rms_norm``'s.  -> (the backward cases, the LSE case,
+    the RMSNorm cases)."""
+    gen = torch.Generator("cuda").manual_seed(21)
+    bf16, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    wg = dict(yardstick="simt")
+    cases = [
+        flash_bwd_case(4, 2048, 8, 4, 256, bf16, gen, "wgmma", **wg),               # gemma3 global
+        flash_bwd_case(4, 2048, 8, 4, 256, bf16, gen, "wgmma", window=1024, **wg),  # gemma3 window
+        flash_bwd_case(1, 8192, 16, 8, 256, bf16, gen, "wgmma", **wg, **GEMMA2_CAP),
+        flash_bwd_case(1, 8192, 16, 8, 256, bf16, gen, "wgmma", window=4096, **wg, **GEMMA2_CAP),
+        flash_bwd_case(1, 1100, 8, 4, 256, bf16, gen, "wgmma", window=256, **wg),    # ragged
+        flash_bwd_case(2, 700, 8, 2, 256, bf16, gen, "wgmma", causal=False, Sk=300, softcap=20.0,
+                       **wg),                                                        # Sq > Sk
+        flash_bwd_case(2, 512, 8, 2, 128, bf16, gen, "wgmma", softcap=30.0, **wg),
+        flash_bwd_case(2, 600, 8, 2, 64, bf16, gen, "wgmma", window=100, softcap=30.0, **wg),
+        flash_bwd_case(2, 512, 8, 4, 256, bf16, gen, "wgmma", softcap=2.0, q_gain=4.0, bite=True,
+                       **wg),                                                        # it bites
+        flash_bwd_case(1, 300, 8, 4, 256, f32, gen, "simt"),
+        flash_bwd_case(1, 300, 8, 4, 256, f32, gen, "simt", window=100),
+        flash_bwd_case(1, 300, 8, 4, 256, f32, gen, "simt", window=100, **GEMMA2_CAP),
+        flash_bwd_case(1, 200, 8, 2, 256, f32, gen, "simt", causal=False, Sk=90, softcap=20.0),
+    ]
+    lse = flash_lse_case(1, 8192, 16, 8, 256, bf16, gen, window=4096, **GEMMA2_CAP)
+    rms = [rmsnorm_bwd_case((65536, 256), bf16, gen, "vector"),  # gemma3's q-norm
+           rmsnorm_bwd_case((8192, 2560), bf16, gen, "vector"),  # gemma3's d
+           rmsnorm_bwd_case((8192, 3584), bf16, gen, "vector")]  # gemma2's d
+    print(f"[21a] the flash backward at head dim 256 and with the softcap, and the RMSNorm "
+          f"backward at the gemmas' rows, against their plain versions on the card "
+          f"({time.perf_counter() - t0:.1f}s):")
+    for c in cases + [lse] + rms:
+        print_case(c)
+    for c in cases + [lse] + rms:
+        require(c["ok"], f"{c['case']} disagrees with its plain version ({c['check']})")
+    return cases, lse, rms
 
 
 def mma_count(build, lib: str, ops: tuple[str, ...]) -> int:
@@ -3631,7 +3842,9 @@ def main() -> int:
         print(f"  {'/'.join(ops)} instructions in {_build.lib_path(lib).name}: {count}")
         require(count > 0, f"the {lib} library holds no {'/'.join(ops)} instruction")
 
+    t3 = time.perf_counter()
     cases = phase_kernels()
+    print(f"[3] kernels phase took {time.perf_counter() - t3:.1f}s")
     phase_parity("qwen3-4b", 256)
     phase_parity("mamba2-370m", 300)  # pads to 512: two chunks of 256, the second ragged
     t4 = time.perf_counter()
@@ -3734,9 +3947,12 @@ def main() -> int:
     steps = 5
     train_want = want((2 * 4 * 36 + 1) * steps, 2 * 36 * steps, 0, (4 * 36 + 1) * steps,
                       36 * steps)
+    t9 = time.perf_counter()
     paths["train qwen3-4b"], plain_losses, plain_peak, plain_ms, _ = phase_train(
         4, 512, steps, train_want)
     plain_prof = phase_train_profile(4, 512)
+    print(f"[9-10] train and profile took {time.perf_counter() - t9:.1f}s")
+    t11 = time.perf_counter()
 
     # Phase 11: the same training under AutoSwap's offload plan at half the
     # traced loss's w, which must launch every kernel as often as plain remat
@@ -3765,6 +3981,7 @@ def main() -> int:
           f"against {plain_prof['untraced_ms']:.1f} ms, compute busy {prof['compute_ms']:.2f} "
           f"against {plain_prof['compute_ms']:.2f} ms, copies {prof['copy_ms']:.3f} ms "
           f"({prof['overlap_ms']:.3f} beside compute) against {plain_prof['copy_ms']:.3f} ms")
+    print(f"[11] offload phase took {time.perf_counter() - t11:.1f}s")
 
     # Phase 12: the serving steps planned, restored and co-located with the
     # train step of phase 11's plan cache; serving with planning launches
@@ -3856,12 +4073,12 @@ def main() -> int:
     print(f"[17b] took {time.perf_counter() - t:.1f}s")
     print(f"[17] checkpoint phase took {time.perf_counter() - t17:.1f}s")
 
-    # Phase 18: mamba2-370m trained at full width.  A step under per-layer
-    # remat runs each layer's forward twice and the final norm once: the SSD
-    # forward 2 * 48 = 96 (`tc`: bf16, P 64 and N 128 in 16-byte rows of the
-    # conv output), RMSNorm forward 2 * 2 * 48 + 1 = 193 (ln1 at d 1024, the
-    # gated norm at d_inner 2048), and each backward once: the SSD 48 (`tc`,
-    # as the forward), RMSNorm 2 * 48 + 1 = 97, all `vector`; no flash.
+    # Phase 18: mamba2-370m trained at full width, L = 12 of its 48 layers.
+    # A step under per-layer remat runs each layer's forward twice and the
+    # final norm once: the SSD forward 2 L (`tc`: bf16, P 64 and N 128 in
+    # 16-byte rows of the conv output), RMSNorm forward 2 * 2 L + 1 (ln1 at d
+    # 1024, the gated norm at d_inner 2048), and each backward once: the SSD
+    # L (`tc`, as the forward), RMSNorm 2 L + 1, all `vector`; no flash.
     from repro_torch.configs import get_config
 
     t18 = time.perf_counter()
@@ -3870,27 +4087,29 @@ def main() -> int:
     # pads to 512: two of the config's chunks of 256, the second ragged
     phase_train_parity(MAMBA, 300, phase="18b")
     print(f"[18b] took {time.perf_counter() - t:.1f}s")
-    L = 48
+    mamba = train_cut(MAMBA, 12)
+    L = mamba.num_layers
     mamba_want = want((2 * 2 * L + 1) * steps, 0, 2 * L * steps, (2 * L + 1) * steps, 0,
                       L * steps)
     t = time.perf_counter()
-    paths[f"train {MAMBA}"], mamba_run, _, _ = phase_train_full(4, 2048, steps, mamba_want)
-    phase_train_profile(4, 2048, phase="18c", cfg=get_config(MAMBA))
+    paths[f"train {mamba.name}"], mamba_run, _, _ = phase_train_full(
+        4, 2048, steps, mamba_want, arch=mamba.name, cfg=mamba)
+    phase_train_profile(4, 2048, phase="18c", cfg=mamba)
     print(f"[18c] took {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    paths[f"train {MAMBA} (offload)"] = phase_train_full_plan(4, 2048, steps, mamba_want,
-                                                              mamba_run)
+    paths[f"train {mamba.name} (offload)"] = phase_train_full_plan(
+        4, 2048, steps, mamba_want, mamba_run, arch=mamba.name, cfg=mamba)
     print(f"[18d] took {time.perf_counter() - t:.1f}s")
     print(f"[18] mamba2 training phase took {time.perf_counter() - t18:.1f}s")
 
-    # Phase 19: hymba-1.5b trained at full width and depth.  A step under
-    # per-layer remat runs each layer's forward twice and the final norm
-    # once: RMSNorm forward 2 * 5 * 32 + 1 = 321 (ln1, the gated norm, the
+    # Phase 19: hymba-1.5b trained at full width, L = 9 of its 32 layers.  A
+    # step under per-layer remat runs each layer's forward twice and the
+    # final norm once: RMSNorm forward 2 * 5 L + 1 (ln1, the gated norm, the
     # two branch norms, ln2, at d 1600 and d_inner 3200), flash with the LSE
-    # 2 * 32 = 64 (`wgmma`: bf16 at hd 64; 29 of the 32 with the window of
-    # 1024), the SSD 2 * 32 = 64 (`tc`: bf16, P 64 and N 16 in 16-byte rows),
-    # and each backward once: RMSNorm 5 * 32 + 1 = 161 `vector`, flash 32
-    # `wgmma`, the SSD 32 `tc`.
+    # 2 L (`wgmma`: bf16 at hd 64; 6 of the 9 layers with the window of
+    # 1024), the SSD 2 L (`tc`: bf16, P 64 and N 16 in 16-byte rows), and
+    # each backward once: RMSNorm 5 L + 1 `vector`, flash L `wgmma`, the
+    # SSD L `tc`.
     t19 = time.perf_counter()
     cases["flash_window_bwd"], cases["flash_window_lse"] = phase_hymba_bwd_kernels()
     t = time.perf_counter()
@@ -3898,48 +4117,94 @@ def main() -> int:
     # global) at S 1100, past the window of 1024, which pads the SSD
     phase_train_parity(HYMBA, 1100, phase="19b")
     print(f"[19b] took {time.perf_counter() - t:.1f}s")
-    L = 32
+    hymba = train_cut(HYMBA, 3)
+    L = hymba.num_layers
     hymba_want = want((2 * 5 * L + 1) * steps, 2 * L * steps, 2 * L * steps,
                       (5 * L + 1) * steps, L * steps, L * steps)
     t = time.perf_counter()
-    paths[f"train {HYMBA}"], hymba_run, _, _ = phase_train_full(4, 2048, steps, hymba_want,
-                                                                phase="19c", arch=HYMBA)
-    phase_train_profile(4, 2048, phase="19c", cfg=get_config(HYMBA))
+    paths[f"train {hymba.name}"], hymba_run, _, _ = phase_train_full(
+        4, 2048, steps, hymba_want, phase="19c", arch=hymba.name, cfg=hymba)
+    phase_train_profile(4, 2048, phase="19c", cfg=hymba)
     print(f"[19c] took {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    paths[f"train {HYMBA} (offload)"] = phase_train_full_plan(4, 2048, steps, hymba_want,
-                                                              hymba_run, phase="19d", arch=HYMBA)
+    paths[f"train {hymba.name} (offload)"] = phase_train_full_plan(
+        4, 2048, steps, hymba_want, hymba_run, phase="19d", arch=hymba.name, cfg=hymba)
     print(f"[19d] took {time.perf_counter() - t:.1f}s")
     print(f"[19] hymba training phase took {time.perf_counter() - t19:.1f}s")
 
-    # Phase 20: whisper-large-v3 trained at full width and depth, B4 with the
-    # decoder's text context of 448 tokens over 1500 frames.  A step runs each
-    # of the 32 encoder layers once (no remat: flash with the LSE unmasked at
-    # S 1500) and each of the 32 decoder layers twice (its forward and its
-    # recompute: causal self attention and unmasked cross attention of 448
-    # queries against 1500 keys), so flash with the LSE 32 + 2 * 2 * 32 = 160
-    # `wgmma` (bf16 at hd 64), and each backward once: 32 unmasked, 32
-    # causal, 32 cross, 96 `wgmma`; no RMSNorm (every norm a LayerNorm) and
-    # no SSD.
+    # Phase 20: whisper-large-v3 trained at full width, L = 8 of its 32
+    # encoder and 8 of its 32 decoder layers, B4 with the decoder's text
+    # context of 448 tokens over 1500 frames.  A step runs each encoder layer
+    # once (no remat: flash with the LSE unmasked at S 1500) and each decoder
+    # layer twice (its forward and its recompute: causal self attention and
+    # unmasked cross attention of 448 queries against 1500 keys), so flash
+    # with the LSE L + 2 * 2 L = 5 L `wgmma` (bf16 at hd 64), and each
+    # backward once: L unmasked, L causal, L cross, 3 L `wgmma`; no RMSNorm
+    # (every norm a LayerNorm) and no SSD.
     t20 = time.perf_counter()
     cases["flash_unmasked_bwd"], cases["flash_unmasked_lse"] = phase_whisper_bwd_kernels()
     print(f"[20a] took {time.perf_counter() - t20:.1f}s")
     t = time.perf_counter()
     phase_train_parity(WHISPER, 300, phase="20b")
     print(f"[20b] took {time.perf_counter() - t:.1f}s")
-    L = 32
+    whisper = train_cut(WHISPER, 8)
+    L = whisper.num_layers
     whisper_want = want(0, 5 * L * steps, 0, 0, 3 * L * steps, 0)
     t = time.perf_counter()
-    paths[f"train {WHISPER}"], whisper_run, _, _ = phase_train_full(
-        4, 448, steps, whisper_want, phase="20c", arch=WHISPER)
-    phase_train_profile(4, 448, phase="20c", cfg=get_config(WHISPER))
+    paths[f"train {whisper.name}"], whisper_run, _, _ = phase_train_full(
+        4, 448, steps, whisper_want, phase="20c", arch=whisper.name, cfg=whisper)
+    phase_train_profile(4, 448, phase="20c", cfg=whisper)
     print(f"[20c] took {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    paths[f"train {WHISPER} (offload)"] = phase_train_full_plan(4, 448, steps, whisper_want,
-                                                                whisper_run, phase="20d",
-                                                                arch=WHISPER)
+    paths[f"train {whisper.name} (offload)"] = phase_train_full_plan(
+        4, 448, steps, whisper_want, whisper_run, phase="20d", arch=whisper.name, cfg=whisper)
     print(f"[20d] took {time.perf_counter() - t:.1f}s")
     print(f"[20] whisper training phase took {time.perf_counter() - t20:.1f}s")
+
+    # Phase 21: gemma3-4b trained at full width and depth, B4 S2048 (past its
+    # window of 1024), and the 12-layer gemma2-9b cut at B1 S8192 (its
+    # context, past its window of 4096).  A step under per-layer remat runs
+    # each layer's forward twice and the final norm once: gemma3 RMSNorm
+    # forward 2 * 6 * 34 + 1 = 409 (ln1, q-norm, k-norm, ln1_post, ln2,
+    # ln2_post), flash with the LSE 2 * 34 = 68 (58 with the window), and
+    # each backward once: RMSNorm 6 * 34 + 1 = 205, flash 34 (29 with the
+    # window); gemma2 RMSNorm 2 * 4 * 12 + 1 = 97 and 4 * 12 + 1 = 49 (no
+    # qk-norm), flash 24 and 12 (half with the window, all with the softcap).
+    # bf16 at hd 256 and rows of 256, 2560 and 3584: every flash launch
+    # `wgmma`, every RMSNorm one `vector`; no SSD.
+    t21 = time.perf_counter()
+    cases["flash_gemma_bwd"], cases["flash_gemma_lse"], cases["rmsnorm_gemma_bwd"] = \
+        phase_gemma_bwd_kernels()
+    print(f"[21a] took {time.perf_counter() - t21:.1f}s")
+    t = time.perf_counter()
+    # gemma3's last (window, global) pair at S 1100, past its window; gemma2's
+    # at S 300, where its window of 4096 masks nothing (21a holds that case)
+    phase_train_parity(GEMMA3, 1100, phase="21b", tail=2)
+    phase_train_parity(GEMMA2, 300, phase="21b", tail=2)
+    print(f"[21b] took {time.perf_counter() - t:.1f}s")
+    L = 34
+    gemma3_want = want((2 * 6 * L + 1) * steps, 2 * L * steps, 0, (6 * L + 1) * steps, L * steps)
+    t = time.perf_counter()
+    paths[f"train {GEMMA3}"], gemma3_run, _, _ = phase_train_full(
+        4, 2048, steps, gemma3_want, phase="21c", arch=GEMMA3)
+    phase_train_profile(4, 2048, phase="21c", cfg=get_config(GEMMA3))
+    print(f"[21c] took {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths[f"train {GEMMA3} (offload)"] = phase_train_full_plan(4, 2048, steps, gemma3_want,
+                                                               gemma3_run, phase="21d",
+                                                               arch=GEMMA3)
+    print(f"[21d] took {time.perf_counter() - t:.1f}s")
+    L = 2 * GEMMA2_PAIRS
+    cut2 = gemma2_cut(GEMMA2_PAIRS)
+    gemma2_want = want((2 * 4 * L + 1) * steps, 2 * L * steps, 0, (4 * L + 1) * steps,
+                       L * steps)
+    t = time.perf_counter()
+    paths[f"train {cut2.name}"], _, _, _ = phase_train_full(1, 8192, steps, gemma2_want,
+                                                            phase="21e", arch=cut2.name,
+                                                            cfg=cut2)
+    phase_train_profile(1, 8192, phase="21e", cfg=cut2)
+    print(f"[21e] took {time.perf_counter() - t:.1f}s")
+    print(f"[21] gemma training phase took {time.perf_counter() - t21:.1f}s")
 
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA
@@ -4008,7 +4273,24 @@ def main() -> int:
         flash.update({f"{key}_case": c["case"], f"{key}_ms": c["ms"],
                       f"{key}_plain_ms": c["plain_ms"], f"{key}_bound_ms": c["bound_ms"],
                       f"{key}_library_ms": c["library_ms"], f"{key}_max_abs_err": c["max_abs_err"]})
-    extra_cases = {"flash_attention_bwd": cases["flash_window_bwd"] + cases["flash_unmasked_bwd"]}
+    # The gemmas' training runs the backward at head dim 256: gemma3's global
+    # and window layouts, gemma2's with the softcap; and gemma2's forward
+    # with the LSE, the window and the softcap.
+    for key, c in zip(("gemma3_global", "gemma3_window", "gemma2_global", "gemma2_window"),
+                      cases["flash_gemma_bwd"]):
+        bwd.update({f"{key}_case": c["case"], f"{key}_ms": c["ms"],
+                    f"{key}_plain_ms": c["plain_ms"], f"{key}_bound_ms": c["bound_ms"],
+                    f"{key}_bound_by": c["bound_by"], f"{key}_library_ms": c["library_ms"],
+                    f"{key}_simt_ms": c["other"][1], f"{key}_max_abs_err": c["max_abs_err"]})
+    gl = cases["flash_gemma_lse"]
+    flash.update(gemma2_window_lse_case=gl["case"], gemma2_window_lse_ms=gl["ms"],
+                 gemma2_window_lse_plain_ms=gl["plain_ms"],
+                 gemma2_window_lse_bound_ms=gl["bound_ms"],
+                 gemma2_window_lse_library_ms=gl["library_ms"],
+                 gemma2_window_lse_max_abs_err=gl["max_abs_err"])
+    extra_cases = {"flash_attention_bwd": cases["flash_window_bwd"] + cases["flash_unmasked_bwd"]
+                   + cases["flash_gemma_bwd"],
+                   "rmsnorm_bwd": cases["rmsnorm_gemma_bwd"]}
     summary = [f"{k['name']} launches={k['launches']} "
                f"({', '.join(f'{p} {n}' for p, n in k['launches_by_path'].items())}) "
                f"parity=ok ({len(cases[k['name']]) + len(extra_cases.get(k['name'], []))} cases)"

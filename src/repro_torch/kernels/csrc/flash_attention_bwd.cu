@@ -1,11 +1,12 @@
 // Flash attention backward for Hopper (sm_90a): two variants, `mma` (bf16
-// at head dim 64 or 128, tensor cores) and `simt` (fp32, and bf16 at other
-// head dims up to 128, CUDA cores); the wrapper (kernels/flash_attention.py,
+// at head dim 64 or 128 without a softcap, tensor cores; routed nowhere,
+// kept as a yardstick) and `simt` (fp32, and bf16 at head dims other than
+// 64, 128 and 256, CUDA cores); the wrapper (kernels/flash_attention.py,
 // `bwd_variant`) routes by type, head dim and alignment.
 //
 // The gradient of the TPU kernel repro/kernels/flash_attention.py:99
 // `flash_attention` (causal, with or without a sliding window, or unmasked;
-// GQA; no softcap).  The TPU kernel has
+// GQA; with or without a tanh softcap).  The TPU kernel has
 // no backward: the reference trains through `mha_dense`
 // (repro/models/attention.py:157-182), which XLA differentiates; this is the
 // counterpart of that autodiff.  Given q [B,Sq,H,hd], k, v [B,Sk,KV,hd], the
@@ -17,7 +18,11 @@
 //   dV  = P^T dO,   dP = dO V^T,   dS = P (dP - D)
 //   dQ  = dS K * scale,   dK = dS^T Q * scale
 //
-// with every sum in fp32 and dq, dk, dv in q's type.  Query head h reads kv
+// with every sum in fp32 and dq, dk, dv in q's type.  With a softcap c the
+// forward caps the scaled scores as c t, t = tanh(s scale / c), so `simt`
+// recomputes P = exp(c t - lse) from the forward's own t and multiplies dS
+// by 1 - t^2 (a runtime argument: a branch on it costs the CUDA-core
+// kernels little beside their products).  Query head h reads kv
 // head h / (H / KV), so dK and dV of a kv head sum over the G = H / KV query
 // heads of its group.  Causal (`causal` 1), keys are visible to row i when
 // i >= key (top-left aligned when Sq != Sk) and, with a window W > 0, i -
@@ -58,12 +63,14 @@
 // steps, and wgmma.
 //
 // `simt` (the first design; fp32 keeps IEEE products): blocks of 256
-// threads, tiles of 64 rows and 64 keys staged as fp32, each thread a 4 x 4
+// threads, tiles of 64 rows and 64 keys staged as fp32 up to head dim 128
+// and of 32 above (the forward's `simt` tiles), each thread a 4 x 4 (2 x 2)
 // micro-tile of S and dP with CUDA-core FMAs, P and dS through shared
 // memory, dK/dV or dQ accumulated in registers.  Rows are padded by one
 // float so that the column walks hit distinct banks.  Shared memory at hd
-// 128: 166 KB (dK/dV), 149 KB (dQ).  Each launcher raises its kernels'
-// shared-memory limit above the 48 KB default.
+// 128: 166 KB (dK/dV), 149 KB (dQ); at hd 256 with 32-row tiles 140 KB and
+// 136 KB.  Each launcher raises its kernels' shared-memory limit above the
+// 48 KB default.
 
 #include <math.h>
 #include <stdint.h>
@@ -73,10 +80,9 @@
 namespace {
 
 constexpr int NT = 256;  // threads a block
-constexpr int BQ = 64;   // q rows a tile
-constexpr int BK = 64;   // keys a tile
-constexpr int RI = BQ / 16;  // score rows a thread owns
-constexpr int CJ = BK / 16;  // score columns (keys) a thread owns
+// `simt` tiles: BT q rows by BT keys, 64 up to head dim 128 and 32 above
+// (as the forward's `simt` kernel), each thread a BT / 16 x BT / 16
+// micro-tile of S and dP.
 
 template <typename T>
 __global__ void __launch_bounds__(NT) flash_bwd_dot_kernel(const T* __restrict__ o,
@@ -109,8 +115,10 @@ __device__ __forceinline__ void stage(float* dst, const T* g, long long step, in
   }
 }
 
-// This thread's 4 x 4 micro-tiles of S = A B^T and dP = C E^T over hd, rows
-// ty + 16 i of A and C, rows tx + 16 j of B and E (all with row stride ld).
+// This thread's RI x CJ micro-tiles of S = A B^T and dP = C E^T over hd,
+// rows ty + 16 i of A and C, rows tx + 16 j of B and E (all with row stride
+// ld).
+template <int RI, int CJ>
 __device__ __forceinline__ void two_products(const float* A, const float* Bm, const float* C,
                                              const float* E, int hd, int ld, int tx, int ty,
                                              float (&s)[RI][CJ], float (&dp)[RI][CJ]) {
@@ -140,16 +148,32 @@ __device__ __forceinline__ void two_products(const float* A, const float* Bm, co
   }
 }
 
-size_t dkdv_smem(int hd) {
-  return sizeof(float) * (4 * (size_t)BK * (hd + 1) + 2 * (size_t)BQ * (BK + 1) + 2 * BQ);
+size_t dkdv_smem(int hd, int bt) {
+  return sizeof(float) * (4 * (size_t)bt * (hd + 1) + 2 * (size_t)bt * (bt + 1) + 2 * bt);
 }
 
-template <typename T, int HDMAX>
+// P = exp(s scale - lse) of a live pair (0 masked) and, with a softcap c,
+// P = exp(c t - lse), t = tanh(s scale / c) as the forward computes it, with
+// `slope` = 1 - t^2 (else 1): dS = P (dP - D) slope.
+__device__ __forceinline__ float recompute_p(float s, float scale, float softcap, float lse,
+                                             bool live, float& slope) {
+  slope = 1.f;
+  if (!live) return 0.f;
+  if (softcap > 0.f) {
+    const float th = tanhf(s * scale / softcap);
+    slope = fmaf(-th, th, 1.f);
+    return expf(__fmul_rn(softcap, th) - lse);
+  }
+  return expf(s * scale - lse);
+}
+
+template <typename T, int HDMAX, int BT>
 __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int KV, int hd, int causal,
-    int window, float scale) {
+    int window, float scale, float softcap) {
+  constexpr int BQ = BT, BK = BT, RI = BQ / 16, CJ = BK / 16;
   constexpr int DJ = HDMAX / 16;  // head-dim columns a thread owns
   extern __shared__ float smem[];
   const int ld = hd + 1;
@@ -204,9 +228,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
           const int qp = q0 + r, kp = k0 + c;
           const bool live = qp < Sq && kp < Sk && (!causal || qp >= kp) &&
                             (window <= 0 || qp - kp < window);
-          const float p = live ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+          float slope;
+          const float p = recompute_p(s[i][j], scale, softcap, lse_s[r], live, slope);
           Ps[r * (BK + 1) + c] = p;
-          dSs[r * (BK + 1) + c] = p * (dp[i][j] - dl_s[r]);
+          dSs[r * (BK + 1) + c] = p * (dp[i][j] - dl_s[r]) * slope;
         }
       __syncthreads();
 
@@ -247,17 +272,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
   }
 }
 
-size_t dq_smem(int hd) {
-  return sizeof(float) * (2 * (size_t)BQ * (hd + 1) + 2 * (size_t)BK * (hd + 1) +
-                          (size_t)BQ * (BK + 1) + 2 * BQ);
+size_t dq_smem(int hd, int bt) {
+  return sizeof(float) * (4 * (size_t)bt * (hd + 1) + (size_t)bt * (bt + 1) + 2 * bt);
 }
 
-template <typename T, int HDMAX>
+template <typename T, int HDMAX, int BT>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dq, int Sq, int Sk, int H, int KV, int hd, int causal, int window,
-    float scale) {
+    float scale, float softcap) {
+  constexpr int BQ = BT, BK = BT, RI = BQ / 16, CJ = BK / 16;
   constexpr int DJ = HDMAX / 16;
   extern __shared__ float smem[];
   const int ld = hd + 1;
@@ -310,8 +335,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
         const int qp = q0 + r, kp = k0 + c;
         const bool live = qp < Sq && kp < Sk && (!causal || qp >= kp) &&
                           (window <= 0 || qp - kp < window);
-        const float p = live ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dSs[r * (BK + 1) + c] = p * (dp[i][j] - dl_s[r]);
+        float slope;
+        const float p = recompute_p(s[i][j], scale, softcap, lse_s[r], live, slope);
+        dSs[r * (BK + 1) + c] = p * (dp[i][j] - dl_s[r]) * slope;
       }
     __syncthreads();
 
@@ -338,11 +364,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   }
 }
 
-template <typename T, int HDMAX>
+template <typename T, int HDMAX, int BT>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int Sq,
                    int Sk, int H, int KV, int hd, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   float softcap, cudaStream_t stream) {
   const long long rows = (long long)B * Sq * H;
   flash_bwd_dot_kernel<T><<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta), Sq, H,
@@ -350,40 +376,46 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dkdv = flash_bwd_dkdv_kernel<T, HDMAX>;
-  const size_t s1 = dkdv_smem(hd);
+  auto dkdv = flash_bwd_dkdv_kernel<T, HDMAX, BT>;
+  const size_t s1 = dkdv_smem(hd, BT);
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3((Sk + BK - 1) / BK, KV, B), NT, s1, stream>>>(
+  dkdv<<<dim3((Sk + BT - 1) / BT, KV, B), NT, s1, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KV,
-      hd, causal, window, scale);
+      hd, causal, window, scale, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dqk = flash_bwd_dq_kernel<T, HDMAX>;
-  const size_t s2 = dq_smem(hd);
+  auto dqk = flash_bwd_dq_kernel<T, HDMAX, BT>;
+  const size_t s2 = dq_smem(hd, BT);
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
   if (err != cudaSuccess) return err;
-  dqk<<<dim3((Sq + BQ - 1) / BQ, H, B), NT, s2, stream>>>(
+  dqk<<<dim3((Sq + BT - 1) / BT, H, B), NT, s2, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, H, KV, hd, causal, window,
-      scale);
+      scale, softcap);
   return cudaGetLastError();
 }
 
+// Tiles of 64 up to head dim 128; above, 32, whose fp32 K, V, Q and dO
+// rows of 257 floats and P and dS of 32 x 33 take 140 KB (64-row tiles
+// would take about 296 KB).
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv,
                      int B, int Sq, int Sk, int H, int KV, int hd, int causal, int window,
-                     float scale, cudaStream_t stream) {
+                     float scale, float softcap, cudaStream_t stream) {
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd, causal,
-                         window, scale, stream);
-  return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd, causal,
-                        window, scale, stream);
+    return launch<T, 64, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd,
+                             causal, window, scale, softcap, stream);
+  if (hd <= 128)
+    return launch<T, 128, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd,
+                              causal, window, scale, softcap, stream);
+  return launch<T, 256, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd,
+                            causal, window, scale, softcap, stream);
 }
 
 // ------------------------------------------------------------------- mma
@@ -750,19 +782,19 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 
 // The `mma` variant of flash_attention_bwd: the same arguments, bf16 only,
-// hd 64 or 128, every tensor pointer 16-byte aligned.
+// hd 64 or 128, no softcap (0), every tensor pointer 16-byte aligned.
 extern "C" int flash_attention_bwd_mma(int dtype, const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
                                        void* delta, void* dq, void* dk, void* dv, int B, int Sq,
                                        int Sk, int H, int KV, int hd, int causal, int window,
-                                       float scale, void* stream) {
+                                       float scale, float softcap, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
                           reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
                           reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
   if (dtype != kBFloat16 || B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV ||
       H > 65535 || B > 65535 || KV > 65535 || window < 0 || (!causal && window > 0) ||
-      (align & 15))
+      softcap != 0.f || (align & 15))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
@@ -780,25 +812,27 @@ extern "C" int flash_attention_bwd_mma(int dtype, const void* q, const void* k, 
 // Attention's gradient (the `simt` variant).  q, o, dout, dq: [B, Sq, H,
 // hd]; k, v, dk, dv: [B, Sk, KV, hd]; all contiguous, of `dtype`
 // (DTypeCode).  lse: [B, H, Sq] fp32 from the forward; delta: [B, H, Sq]
-// fp32 scratch.  hd a multiple of 16 up to 128; causal 1 (top-left aligned)
+// fp32 scratch.  hd a multiple of 16 up to 256; causal 1 (top-left aligned)
 // or 0 (unmasked); window the sliding window's width, 0 for none (causal
-// only).  Returns the cudaError_t of the launches (0 on success).
+// only); softcap the tanh cap of the scaled scores, 0 for none.  Returns
+// the cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse, void* delta,
                                    void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
                                    int KV, int hd, int causal, int window, float scale,
-                                   void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV || hd < 16 || hd > 128 || hd % 16 ||
-      H > 65535 || B > 65535 || KV > 65535 || window < 0 || (!causal && window > 0))
+                                   float softcap, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV || hd < 16 || hd > 256 || hd % 16 ||
+      H > 65535 || B > 65535 || KV > 65535 || window < 0 || (!causal && window > 0) ||
+      !(softcap >= 0.f))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
       return dispatch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, hd,
-                             causal, window, scale, s);
+                             causal, window, scale, softcap, s);
     case kBFloat16:
       return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV,
-                                     hd, causal, window, scale, s);
+                                     hd, causal, window, scale, softcap, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,5 +1,5 @@
-// Flash attention backward for Hopper (sm_90a) on wgmma: bf16, head dim 64
-// or 128.  The `wgmma` variant of flash_attention_bwd; the wrapper
+// Flash attention backward for Hopper (sm_90a) on wgmma: bf16, head dim 64,
+// 128 or 256.  The `wgmma` variant of flash_attention_bwd; the wrapper
 // (kernels/flash_attention.py, `bwd_variant`) routes bf16 at those head dims
 // with 16-byte aligned tensors here, and fp32 and the rest to the `simt`
 // variant of flash_attention_bwd.cu.  That file's `mma` variant (mma.sync)
@@ -7,10 +7,10 @@
 //
 // The gradient of the TPU kernel repro/kernels/flash_attention.py:99
 // `flash_attention` (causal, with or without a sliding window, or unmasked;
-// GQA; no softcap), which the reference takes by XLA autodiff of `mha_dense`
-// and `_sdpa` (repro/models/attention.py:157-182).  Given q [B,Sq,H,hd], k, v
-// [B,Sk,KV,hd], the forward's output o and its log-sum-exp lse [B,H,Sq], and
-// dO, with P = exp(q k^T * scale - lse) (0 where masked; causal, row i sees
+// GQA; with or without a tanh softcap), which the reference takes by XLA
+// autodiff of `mha_dense` and `_sdpa` (repro/models/attention.py:157-182).
+// Given q [B,Sq,H,hd], k, v [B,Sk,KV,hd], the forward's output o and its
+// log-sum-exp lse [B,H,Sq], and dO, with P = exp(q k^T * scale - lse) (0 where masked; causal, row i sees
 // keys k <= i, top-left aligned, and with a window W > 0 only those with
 // i - k < W, the reference's `_causal_window_mask`; unmasked, every key, at
 // any Sq and Sk: whisper's encoder and its cross attention):
@@ -25,6 +25,14 @@
 // LSE and dS is formed from the unrounded P.  dK and dV of a kv head sum
 // over the G = H / KV query heads of its group.
 //
+// With a softcap c (gemma2: 50) the forward caps the scaled scores as c t,
+// t = tanh(scale q.k / c) (the reference's `_softcap`), so P = exp(c t -
+// lse) and dS = P (dP - D) (1 - t^2).  t comes from the same tanhf of the
+// same argument as in the forward kernel, so the recomputed P agrees with
+// the forward's LSE.  The softcap is a template flag (SOFTCAP) beside its
+// runtime value, as the window is, so that the kernels without it carry
+// none of its arithmetic.
+//
 // Bound on the H100: at qwen3-4b's training shape, B4 S512 H32 KV8 hd128
 // causal, 5 products of 2 hd flops for each live (q, k) pair, 21.5 GFLOP
 // (21.8 us at 989 TFLOP/s), and 84 MB moved (25.1 us at 3.35 TB/s): bytes,
@@ -32,7 +40,11 @@
 // 1024, 1,573,376 live pairs a head, 100.7 GFLOP (101.8 us), and about 128
 // MB (38 us): operations.  At whisper-large-v3's encoder, B4 S1500 H20 hd64
 // unmasked, 115.2 GFLOP (116.5 us); its cross attention, 448 queries against
-// 1500 keys, 34.4 GFLOP (34.8 us): operations.
+// 1500 keys, 34.4 GFLOP (34.8 us): operations.  At hd 256 a pair costs
+// twice as much: gemma3-4b's B4 S2048 H8 KV4 causal, 171.9 GFLOP (173.8 us),
+// 128.9 (130.3 us) with its window of 1024; gemma2-9b's B1 S8192 H16 KV8
+// (softcap 50), 1,374.6 GFLOP (1.390 ms), 1,030.9 (1.042 ms) with its window
+// of 4096: operations.
 //
 // The window only narrows the tile ranges: a key tile [k0, k0 + 64) is seen
 // by q rows up to k0 + 63 + W - 1, so the dK/dV block stops its q tiles
@@ -104,12 +116,33 @@
 // Shared memory at hd 128: dK/dV K 16 KB + V 16 KB + 2 warpgroups x 2
 // stages x (Q 16 KB + dO 16 KB + LSE and D 1 KB) = 164 KB, one block an
 // SM; dQ Q 16 KB + dO 16 KB + 2 x (K 16 KB + V 16 KB) = 96 KB, two blocks
-// an SM.  Registers a thread at hd 128 (dK/dV): dK and dV 64 fp32 each, S^T
+// an SM.
+//
+// Head dim 256.  The dK/dV design above does not carry over: its rings
+// would need K 32 + V 32 + 2 x 2 x (Q 32 + dO 32 + 1) KB = 324 KB of the
+// 227 KB a block can have, and a warpgroup summing all 256 columns of dK
+// and dV would hold 128 + 128 fp32 registers a thread before S^T and dP^T.
+// So at hd 256 (SPLIT) both warpgroups take every step, the same 64-row q
+// tile, from one ring under the block's barrier: K 32 + V 32 + 2 x (Q 32 +
+// dO 32 + 1) KB = 195 KB.  Each sums one 128-column half of dK and dV (its
+// B operands start at panel 2 wg of dO and Q), 64 + 64 registers a thread
+// beside S^T and dP^T at 32 each, the hd-128 kernel's budget, and writes it
+// itself, so no reduction through shared memory is left.  Each forms S^T
+// and dP^T over all 256 columns for itself, so those two products are done
+// twice (7 of the kernel's 9 products a pair, against 5 for the function):
+// forming them once and handing P^T and dS^T to the other warpgroup through
+// shared memory would need 32 KB more than the ring leaves and a block
+// barrier between the two products of every step.  The dQ kernel keeps its
+// shape: Q 32 + dO 32 + 2 x (K 32 + V 32) KB = 192 KB, one block an SM,
+// dQ 128 fp32 registers a thread beside S and dP, and dQ += dS K as two
+// m64n128k16 products a 16-key step, one on each half of K's columns.  Registers a thread at hd 128 (dK/dV): dK and dV 64 fp32 each, S^T
 // and dP^T 32 each; the bf16 P^T and dS^T fragments (16 each) replace S^T
 // and dP^T as they are formed.  ptxas for sm_90a at -O3 (chip_smoke.py's
 // phase 2 prints it): dK/dV 254 registers at hd 128 and 194 at hd 64, dQ
 // 183 and 138 (with the window: 255, 191, 184, 133; unmasked: 253, 192, 186,
-// 128), the prepass 32, none spilling.
+// 128; with the softcap 251-254, 189-194, 188-190, 140-142), the prepass
+// 32, none spilling.  At hd 256 dK/dV takes 248-254 registers and spills
+// nothing; dQ takes 255 and spills 56-80 bytes (the most with the softcap).
 //
 // What bounds it (a probe timing copies of this file without the streamed
 // loads and/or the exponentials; PERF.md): at the training shape the
@@ -159,15 +192,20 @@ __device__ __forceinline__ uint64_t nmajor(uint32_t tile, int t) {
   return sw128_desc(tile + t * 16 * 128, PANEL, 1024);
 }
 
-// acc[64 x HD] += A[64 x 16] B[16 x HD], B the N-major rows 16 t.. of `tile`.
+// acc[64 x HD] += A[64 x 16] B[16 x HD], B the N-major rows 16 t.. of `tile`
+// (at hd 256 two m64n128k16 products, on its panels 0-1 and 2-3).
 template <int HD>
 __device__ __forceinline__ void wgmma_rs(float (&acc)[HD / 2], const uint32_t (&frag)[16], int t,
                                          uint32_t tile) {
   const uint32_t a[4] = {frag[4 * t], frag[4 * t + 1], frag[4 * t + 2], frag[4 * t + 3]};
-  if constexpr (HD == 64)
+  if constexpr (HD == 64) {
     wgmma_rs_n64(acc, a, nmajor(tile, t));
-  else
+  } else if constexpr (HD == 128) {
     wgmma_rs_n128(acc, a, nmajor(tile, t));
+  } else {
+    wgmma_rs_n128<0>(acc, a, nmajor(tile, t));
+    wgmma_rs_n128<64>(acc, a, nmajor(tile + 2 * PANEL, t));
+  }
 }
 
 // S (+)= A B^T over hd for 64-row tiles A and B, both K-major.
@@ -242,34 +280,45 @@ template <int HD>
 __host__ __device__ constexpr uint32_t dkdv_stage_bytes() {
   return 2 * tile_bytes<HD>() + 1024;
 }
+// K, V, the rings (one a warpgroup up to hd 128, one shared above), alignment.
 template <int HD>
-constexpr size_t dkdv_smem() {  // K, V, each warpgroup's ring, alignment
-  return 2 * tile_bytes<HD>() + 2 * 2 * dkdv_stage_bytes<HD>() + 1024;
+constexpr size_t dkdv_smem() {
+  return 2 * tile_bytes<HD>() + (HD > 128 ? 1 : 2) * 2 * dkdv_stage_bytes<HD>() + 1024;
 }
 template <int HD>
 constexpr size_t dq_smem() {
   return 2 * tile_bytes<HD>() + 2 * 2 * tile_bytes<HD>() + 1024;  // Q, dO, the K/V ring, alignment
 }
+static_assert(dkdv_smem<256>() <= 232448 && dq_smem<256>() <= 232448,
+              "the hd-256 tiles exceed a block's shared memory");
 
 // dK and dV of 64 keys (tile blockIdx.z) of kv head blockIdx.x, batch
-// blockIdx.y, summed over its group's query heads.  The steps (query head,
-// q tile) are dealt to the two warpgroups in turn; each runs its own ring
-// and barrier, and at the end warpgroup 1 hands its sums to warpgroup 0
-// through shared memory.
-template <int HD, bool CAUSAL, bool WIN>
+// blockIdx.y, summed over its group's query heads.  Up to hd 128 the steps
+// (query head, q tile) are dealt to the two warpgroups in turn; each runs
+// its own ring and barrier over all HD columns, and at the end warpgroup 1
+// hands its sums to warpgroup 0 through shared memory.  Above (SPLIT, hd
+// 256) both warpgroups take every step from one ring under the block's
+// barrier, each forming S^T and dP^T itself and summing its own CW = 128
+// columns of dK and dV, which it writes.
+template <int HD, bool CAUSAL, bool WIN, bool SOFTCAP>
 __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
-    int Sk, int H, int KV, int window, float scale) {
+    int Sk, int H, int KV, int window, float scale, float softcap) {
+  constexpr bool SPLIT = HD > 128;
+  constexpr int CW = SPLIT ? HD / 2 : HD;  // columns of dK and dV a warpgroup sums
   constexpr uint32_t TILE = tile_bytes<HD>(), STAGE = dkdv_stage_bytes<HD>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sK = (raw + 1023) & ~1023u;
   const uint32_t sV = sK + TILE;
   const int tid = threadIdx.x, wg = tid / WG, wtid = tid % WG, warp = wtid / 32, lane = tid % 32;
-  // This warpgroup's ring: stage s at ring + s * STAGE holds Q, dO, LSE, D.
-  const uint32_t ring = sV + TILE + wg * 2 * STAGE;
+  // This warpgroup's ring (SPLIT: the block's): stage s at ring + s * STAGE
+  // holds Q, dO, LSE, D.
+  const uint32_t ring = sV + TILE + (SPLIT ? 0 : wg * 2 * STAGE);
+  // This warpgroup's columns of dK and dV: the B operands' panels from here.
+  const uint32_t cols = SPLIT ? wg * 2 * PANEL : 0;
 
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int k0 = blockIdx.z * TR;  // key tile 0, seen by the most q tiles, launches first
@@ -283,32 +332,41 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
   const int q_end = WIN ? min(Sq, k0 + TR - 1 + window) : Sq;
   const int n_q = q_end > q_begin ? (q_end - q_begin + TR - 1) / TR : 0;
   const int n_steps = hs * n_q;
-  const int my_steps = (n_steps - wg + 1) / 2;  // this warpgroup's: j = wg, wg + 2, ...
+  // This warpgroup's steps: j = wg, wg + 2, ... (SPLIT: every one).
+  const int my_steps = SPLIT ? n_steps : (n_steps - wg + 1) / 2;
 
-  // Step j: query head h0 + j / n_q, q rows from q_begin + (j % n_q) 64.
+  // Step j: query head h0 + j / n_q, q rows from q_begin + (j % n_q) 64,
+  // loaded by the warpgroup that takes it (SPLIT: by the block).
   auto load_step = [&](int j, uint32_t st) {
     const int h = h0 + j / n_q, q0 = q_begin + (j % n_q) * TR;
     const long long off = ((long long)b * Sq * H + h) * HD + (long long)q0 * q_stride;
-    load_tile<HD, WG>(st, q + off, q_stride, Sq - q0, wtid);
-    load_tile<HD, WG>(st + TILE, dout + off, q_stride, Sq - q0, wtid);
-    const int r = wtid % TR;
-    const float* row = (wtid < TR ? lse : delta) + ((long long)b * H + h) * Sq + q0;
-    const bool in = q0 + r < Sq;
-    cp_async4(st + 2 * TILE + wtid * 4, in ? row + r : row, in ? 4 : 0);
+    if constexpr (SPLIT) {
+      load_tile<HD, NT2>(st, q + off, q_stride, Sq - q0, tid);
+      load_tile<HD, NT2>(st + TILE, dout + off, q_stride, Sq - q0, tid);
+    } else {
+      load_tile<HD, WG>(st, q + off, q_stride, Sq - q0, wtid);
+      load_tile<HD, WG>(st + TILE, dout + off, q_stride, Sq - q0, wtid);
+    }
+    if (!SPLIT || wg == 0) {  // the LSE and D rows, a float a thread
+      const int r = wtid % TR;
+      const float* row = (wtid < TR ? lse : delta) + ((long long)b * H + h) * Sq + q0;
+      const bool in = q0 + r < Sq;
+      cp_async4(st + 2 * TILE + wtid * 4, in ? row + r : row, in ? 4 : 0);
+    }
   };
 
   // This thread's accumulator rows (keys) row0 and row0 + 8, columns 8 i + cq, + 1.
   const int row0 = 16 * warp + lane / 4, cq = 2 * (lane % 4);
   const int kp0 = k0 + row0, kp1 = kp0 + 8;
-  float dk_acc[HD / 2], dv_acc[HD / 2];
+  float dk_acc[CW / 2], dv_acc[CW / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < CW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   if (n_steps > 0) {
     load_tile<HD, NT2>(sK, k + kv_off, kv_stride, Sk - k0, tid);
     load_tile<HD, NT2>(sV, v + kv_off, kv_stride, Sk - k0, tid);
   }
-  if (my_steps > 0) load_step(wg, ring);
+  if (my_steps > 0) load_step(SPLIT ? 0 : wg, ring);
   cp_async_commit();
   cp_async_wait<0>();
   fence_proxy_async();
@@ -316,15 +374,20 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
 
   const float sl2 = scale * LOG2E;
   for (int t = 0; t < my_steps; ++t) {
-    const int j = wg + 2 * t;
+    const int j = SPLIT ? t : wg + 2 * t;
     const uint32_t st = ring + (t & 1) * STAGE;
     const int q0 = q_begin + (j % n_q) * TR;
     if (t > 0) {
       cp_async_wait<0>();  // step j has landed (this thread's copies)
       fence_proxy_async();
-      warpgroup_barrier(1 + wg);  // ... and the warpgroup's, which is done with step j - 2
+      // ... and every copier's, and the ring's readers are done with the
+      // step before (the warpgroup's, SPLIT the block's)
+      if constexpr (SPLIT)
+        __syncthreads();
+      else
+        warpgroup_barrier(1 + wg);
     }
-    if (t + 1 < my_steps) load_step(j + 2, ring + ((t + 1) & 1) * STAGE);
+    if (t + 1 < my_steps) load_step(SPLIT ? j + 1 : j + 2, ring + ((t + 1) & 1) * STAGE);
     cp_async_commit();
 
     // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 q rows each.
@@ -354,7 +417,15 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float l = (e & 1) ? l2.y : l2.x, d = (e & 1) ? d2.y : d2.x;
-        float x = fast_exp2(fmaf(s[4 * i + e], sl2, -l * LOG2E));
+        float x;
+        [[maybe_unused]] float slope;  // the softcap's 1 - t^2
+        if constexpr (SOFTCAP) {
+          const float th = tanhf(s[4 * i + e] * scale / softcap);  // the forward's t
+          x = fast_exp2(fmaf(th, softcap * LOG2E, -l * LOG2E));
+          slope = fmaf(-th, th, 1.f);
+        } else {
+          x = fast_exp2(fmaf(s[4 * i + e], sl2, -l * LOG2E));
+        }
         if (edge) {
           const int qp = q0 + c + (e & 1), kp = e < 2 ? kp0 : kp1;
           if constexpr (CAUSAL) {
@@ -364,7 +435,10 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
           }
         }
         p[e] = x;
-        ds[e] = x * (dp[4 * i + e] - d);
+        if constexpr (SOFTCAP)
+          ds[e] = x * (dp[4 * i + e] - d) * slope;
+        else
+          ds[e] = x * (dp[4 * i + e] - d);
       }
       pa[2 * i] = pack(p[0], p[1]);
       pa[2 * i + 1] = pack(p[2], p[3]);
@@ -372,12 +446,13 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
       sa[2 * i + 1] = pack(ds[2], ds[3]);
     }
 
-    // dV += P^T dO and dK += dS^T Q, dO and Q the N-major B operand.
+    // dV += P^T dO and dK += dS^T Q over this warpgroup's columns, dO and Q
+    // the N-major B operand.
     wgmma_fence();
 #pragma unroll
     for (int kt = 0; kt < TR / 16; ++kt) {
-      wgmma_rs<HD>(dv_acc, pa, kt, st + TILE);
-      wgmma_rs<HD>(dk_acc, sa, kt, st);
+      wgmma_rs<CW>(dv_acc, pa, kt, st + TILE + cols);
+      wgmma_rs<CW>(dk_acc, sa, kt, st + cols);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -388,33 +463,36 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
   }
   cp_async_wait<0>();
 
-  // Warpgroup 1's sums to warpgroup 0 through the rings' memory, each
-  // thread's values at a stride of 128 floats (no bank conflicts); then
-  // warpgroup 0 adds them to its own, in this fixed order.
-  float* red = reinterpret_cast<float*>(smem_raw + (sV + TILE - raw));
-  __syncthreads();  // every warpgroup is done with its ring
-  if (wg == 1) {
+  if constexpr (!SPLIT) {
+    // Warpgroup 1's sums to warpgroup 0 through the rings' memory, each
+    // thread's values at a stride of 128 floats (no bank conflicts); then
+    // warpgroup 0 adds them to its own, in this fixed order.
+    float* red = reinterpret_cast<float*>(smem_raw + (sV + TILE - raw));
+    __syncthreads();  // every warpgroup is done with its ring
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) {
+        red[i * WG + wtid] = dk_acc[i];
+        red[(HD / 2 + i) * WG + wtid] = dv_acc[i];
+      }
+    }
+    __syncthreads();
+    if (wg == 1) return;
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) {
-      red[i * WG + wtid] = dk_acc[i];
-      red[(HD / 2 + i) * WG + wtid] = dv_acc[i];
+      dk_acc[i] += red[i * WG + wtid];
+      dv_acc[i] += red[(HD / 2 + i) * WG + wtid];
     }
-  }
-  __syncthreads();
-  if (wg == 1) return;
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) {
-    dk_acc[i] += red[i * WG + wtid];
-    dv_acc[i] += red[(HD / 2 + i) * WG + wtid];
   }
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int kp = half ? kp1 : kp0;
     if (kp >= Sk) continue;
-    const long long row = ((long long)b * Sk + kp) * kv_stride + (long long)kvh * HD;
+    const long long row =
+        ((long long)b * Sk + kp) * kv_stride + (long long)kvh * HD + (SPLIT ? wg * CW : 0);
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
+    for (int i = 0; i < CW / 8; ++i) {
       const int col = 8 * i + cq, e = 4 * i + 2 * half;
       *reinterpret_cast<uint32_t*>(dk + row + col) =
           pack(dk_acc[e] * scale, dk_acc[e + 1] * scale);
@@ -425,12 +503,12 @@ __global__ void __launch_bounds__(NT2, 1) flash_bwd_dkdv_wgmma_kernel(
 
 // dQ of 64 q rows (tile gridDim.z - 1 - blockIdx.z) of head blockIdx.x,
 // batch blockIdx.y.
-template <int HD, bool CAUSAL, bool WIN>
+template <int HD, bool CAUSAL, bool WIN, bool SOFTCAP>
 __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Sk, int H, int KV,
-    int window, float scale) {
+    int window, float scale, float softcap) {
   constexpr uint32_t TILE = tile_bytes<HD>(), STAGE = 2 * TILE;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -501,7 +579,15 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = fast_exp2(fmaf(s[4 * i + e], sl2, -(e < 2 ? l0 : l1)));
+        float x;
+        [[maybe_unused]] float slope;  // the softcap's 1 - t^2
+        if constexpr (SOFTCAP) {
+          const float th = tanhf(s[4 * i + e] * scale / softcap);  // the forward's t
+          x = fast_exp2(fmaf(th, softcap * LOG2E, -(e < 2 ? l0 : l1)));
+          slope = fmaf(-th, th, 1.f);
+        } else {
+          x = fast_exp2(fmaf(s[4 * i + e], sl2, -(e < 2 ? l0 : l1)));
+        }
         if (edge) {
           const int qp = e < 2 ? qp0 : qp1, kp = k0 + 8 * i + cq + (e & 1);
           if constexpr (CAUSAL) {
@@ -510,7 +596,10 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
             if (!(qp < Sq && kp < Sk)) x = 0.f;
           }
         }
-        ds[e] = x * (dp[4 * i + e] - (e < 2 ? d0 : d1));
+        if constexpr (SOFTCAP)
+          ds[e] = x * (dp[4 * i + e] - (e < 2 ? d0 : d1)) * slope;
+        else
+          ds[e] = x * (dp[4 * i + e] - (e < 2 ? d0 : d1));
       }
       sa[2 * i] = pack(ds[0], ds[1]);
       sa[2 * i + 1] = pack(ds[2], ds[3]);
@@ -540,61 +629,71 @@ __global__ void __launch_bounds__(WG) flash_bwd_dq_wgmma_kernel(
   }
 }
 
-template <int HD, bool CAUSAL, bool WIN>
+template <int HD, bool CAUSAL, bool WIN, bool SOFTCAP>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
                    const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int Sq,
-                   int Sk, int H, int KV, int window, float scale, cudaStream_t stream) {
+                   int Sk, int H, int KV, int window, float scale, float softcap,
+                   cudaStream_t stream) {
   flash_bwd_delta_kernel<HD><<<(unsigned)B * Sq, WG, 0, stream>>>(o, dout, delta, Sq, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dkdv = flash_bwd_dkdv_wgmma_kernel<HD, CAUSAL, WIN>;
+  auto dkdv = flash_bwd_dkdv_wgmma_kernel<HD, CAUSAL, WIN, SOFTCAP>;
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dkdv_smem<HD>());
   if (err != cudaSuccess) return err;
   dkdv<<<dim3(KV, B, (Sk + TR - 1) / TR), NT2, dkdv_smem<HD>(), stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, KV, window, scale);
+      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, KV, window, scale, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dqk = flash_bwd_dq_wgmma_kernel<HD, CAUSAL, WIN>;
+  auto dqk = flash_bwd_dq_wgmma_kernel<HD, CAUSAL, WIN, SOFTCAP>;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem<HD>());
   if (err != cudaSuccess) return err;
   dqk<<<dim3(H, B, (Sq + TR - 1) / TR), WG, dq_smem<HD>(), stream>>>(
-      q, k, v, dout, lse, delta, dq, Sq, Sk, H, KV, window, scale);
+      q, k, v, dout, lse, delta, dq, Sq, Sk, H, KV, window, scale, softcap);
   return cudaGetLastError();
 }
 
+// The instantiation for the mask (unmasked, causal, causal with a window)
+// and the softcap (none or one).
 template <int HD>
-cudaError_t dispatch(bool causal, bool win, const bf16* q, const bf16* k, const bf16* v,
-                     const bf16* o, const bf16* dout, const float* lse, float* delta, bf16* dq,
-                     bf16* dk, bf16* dv, int B, int Sq, int Sk, int H, int KV, int window,
-                     float scale, cudaStream_t stream) {
-  auto fn = !causal ? launch<HD, false, false> : win ? launch<HD, true, true>
-                                                     : launch<HD, true, false>;
-  return fn(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, window, scale, stream);
+cudaError_t dispatch(bool causal, bool win, bool cap, const bf16* q, const bf16* k,
+                     const bf16* v, const bf16* o, const bf16* dout, const float* lse,
+                     float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int Sq, int Sk, int H,
+                     int KV, int window, float scale, float softcap, cudaStream_t stream) {
+  using Fn = decltype(&launch<HD, true, false, false>);
+  constexpr Fn fns[2][3] = {
+      {launch<HD, false, false, false>, launch<HD, true, false, false>,
+       launch<HD, true, true, false>},
+      {launch<HD, false, false, true>, launch<HD, true, false, true>,
+       launch<HD, true, true, true>}};
+  return fns[cap][!causal ? 0 : win ? 2 : 1](q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk,
+                                             H, KV, window, scale, softcap, stream);
 }
 
 }  // namespace
 
 // Attention's gradient on wgmma.  q, o, dout, dq: [B, Sq, H, hd]; k, v, dk,
 // dv: [B, Sk, KV, hd]; all contiguous bf16 (DTypeCode) with 16-byte aligned
-// base addresses; hd 64 or 128; causal 1 (top-left aligned) or 0 (unmasked);
-// window the sliding window's width, 0 for none (causal only).  lse: [B, H,
-// Sq] fp32 from the forward; delta: [B, H, Sq] fp32 scratch.  Returns the
+// base addresses; hd 64, 128 or 256; causal 1 (top-left aligned) or 0
+// (unmasked); window the sliding window's width, 0 for none (causal only);
+// softcap the tanh cap of the scaled scores, 0 for none.  lse: [B, H, Sq]
+// fp32 from the forward; delta: [B, H, Sq] fp32 scratch.  Returns the
 // cudaError_t of the launches (0 on success).
 extern "C" int flash_attention_bwd_wgmma(int dtype, const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* lse,
                                          void* delta, void* dq, void* dk, void* dv, int B, int Sq,
                                          int Sk, int H, int KV, int hd, int causal, int window,
-                                         float scale, void* stream) {
+                                         float scale, float softcap, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
                           reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
                           reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
   if (dtype != kBFloat16 || B < 1 || Sq < 1 || Sk < 1 || H < 1 || KV < 1 || H % KV ||
       H > 65535 || B > 65535 || (long long)B * Sq > 0x7fffffff || (Sq + TR - 1) / TR > 65535 ||
-      (Sk + TR - 1) / TR > 65535 || window < 0 || (!causal && window > 0) || (align & 15))
+      (Sk + TR - 1) / TR > 65535 || window < 0 || (!causal && window > 0) || !(softcap >= 0.f) ||
+      (align & 15))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qb = static_cast<const bf16*>(q);
@@ -607,13 +706,17 @@ extern "C" int flash_attention_bwd_wgmma(int dtype, const void* q, const void* k
   auto* dqb = static_cast<bf16*>(dq);
   auto* dkb = static_cast<bf16*>(dk);
   auto* dvb = static_cast<bf16*>(dv);
+  const bool c = causal != 0, w = window > 0, cap = softcap > 0.f;
   switch (hd) {
     case 64:
-      return dispatch<64>(causal != 0, window > 0, qb, kb, vb, ob, gb, lf, df, dqb, dkb, dvb, B,
-                          Sq, Sk, H, KV, window, scale, s);
+      return dispatch<64>(c, w, cap, qb, kb, vb, ob, gb, lf, df, dqb, dkb, dvb, B, Sq, Sk, H, KV,
+                          window, scale, softcap, s);
     case 128:
-      return dispatch<128>(causal != 0, window > 0, qb, kb, vb, ob, gb, lf, df, dqb, dkb, dvb, B,
-                           Sq, Sk, H, KV, window, scale, s);
+      return dispatch<128>(c, w, cap, qb, kb, vb, ob, gb, lf, df, dqb, dkb, dvb, B, Sq, Sk, H, KV,
+                           window, scale, softcap, s);
+    case 256:
+      return dispatch<256>(c, w, cap, qb, kb, vb, ob, gb, lf, df, dqb, dkb, dvb, B, Sq, Sk, H, KV,
+                           window, scale, softcap, s);
     default:
       return cudaErrorInvalidValue;
   }

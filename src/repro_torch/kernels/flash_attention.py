@@ -34,26 +34,29 @@ serving leaves it off, so its kernels write nothing more.
 
 ``flash_attention_bwd`` is the gradient of causal attention, with or
 without a sliding window, and of unmasked attention (an encoder's self
-attention, a decoder's cross attention, at any Sq and Sk), with no softcap,
-at head dims up to 128: from q, k, v, the output o, dO and the LSE it
-returns dq, dk and dv in q's dtype, recomputing P from the LSE.
-``check_bwd_supported`` is the one place that decides what the gradient
-takes, on every device: it refuses a softcap, head dims above
-``BWD_MAX_HEAD_DIM``, a window with Sq > Sk (rows left without a live key)
-and unmasked attention with a window with NotImplementedError naming
-ROADMAP B2d, before any kernel or plain code runs.  The window only narrows
-each kernel block's tile range and adds ``q - k < window`` to the masks;
-unmasked attention widens the ranges to every tile and keeps only the
-ragged edges' masks.  The kernels take both as arguments beside the
-tensors (``int causal, int window``).  ``bwd_variant`` names its kernel:
-``"wgmma"``
-(``csrc/flash_attention_bwd_wgmma.cu``: bf16 at head dim 64 or 128 with
-16-byte aligned tensors, on Hopper's warpgroup MMA; it rounds P and dS to
-bf16 where they enter a product, as the wgmma forward rounds P) or
-``"simt"`` (``csrc/flash_attention_bwd.cu``: fp32, and bf16 at other head
-dims up to 128, on the CUDA cores).  That file's ``"mma"`` variant
-(``mma.sync``, the same function as ``wgmma``) is routed nowhere and is
-kept as the yardstick that ``_launch_bwd`` runs on request.  It counts in
+attention, a decoder's cross attention, at any Sq and Sk), with or without
+a tanh softcap, at every head dim the forward takes (up to 256): from q, k,
+v, the output o, dO and the LSE it returns dq, dk and dv in q's dtype,
+recomputing P from the LSE.  With a softcap c the scores are capped as the
+forward caps them, s = c tanh(scale q.k / c) = c t, so P = exp(c t - lse)
+and dS = P (dP - D) (1 - t^2).  ``check_bwd_supported`` is the one place
+that decides what the gradient takes, on every device: it refuses a window
+with Sq > Sk (rows left without a live key) and unmasked attention with a
+window with NotImplementedError naming ROADMAP B2d, before any kernel or
+plain code runs.  The window only narrows each kernel block's tile range
+and adds ``q - k < window`` to the masks; unmasked attention widens the
+ranges to every tile and keeps only the ragged edges' masks.  The kernels
+take both, and the softcap, as arguments beside the tensors (``int causal,
+int window``, ``float softcap``, 0 for none).  ``bwd_variant`` names its
+kernel: ``"wgmma"`` (``csrc/flash_attention_bwd_wgmma.cu``: bf16 at head
+dim 64, 128 or 256 with 16-byte aligned tensors, on Hopper's warpgroup
+MMA; it rounds P and dS to bf16 where they enter a product, as the wgmma
+forward rounds P) or ``"simt"`` (``csrc/flash_attention_bwd.cu``: fp32,
+and bf16 at other head dims, on the CUDA cores, in tiles of 64 rows up to
+head dim 128 and 32 above, as the forward's).  That file's ``"mma"``
+variant (``mma.sync``, the same function as ``wgmma`` at head dim 64 and
+128 without a softcap) is routed nowhere and is kept as the yardstick that
+``_launch_bwd`` runs on request.  It counts in
 ``flash_attention_bwd.launches`` and ``.variant_launches``.
 ``flash_attention_bwd_plain`` computes the same in PyTorch, in fp32.
 
@@ -104,8 +107,7 @@ _I, _P = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
              ctypes.c_float, _P]
 _BWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                 ctypes.c_float, _P]
-BWD_MAX_HEAD_DIM = 128
+                 ctypes.c_float, ctypes.c_float, _P]
 BWD_NOT_PORTED = "is not yet ported, see ROADMAP.md queue B item 2 (B2d)"
 
 
@@ -224,13 +226,12 @@ def check_bwd_supported(causal, window, softcap, hd: int, sq: int, sk: int) -> N
     """Raise NotImplementedError for attention whose gradient is not ported,
     on every device alike: it takes causal attention, with or without a
     ``window`` (then Sq <= Sk, so that every row keeps a live key), and
-    unmasked attention without a window at any Sq and Sk, at head dims up to
-    ``BWD_MAX_HEAD_DIM`` and with no softcap."""
+    unmasked attention without a window at any Sq and Sk, with or without a
+    ``softcap``, at head dims up to ``MAX_HEAD_DIM``, every one the forward
+    kernels take."""
     why = None
-    if softcap:
-        why = f"a softcap ({softcap})"
-    elif hd > BWD_MAX_HEAD_DIM:
-        why = f"head dim {hd} (above {BWD_MAX_HEAD_DIM})"
+    if hd > MAX_HEAD_DIM:
+        why = f"head dim {hd} (above {MAX_HEAD_DIM}, which no forward kernel takes either)"
     elif window is not None and not causal:
         why = f"unmasked attention with a window ({window})"
     elif window is not None and sq > sk:
@@ -238,17 +239,19 @@ def check_bwd_supported(causal, window, softcap, hd: int, sq: int, sk: int) -> N
     if why:
         raise NotImplementedError(
             f"the gradient of attention with {why} {BWD_NOT_PORTED}: it is ported for causal "
-            f"attention, with or without a window, and unmasked attention without one, at head "
-            f"dims up to {BWD_MAX_HEAD_DIM}")
+            f"attention, with or without a window, and unmasked attention without one, with or "
+            f"without a softcap, at head dims up to {MAX_HEAD_DIM}")
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True, window=None, softcap=None,
                               scale=None):
     """The gradient of causal attention, with or without a window, or of
-    unmasked attention, in fp32: q, o, do [B,Sq,H,hd], k/v [B,Sk,KV,hd], lse
-    [B,H,Sq] fp32 -> (dq, dk, dv) in q's dtype.  P is recomputed from the
-    LSE, as the kernel does; D = rowsum(dO * o) uses the forward's output as
-    given."""
+    unmasked attention, with or without a softcap, in fp32: q, o, do
+    [B,Sq,H,hd], k/v [B,Sk,KV,hd], lse [B,H,Sq] fp32 -> (dq, dk, dv) in q's
+    dtype.  P is recomputed from the LSE, as the kernel does; D = rowsum(dO
+    * o) uses the forward's output as given.  With a softcap c, t = tanh(s /
+    c) of the scaled scores s, P = exp(c t - lse) and dS = P (dP - D) (1 -
+    t^2)."""
     check_bwd_supported(causal, window, softcap, q.shape[-1], q.shape[1], k.shape[1])
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -263,9 +266,15 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal=True, window=None, 
     live = offset >= 0 if causal else torch.ones_like(offset, dtype=torch.bool)
     if window is not None:
         live &= offset < window
-    p = torch.where(live, torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[..., None]), 0.0)
+    s = qf @ kf.transpose(-1, -2) * scale
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
     delta = (dof * o.float().transpose(1, 2)).sum(-1, keepdim=True)
     ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    if softcap:
+        ds = ds * (1 - t * t)
     dq = ds @ kf * scale
     dk = (ds.transpose(-1, -2) @ qf * scale).view(B, KV, G, Sk, hd).sum(2)
     dv = (p.transpose(-1, -2) @ dof).view(B, KV, G, Sk, hd).sum(2)
@@ -292,15 +301,16 @@ def check_bwd_args(q, k, v, o, do, lse, window) -> None:
 
 def bwd_variant(o, do) -> str:
     """The kernel ``flash_attention_bwd`` launches: ``"wgmma"`` for bf16 at
-    head dim 64 or 128 when o and dO start 16-byte aligned (``check_bwd_args``
-    requires q, k and v to, as the forward does there), ``"simt"``
-    otherwise."""
+    head dim 64, 128 or 256 when o and dO start 16-byte aligned
+    (``check_bwd_args`` requires q, k and v to, as the forward does there),
+    ``"simt"`` otherwise."""
     aligned = o.data_ptr() % 16 == 0 and do.data_ptr() % 16 == 0
-    wgmma = o.dtype == torch.bfloat16 and o.shape[-1] in (64, 128)
+    wgmma = o.dtype == torch.bfloat16 and o.shape[-1] in WGMMA_HEAD_DIMS
     return "wgmma" if wgmma and aligned else "simt"
 
 
-def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float, window=None, causal=True):
+def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float, window=None, causal=True,
+                softcap=None):
     """Run backward kernel ``var`` (``"wgmma"``, ``"mma"`` or ``"simt"``) on
     arguments that ``check_bwd_args`` passed; count nothing."""
     B, Sq, H, hd = q.shape
@@ -315,7 +325,8 @@ def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float, window=None, causal
     symbol = {"wgmma": lib, "mma": "flash_attention_bwd_mma"}.get(var, "flash_attention_bwd")
     fn = _build.function(lib, symbol, _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
-        err = fn(*args, B, Sq, Sk, H, KV, hd, int(causal), window or 0, float(scale), stream)
+        err = fn(*args, B, Sq, Sk, H, KV, hd, int(causal), window or 0, float(scale),
+                 float(softcap or 0.0), stream)
     _build.check(lib, err)
     return dq, dk, dv
 
@@ -323,13 +334,13 @@ def _launch_bwd(var: str, q, k, v, o, do, lse, scale: float, window=None, causal
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None, softcap=None,
                         scale=None):
     """The gradient of causal attention, with or without a window, or of
-    unmasked attention, through the kernel that ``bwd_variant`` names: ->
-    (dq, dk, dv), each like its input."""
+    unmasked attention, with or without a softcap, through the kernel that
+    ``bwd_variant`` names: -> (dq, dk, dv), each like its input."""
     check_bwd_supported(causal, window, softcap, q.shape[-1], q.shape[1], k.shape[1])
     check_bwd_args(q, k, v, o, do, lse, window)
     scale = scale if scale is not None else q.shape[-1]**-0.5
     var = bwd_variant(o, do)
-    out = _launch_bwd(var, q, k, v, o, do, lse, scale, window, causal)
+    out = _launch_bwd(var, q, k, v, o, do, lse, scale, window, causal, softcap)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.variant_launches[var] += 1
     return out

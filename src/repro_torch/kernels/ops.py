@@ -20,8 +20,9 @@ and ``repro_torch::ssd_scan`` are registered on the operators and call
 plain versions on the CPU).  Attention whose inputs need a gradient
 runs the LSE operator, which the backward reads; otherwise it runs the one
 without, as serving does, so the kernel writes no LSE.  The flash
-gradient takes causal attention with or without a sliding window at head
-dims up to 128; ``flash_mha`` refuses any other attention that needs one
+gradient takes causal attention with or without a sliding window (Sq <=
+Sk) and unmasked attention without one, with or without a softcap, at
+every head dim the forward takes; ``flash_mha`` refuses any other attention that needs one
 (``check_bwd_supported``, NotImplementedError naming ROADMAP B2d) before
 its forward runs, on the CPU as on the card.  The JAX kernels have no
 backward; the reference differentiates its jnp paths, which compute the
@@ -106,9 +107,10 @@ torch.library.register_autograd("repro_torch::ssd_scan", _ssd_backward, setup_co
 def flash_mha(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
     """q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd] (blockwise attention).
     Differentiable for causal attention, with or without a window (Sq <=
-    Sk), and for unmasked attention without a window at any Sq and Sk, at
-    head dims up to 128 and without a softcap; asking for the gradient of
-    any other raises NotImplementedError naming B2d."""
+    Sk), and for unmasked attention without a window at any Sq and Sk, with
+    or without a softcap, at every head dim the forward takes (up to 256);
+    asking for the gradient of any other (unmasked attention with a window,
+    a window with Sq > Sk) raises NotImplementedError naming B2d."""
     if _needs_grad(q, k, v):
         check_bwd_supported(causal, window, softcap, q.shape[-1], q.shape[1], k.shape[1])
         return _OPS.flash_attention_lse(q, k, v, causal, window, softcap, scale)[0]

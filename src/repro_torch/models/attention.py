@@ -139,10 +139,10 @@ def apply_attention(p, x, cfg: ModelConfig, spec: LayerSpec, angles, causal: boo
     x [B,S,D] -> [B,S,D].  The reference's ``mha_dense``/``mha_chunked``
     become the flash kernel at every S, with the layer's window, through
     ``ops.flash_mha``.  It is differentiable when causal, with the layer's
-    window or without one, and unmasked (an encoder's) without a window, at
-    head dims up to 128 and without a softcap; asking for the gradient of
-    any other (gemma's head dim 256 and softcap) raises NotImplementedError
-    (``check_bwd_supported``) until its backward lands (ROADMAP B2d)."""
+    window or without one, and unmasked (an encoder's) without a window,
+    with the config's softcap or without one, at every head dim (gemma's
+    256 among them); the one mask no config runs, unmasked with a window,
+    raises NotImplementedError (``check_bwd_supported``, ROADMAP B2d)."""
     check_spec(spec)
     q, k, v = _project(p, x, cfg, angles)
     out = ops.flash_mha(q, k, v, causal=causal, window=_window(spec), softcap=cfg.attn_softcap,

@@ -12,8 +12,9 @@ q tiles a key tile's dK/dV block visits, the first key tile of a dQ block,
 the ``edge`` predicate that turns the element masks on), held to a dense
 enumeration of live pairs: every live pair lies in a visited tile, and a
 step that masks nothing holds live pairs only.  Also the refusals that are
-left (B2d; unmasked attention with a window among them), ``ops.flash_mha`` routing a window's gradient to the plain
-version on CPU tensors, and the tracer pricing a window's backward node.
+left (B2d: unmasked attention with a window, a window with Sq > Sk),
+``ops.flash_mha`` routing a window's gradient to the plain version on CPU
+tensors, and the tracer pricing a window's backward node.
 Inputs are drawn with numpy.
 """
 
@@ -280,16 +281,22 @@ def test_a_window_at_least_s_runs_the_causal_steps():
 # ------------------------------------------------------------ refusals, tracer
 def test_refusals_left_name_b2d():
     """What the gradient does not take raises before any code runs, on the
-    CPU as on the card: unmasked attention with a window, a softcap, head
-    dim 256, and a window with Sq > Sk.  (Unmasked attention without a
-    window is taken since its kernels landed: tests/test_torch_flash_unmasked_bwd.py.)"""
-    cases = [((1, 8, 2, 16), 8, dict(causal=False, window=4)),
-             ((1, 8, 2, 16), 8, dict(softcap=30.0)),
-             ((1, 8, 2, 256), 8, {}), ((1, 8, 2, 16), 4, dict(window=4))]
-    for qshape, sk, kw in cases:
+    CPU as on the card: unmasked attention with a window, and a window with
+    Sq > Sk.  A softcap and head dim 256 are taken since their kernels
+    landed (tests/test_torch_flash_gemma_bwd.py), as is unmasked attention
+    without a window (tests/test_torch_flash_unmasked_bwd.py)."""
+    refused = [((1, 8, 2, 16), 8, dict(causal=False, window=4)),
+               ((1, 8, 2, 16), 4, dict(window=4))]
+    taken = [((1, 8, 2, 16), 8, dict(softcap=30.0)), ((1, 8, 2, 256), 8, {}),
+             ((1, 8, 2, 256), 8, dict(window=4, softcap=50.0))]
+    for qshape, sk, kw in refused + taken:
         q = torch.zeros(qshape)
         k = torch.zeros(qshape[0], sk, qshape[2], qshape[3])
         lse = torch.zeros(qshape[0], qshape[2], qshape[1])
+        if (qshape, sk, kw) in taken:
+            flash_attention_bwd_plain(q, k, k, q, q, lse, **kw)
+            ops.flash_mha(q.clone().requires_grad_(), k, k, **kw).sum().backward()
+            continue
         with pytest.raises(NotImplementedError, match="B2d"):
             flash_attention_bwd_plain(q, k, k, q, q, lse, **kw)
         with pytest.raises(NotImplementedError, match="B2d"):

@@ -1,6 +1,7 @@
 """The port's gemma3-4b and gemma2-9b (sandwich norms, the sqrt(d) embedding
 scale; gemma3's 5:1 window/global layers with qk-norm, gemma2's attention
-softcap 50 and final softcap 30) against the JAX package on the CPU.
+softcap 50 and final softcap 30) against the JAX package on the CPU,
+serving and training.
 
 The JAX ``Model.init`` parameters, with every norm scale drawn at random
 in place of init's ones (so that a sandwich norm applied to the wrong
@@ -8,7 +9,8 @@ tensor, or not at all, shows), are carried into the port with
 ``params_from_jax``; both sides get the same numpy prompts and batches:
 prefill logits and every layer's cache with the prompt longer than the
 smoke window of 16 (so the rings wrap), four greedy decode steps, the
-loss and every gradient of the layers the backward kernels take.  In fp32
+loss and every gradient of the smoke configs as published (and at head
+dim 256 with a softcap that bites).  In fp32
 at 1e-5, as the other serving tests.  Also: the scaled embedding bit-equal
 to the reference's in bf16 at the full widths, the full configs' shapes
 against the reference's ``eval_shape``, the served caches' bytes, which
@@ -27,7 +29,6 @@ from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import build_model as jax_build_model
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import LayerSpec, uniform_program
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import build_model
@@ -223,23 +224,27 @@ def test_serving_matches_jax_model(arch):
     check_caches("decode")
 
 
-# The gemmas' training waits on hd 256 and the attention softcap in the
-# flash gradient (B2d), which takes causal attention with or without a
-# window at head dims up to 128 and no softcap; so training runs the smoke
-# config with full causal layers and no attention softcap; the sandwich norms, the embedding scale,
-# gemma3's qk-norm and gemma2's final softcap stay.  fp32 masters on both
-# sides, as tests/test_torch_train.py holds qwen3's loss and gradients.
+# Training holds the smoke configs as published (windows of 16 at S 32, so
+# the window layers mask; gemma2's attention softcap 50 and final softcap
+# 30; the sandwich norms, the embedding scale, gemma3's qk-norm), through
+# the flash gradient with the window and the softcap, and a second case at
+# the full configs' head dim 256 with a softcap of 2 on both sides, where
+# scores of a cap or more make the softcap's factor 1 - t^2 matter.  fp32
+# masters on both sides, as tests/test_torch_train.py holds qwen3's loss
+# and gradients.
+TRAIN_CASES = {"published": {}, "hd256-softcap2": {"head_dim": 256, "attn_softcap": 2.0}}
+
+
+@pytest.mark.parametrize("change", list(TRAIN_CASES))
 @pytest.mark.parametrize("arch", ARCHS)
-def test_loss_and_grads_match_jax(arch):
+def test_loss_and_grads_match_jax(arch, change):
     from repro.data import SyntheticTokens as JaxSyntheticTokens
 
-    full = LayerSpec(attn="full", ffn="dense")
-    n = get_smoke_config(arch).num_layers
-    jmodel, jparams, tmodel, tcfg = _models(arch, seed=1, attn_softcap=None,
-                                            program=uniform_program(full, n))
+    jmodel, jparams, tmodel, tcfg = _models(arch, seed=1, **TRAIN_CASES[change])
     assert tcfg.sandwich_norms and tcfg.scale_embed
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, "cpu", torch.float32)
+    assert {spec.window for unit, _ in tcfg.program for spec in unit} == {16, None}
     batch = JaxSyntheticTokens(tcfg.vocab_size, 32, 2, seed=0).batch_at(0)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, "cpu", torch.float32)
     (jloss, _), jgrads = jax.value_and_grad(
         lambda p: jmodel.loss(p, {k: jnp.asarray(v) for k, v in batch.items()}),
         has_aux=True)(jparams)
@@ -256,6 +261,21 @@ def test_loss_and_grads_match_jax(arch):
     rel = [((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
            for g, w in zip(grads, want)]
     assert max(rel) < 1e-4, max(rel)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_main_trains_the_smoke_model(arch, capsys):
+    """``train.main --arch <gemma> --smoke --device cpu --steps 2`` at the
+    smoke windows' length past 16: finite losses, and no kernel launched
+    (plain versions only)."""
+    from repro_torch.launch import train
+
+    ops.reset_launch_counts()
+    losses = train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                         "--batch", "2", "--seq", "32", "--log-every", "1"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert "done: first-loss" in capsys.readouterr().out
+    assert not any(ops.launch_counts().values())
 
 
 # ------------------------------------------------------ kernels, entry point

@@ -130,11 +130,10 @@ def test_flash_plain_lse_matches_reference_logsumexp(shape):
 
 
 def test_flash_bwd_raises_outside_causal():
-    """Unmasked attention with a window, a softcap, head dim 256 and a window
-    with Sq > Sk are refused, naming B2d; a window with Sq <= Sk, and
-    unmasked attention without one, are taken."""
-    for hd, sk, kw in ((16, 8, dict(causal=False, window=4)), (16, 8, dict(softcap=30.0)),
-                       (256, 8, {}), (16, 4, dict(window=4))):
+    """Unmasked attention with a window and a window with Sq > Sk are
+    refused, naming B2d; a window with Sq <= Sk, unmasked attention without
+    one, a softcap and head dim 256 are taken."""
+    for hd, sk, kw in ((16, 8, dict(causal=False, window=4)), (16, 4, dict(window=4))):
         q = torch.zeros(1, 8, 2, hd)
         k = torch.zeros(1, sk, 2, hd)
         lse = torch.zeros(1, 2, 8)
@@ -142,14 +141,21 @@ def test_flash_bwd_raises_outside_causal():
             flash_attention_bwd_plain(q, k, k, q, q, lse, **kw)
         with pytest.raises(NotImplementedError, match="B2d"):
             ops.flash_mha(q.clone().requires_grad_(), k, k, **kw)
-    for causal, window, sq, sk in ((True, 4, 8, 8), (False, None, 8, 3), (False, None, 3, 8)):
-        check_bwd_supported(causal, window, None, 128, sq, sk)
+    for causal, window, softcap, hd, sq, sk in ((True, 4, None, 128, 8, 8),
+                                                (False, None, None, 128, 8, 3),
+                                                (False, None, None, 128, 3, 8),
+                                                (True, None, 30.0, 16, 8, 8),
+                                                (True, None, None, 256, 8, 8),
+                                                (True, 4, 50.0, 256, 8, 8)):
+        check_bwd_supported(causal, window, softcap, hd, sq, sk)
 
 
 # ------------------------------------------------------------------ routing
 @pytest.mark.parametrize("dtype,hd,offset,want", [
     (torch.bfloat16, 128, 0, "wgmma"),
     (torch.bfloat16, 64, 0, "wgmma"),
+    (torch.bfloat16, 256, 0, "wgmma"),    # the gemmas' head dim
+    (torch.bfloat16, 256, 1, "simt"),
     (torch.bfloat16, 32, 0, "simt"),      # head dims the tensor-core tiles do not take
     (torch.float32, 128, 0, "simt"),      # fp32 keeps IEEE products
     (torch.bfloat16, 128, 1, "simt"),     # dO a view one element in: not 16-byte aligned
