@@ -401,13 +401,26 @@ nothing of JAX or of the JAX package.  Phases, each fatal on failure:
               (e) gemma2-9b-cut12 through ``train.train`` at B1 S8192 for 5
               steps, as (c) (a step: RMSNorm 97 forward and 49 backward,
               flash 24 forward and 12 backward ``wgmma``, all with the
-              softcap, half with the window); a warm step profiled.
+              softcap, half with the window); a warm step profiled;
+ 22. mesh plans  ``repro_torch.dist`` on the graph phase 7 captured of the
+              full qwen3-4b's loss at B4 S512 (fp32 masters), sharded by
+              ``launch.shardplan.capture_for_mesh`` for data=4 and
+              data=2,model=2 (the launch/steps.py PartitionSpecs and the
+              gradient all-reduce), each solved under H100_SXM (SmartPool,
+              AutoSwap at 0.6 of the per-device w), solved again from a
+              PlanCache (restored and byte-equal, else fatal) and run
+              mesh-wide (``run_mesh``: contention-free, contended and
+              aware, contended and blind); data=4's w beside the 1x1 w / 4;
+              then one data=4 shard's step, the loss at B1 S512, for real:
+              exactly 145 RMSNorm ``vector`` and 36 flash ``wgmma``
+              launches, and data=4's w above its peak is fatal.
 
 The last lines are a ``kernels`` summary, a JSON object of per-kernel
 numbers (``launches`` summed over the main paths, the serve runs, plain
 and planned, the train runs, plain and with the offload plan, the CNN
 phase, the long decode, the example, deepseek's train runs, phase 17's
-runs, mamba2's, hymba's, whisper's and the gemmas' train runs, with each
+runs, mamba2's, hymba's, whisper's and the gemmas' train runs, phase 22's
+shard step, with each
 path's own count in ``launches_by_path``; the flash backward's entry also
 holds hymba's window case, whisper's unmasked encoder and cross cases and
 the gemmas' four hd-256 layouts, the forward's the LSE with the window,
@@ -2833,7 +2846,8 @@ def phase_captured_plans(B: int, S: int, cfg=None, phase: str = "7", swaps: bool
     existed.  (b)'s is printed only: the real run holds every gradient
     until the step ends, and eager autograd accumulates a tied embedding's
     gradient in place, where the graph adds out of place (qwen3-4b: up to
-    one fp32 table, 151,936 x 2,560 x 4 B).  -> {tag: (w, real peak)}."""
+    one fp32 table, 151,936 x 2,560 x 4 B).  -> ({tag: (w, real peak)}, (a)'s
+    graph, its example args (shapes, probe) and its w)."""
     from repro_torch.configs import get_config
     from repro_torch.core.simulator import H100_SXM
     from repro_torch.core.trace import _leaf_paths, capture_graph, trace_graph
@@ -2870,6 +2884,8 @@ def phase_captured_plans(B: int, S: int, cfg=None, phase: str = "7", swaps: bool
         prog, limits, solve_s, checks, nbytes = plan_and_check(trace, key, H100_SXM, swaps)
         peak = trace.peak_load()
         omega[tag] = peak
+        if tag == "a":
+            graph_a = (gm, (shapes, probe), peak)
         labels = {n: sum(v.name == n for v in trace.variables)
                   for n in ("block_in", "attn_out", "ffn_out")}
         print(f"[{phase}] captured ({tag}) {'loss' if tag == 'a' else 'loss + grad (remat)'} "
@@ -2917,7 +2933,7 @@ def phase_captured_plans(B: int, S: int, cfg=None, phase: str = "7", swaps: bool
             require(omega[tag] <= real, f"captured (a): w {omega[tag]} B exceeds the real peak "
                                         f"{real} B")
     del batch
-    return peaks
+    return peaks, graph_a
 
 
 # Capture (a) on fake CPU tensors under torch 2.13: variables and the GB
@@ -2936,6 +2952,129 @@ def zero_byte_nodes(gm) -> Counter:
         if vals and all(v.numel() == 0 for v in vals):
             out[f"{node.op}:{node.target}"] += 1
     return out
+
+
+MESHES = ("data=4", "data=2,model=2")
+MESH_LIMIT_FRAC = 0.6   # launch/shardplan.py's default
+
+
+def mesh_plans(cfg, graph, B: int, S: int) -> dict[str, int]:
+    """(a) and (b) of phase 22, on the host: ``graph`` (the loss graph of
+    ``cfg`` at B and S, its example args and its w) sharded for each of
+    MESHES by ``shardplan.capture_for_mesh`` (the launch/steps.py specs,
+    the gradient sync), solved under H100_SXM as ``launch.shardplan``
+    solves it, solved again from the PlanCache (fatal unless restored and
+    byte-equal), and run mesh-wide contention-free, contended and aware,
+    and contended and blind, each device's budget its whole w, as ``train
+    --dist-plan`` gives it (shardplan's default, 0.7 of w, admits no
+    tenant: the loss step's masters are inputs, all resident from its
+    first op, so no swap schedule brings its planned peak under w).  ->
+    {mesh: per-device w}."""
+    from repro_torch.core.simulator import H100_SXM
+    from repro_torch.dist import MeshSpec, run_mesh, schedules_differ, solve_sharded
+    from repro_torch.launch.shardplan import capture_for_mesh
+    from repro_torch.launch.train import step_key
+    from repro_torch.plan import PlanCache, dumps_canonical
+
+    gm, example_args, single_omega = graph
+    cache_dir = PLAN_DIR / "mesh"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    cache = PlanCache(cache_dir)
+    base_key = step_key(cfg.name, B, S, False, H100_SXM)
+    omegas = {}
+    for text in MESHES:
+        mesh = MeshSpec.parse(text)
+        t0 = time.perf_counter()
+        capture = capture_for_mesh(cfg, None, example_args, mesh, H100_SXM, graph=gm)
+        shard_s = time.perf_counter() - t0
+        group = capture.groups["spmd"]
+        trace = group.trace
+        omega = trace.peak_load()
+        omegas[text] = omega
+        solves = [solve_sharded(capture, H100_SXM, base_key=base_key, cache=cache,
+                                limit_frac=MESH_LIMIT_FRAC) for _ in range(2)]
+        first, again = (s.programs["spmd"] for s in solves)
+        require(not solves[0].cache_hits["spmd"] and solves[1].cache_hits["spmd"],
+                f"{text}: cache hits {solves[0].cache_hits}, {solves[1].cache_hits}")
+        require(dumps_canonical(first) == dumps_canonical(again),
+                f"{text}: the program restored from the cache differs")
+        swap, limit = solves[0].swap_keys["spmd"]
+        summary = first.swap_summaries[swap]
+        chi = first.pool_plans["best_fit"].footprint
+        kw = dict(budget_per_device=omega, iterations=2)
+        t0 = time.perf_counter()
+        free = run_mesh(solves[0], H100_SXM, contended=False, **kw)
+        aware = run_mesh(solves[0], H100_SXM, contended=True, contention_aware=True, **kw)
+        blind = run_mesh(solves[0], H100_SXM, contended=True, contention_aware=False, **kw)
+        run_s = time.perf_counter() - t0
+        coll = group.collectives
+        print(f"[22] mesh {text} ({capture.plan_topology()}): sharded in {shard_s:.2f}s, "
+              f"{len(trace.variables)} variables, per-device peak load w {omega:,} B; "
+              f"{len(coll)} collective(s) {[c.kind for c in coll]}, "
+              f"{sum(c.nbytes for c in coll):,} B, {sum(c.seconds for c in coll) * 1e3:.3f} ms "
+              f"a step; SmartPool chi/w {chi / omega:.4f}; AutoSwap swdoa at "
+              f"{MESH_LIMIT_FRAC} of w ({limit:,} B): {summary.selected_bytes:,} B selected, "
+              f"{len(summary.decisions)} vars, overhead {summary.overhead:.4f}; solved in "
+              f"{solves[0].solve_ms['spmd']:.1f} ms, again from the cache in "
+              f"{solves[1].solve_ms['spmd']:.1f} ms (restored, byte-equal)")
+        done = [sum(t.status == "completed" for t in r.report.tenants)
+                for r in (free, aware, blind)]
+        print(f"  run_mesh ({mesh.num_devices} tenants, budget w, 2 "
+              f"iterations, {run_s:.2f}s; tenants completed {done}): makespan contention-free "
+              f"{free.makespan_s * 1e3:.3f} ms, contended aware {aware.makespan_s * 1e3:.3f}, "
+              f"blind {blind.makespan_s * 1e3:.3f}; mean overhead "
+              f"{free.mean_overhead() * 100:.2f}%, {aware.mean_overhead() * 100:.2f}%, "
+              f"{blind.mean_overhead() * 100:.2f}%; schedules differ: contention "
+              f"{schedules_differ(free, aware)}, aware against blind "
+              f"{schedules_differ(aware, blind)}; blackout "
+              f"{aware.report.link['blackout_s'] * 1e3:.3f} ms")
+        numbers = (omega, chi, aware.makespan_s, aware.mean_overhead(), blind.mean_overhead())
+        require(all(math.isfinite(v) and v >= 0 for v in numbers) and omega > 0 and chi > 0,
+                f"{text}: w, chi, makespan and overheads {numbers}")
+    print(f"[22] data=4 w {omegas['data=4']:,} B beside the 1x1 capture's w / 4 "
+          f"{single_omega // 4:,} B ({omegas['data=4'] / (single_omega / 4):.4f} of it)")
+    return omegas
+
+
+def phase_mesh_plans(graph, want: dict[str, int], B: int = 4, S: int = 512):
+    """Phase 22: ``mesh_plans`` on phase 7's loss graph of the full qwen3-4b,
+    then (c) the step one data-parallel shard of ``data=4`` runs, qwen3-4b's
+    loss at B / 4 on fp32 masters resident first, for real: its peak, and
+    exactly ``want`` launches.  The data=4 w above that peak is fatal, as
+    phase 7's (a): the trace frees each variable at its last use and the
+    divisors only shrink sizes, so a larger w counts memory that never
+    existed.  -> the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-4b")
+    omegas = mesh_plans(cfg, graph, B, S)
+    held = release_memory("22")
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(0), dtype=torch.float32)
+    batch = make_batch_fn(cfg, B // 4, S, 0, "cuda")(0)
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    value = float(model.loss(params, batch)[0])
+    counts = ops.launch_counts()
+    real = torch.cuda.max_memory_allocated() - held
+    del params, batch
+    omega = omegas["data=4"]
+    print(f"[22] one data=4 shard's step for real (qwen3-4b loss, B{B // 4} S{S}, fp32 masters): "
+          f"loss {value:.4f}, peak {real:,} B ({resident:,} B resident first), launches "
+          f"{counts}; data=4 w / real peak {omega / real:.4f}")
+    require(math.isfinite(value), "mesh check: non-finite loss")
+    require(counts == want, f"mesh check: launch counts {counts}, want {want}")
+    require(omega <= real, f"data=4 w {omega} B exceeds the real peak {real} B of its shard's "
+                           f"step")
+    print(f"[22] mesh plans phase took {time.perf_counter() - t0:.1f}s")
+    return counts
 
 
 EXAMPLE = Path(__file__).resolve().parent / "examples" / "serve_batched_torch.py"
@@ -3934,7 +4073,7 @@ def main() -> int:
     # (b), the loss with its gradient, on a 12-layer cut: at 36 layers its
     # 6,593 variables took 80.55 s of AutoSwap's selections, the largest
     # host cost of the script.
-    phase_captured_plans(4, 512, grad_cfg=qwen3_cut(12))
+    _, loss_graph = phase_captured_plans(4, 512, grad_cfg=qwen3_cut(12))
     print(f"[7] planner phase took {time.perf_counter() - t7:.1f}s")
 
     phase_train_parity("qwen3-4b", 128)
@@ -4043,7 +4182,7 @@ def main() -> int:
     phase_train_profile(4, 512, phase="16c", cfg=cut)
     print(f"[16c] profile took {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    captured = phase_captured_plans(4, 512, cfg=cut, phase="16d", swaps=False)
+    captured, _ = phase_captured_plans(4, 512, cfg=cut, phase="16d", swaps=False)
     print(f"[16d] w / real peak: loss {captured['a'][0] / captured['a'][1]:.4f}, loss + grad "
           f"{captured['b'][0] / captured['b'][1]:.4f}")
     paths[f"train {cut.name} (offload)"] = phase_train_cut_offload(4, 512, steps, cut_want,
@@ -4205,6 +4344,12 @@ def main() -> int:
     phase_train_profile(1, 8192, phase="21e", cfg=cut2)
     print(f"[21e] took {time.perf_counter() - t:.1f}s")
     print(f"[21] gemma training phase took {time.perf_counter() - t21:.1f}s")
+
+    # Phase 22: mesh plans on phase 7's loss graph.  One data=4 shard's loss
+    # step, qwen3-4b at B1 S512 with no gradient, runs RMSNorm 4 * 36 + 1
+    # times (ln1, ln2, q-norm, k-norm, the final norm) and flash once a layer
+    # without the LSE: bf16 at d 2560 and hd 128, `vector` and `wgmma`.
+    paths["mesh check qwen3-4b"] = phase_mesh_plans(loss_graph, want(4 * 36 + 1, 36, 0))
 
     # The backward kernels replace no Pallas kernel of their own: each is the
     # gradient of the TPU kernel named, which the reference takes by XLA

@@ -9,8 +9,8 @@ charges only the nodes that must round-trip device memory (matrix products,
 gathers, scatters, concatenations, the port's kernels), the estimate of the
 reference's fusion-aware term.  The graph has no loops (every layer is
 traced), so nothing is multiplied by a trip count and ``dynamic_loops`` is
-0.  The reference's ``loop_aware_collectives`` waits for ROADMAP queue A
-item 12 (distributed).
+0.  The reference's ``loop_aware_collectives``, a parser of the HLO
+text of a compiled sharded step, waits for ROADMAP A12c's remaining piece.
 
 The counts follow the reference's rules for its primitives: a product 2·out·K,
 a reduction its input's elements, a transcendental 4 a result, data

@@ -329,6 +329,10 @@ class _GraphEventEmitter:
         self.events.append(Event(kind, vid, self.sizes[vid], self._index))
         self._index += 1
 
+    def _input(self, placeholder: int, size: int, name: str) -> int:
+        """The variable of the graph's ``placeholder``-th input."""
+        return self._fresh(size, name)
+
     def _var(self, env, node):
         """The variable that holds ``node``'s storage now (after labels)."""
         vid = env.get(node)
@@ -345,7 +349,7 @@ class _GraphEventEmitter:
             if not _holds_bytes(val):
                 continue
             name = arg_names[i] if i < len(arg_names) else f"arg{i}"
-            env[node] = self._fresh(_tensor_bytes(val), name)
+            env[node] = self._input(i, _tensor_bytes(val), name)
             self._emit(EventKind.MALLOC, env[node])
         for node in nodes:  # constants the graph holds (``get_attr``)
             if node.op == "get_attr" and _holds_bytes(node.meta.get("val")):
@@ -536,10 +540,17 @@ def trace_step_fn(
     what the paper's runtime recorder observes from the framework's GC.
     ``max_scan_unroll`` has no effect (the port has no scans)."""
     gm = capture_graph(fn, *example_args, device=device)
+    return trace_graph(gm, arg_names=input_names(example_args, arg_names),
+                       max_scan_unroll=max_scan_unroll)
+
+
+def input_names(example_args, arg_names: Sequence[str] | None = None) -> list[str]:
+    """The names ``trace_step_fn`` gives the inputs: the leaves' paths
+    (``_leaf_paths``), the first ones replaced by ``arg_names``."""
     names = _leaf_paths(example_args)
     if arg_names:
         names[:len(arg_names)] = list(arg_names)[:len(names)]
-    return trace_graph(gm, arg_names=names, max_scan_unroll=max_scan_unroll)
+    return names
 
 
 def trace_graph(
@@ -552,6 +563,13 @@ def trace_graph(
     reference's ``trace_jaxpr``."""
     em = _GraphEventEmitter()
     em.run(gm, list(arg_names or ()))
+    return emitted_trace(em)[0]
+
+
+def emitted_trace(em) -> tuple[IterationTrace, dict[int, int]]:
+    """An emitter's events with FREEs at last use, as a trace carrying its
+    per-node costs and variable names; and the map from the emitter's op
+    indices to the trace's."""
     events, index_map = _with_frees(em.events)
     trace = build_trace(events)
     trace.op_costs = {
@@ -561,7 +579,7 @@ def trace_graph(
     for vid, name in em.names.items():
         if vid in info_by_id:
             info_by_id[vid].name = name
-    return trace
+    return trace, index_map
 
 
 def _with_frees(events: list[Event]) -> tuple[list[Event], dict[int, int]]:

@@ -69,8 +69,15 @@ memory planner:
                        included; only the label classes execute.  Each
                        step's bytes moved each way are printed.
 
-Left out, waiting for ROADMAP queue A item 12: ``--dist-plan`` with the
-observability flags that watch its mesh run.
+  * ``--dist-plan``    a mesh (``data=4``, ``data=2,model=2``): before
+                       training, the loss step captured under the
+                       launch/steps.py PartitionSpecs for it and solved per
+                       device group (``dist_plan``), one ``[dist-plan]``
+                       line per group; with ``--trace-out`` or
+                       ``--verify`` (``obs.add_obs_args``, with the other
+                       observability flags) its mesh run through the
+                       runtime too.  Training then runs on the one device
+                       as before.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 5
@@ -105,6 +112,7 @@ from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data import SyntheticTokens
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import build_model
+from repro_torch.obs import add_obs_args
 from repro_torch.optim import adamw_init
 
 
@@ -150,19 +158,81 @@ def step_planner(model, arch: str, batch: int, seq: int, smoke: bool, plan_cache
     is this planner at its own ``size_threshold``."""
     from repro_torch.core.planner import MemoryPlanner
     from repro_torch.core.simulator import H100_SXM
+    from repro_torch.launch.shardplan import probe_from_model
+
+    step_probe, (pshapes, probe) = probe_from_model(model, batch, seq)
+    return MemoryPlanner(step_probe, pshapes, probe, hw=H100_SXM, cache=plan_cache or None,
+                         key=step_key(arch, batch, seq, smoke, H100_SXM),
+                         size_threshold=size_threshold)
+
+
+def step_key(arch: str, batch: int, seq: int, smoke: bool, hw):
+    """The ``PlanKey`` of the loss step at these shapes under ``hw``, the
+    reference's: a mesh's plans extend it with their topology."""
     from repro_torch.plan import PlanKey
 
-    probe = {k: torch.empty(batch, seq, dtype=torch.long, device="meta")
-             for k in ("tokens", "labels")}
-    probe.update(frontend_inputs(model.cfg, batch, seq, "meta"))
-    pshapes = model.init_shapes(torch.float32)
+    return PlanKey(arch, f"train:b{batch}s{seq}{':smoke' if smoke else ''}", hw.name)
 
-    def step_probe(params, batch):
-        return model.loss(params, batch)[0]
 
-    key = PlanKey(arch, f"train:b{batch}s{seq}{':smoke' if smoke else ''}", H100_SXM.name)
-    return MemoryPlanner(step_probe, pshapes, probe, hw=H100_SXM, cache=plan_cache or None,
-                         key=key, size_threshold=size_threshold)
+def dist_plan(args, cfg) -> None:
+    """``--dist-plan MESH``, the reference's (``repro/launch/train.py:
+    98-151``): capture the loss step under the launch/steps.py
+    PartitionSpecs for the mesh (on fake tensors of ``args.device``),
+    solve it once per device group under ``H100_SXM``, cached under a
+    topology-extended PlanKey, so the sharded plan never aliases the
+    single-device one, and print one ``[dist-plan]`` line per group.  Under
+    ``--trace-out`` or ``--verify``, execute the solved plans through the
+    runtime (contended shared link, the headline configuration), export the
+    Perfetto trace and verify."""
+    from repro_torch.core.simulator import H100_SXM
+    from repro_torch.dist import MeshSpec, run_mesh, solve_sharded
+    from repro_torch.launch.shardplan import capture_for_mesh, probe_from_model
+    from repro_torch.obs import export_monitor, export_trace, recorder_for
+    from repro_torch.plan import PlanCache
+
+    mesh = MeshSpec.parse(args.dist_plan)
+    step_probe, example_args = probe_from_model(build_model(cfg, args.device), args.batch,
+                                                args.seq)
+    capture = capture_for_mesh(cfg, step_probe, example_args, mesh, H100_SXM,
+                               device=args.device)
+    solved = solve_sharded(
+        capture, H100_SXM,
+        base_key=step_key(args.arch, args.batch, args.seq, args.smoke, H100_SXM),
+        cache=PlanCache(args.plan_cache) if args.plan_cache else None,
+        limit=(int(args.hbm_limit_gb * 2**30) if args.hbm_limit_gb is not None else None),
+    )
+    for g, program in solved.programs.items():
+        trace = program.require_trace()
+        src = " (restored from cache)" if solved.cache_hits[g] else ""
+        print(
+            f"[dist-plan] mesh {mesh.signature() or '1'} group {g}: "
+            f"per-device peak {trace.peak_load()/2**20:.1f}MiB, "
+            f"{len(capture.groups[g].collectives)} collectives, "
+            f"solved in {solved.solve_ms[g]:.1f} ms{src}"
+        )
+    if not (args.trace_out or args.verify):
+        return
+    shard_peak = max(p.require_trace().peak_load() for p in solved.programs.values())
+    # Default to the full shard peak: smoke traces are too small to
+    # swap-plan below their peak, and an unschedulable tenant yields an
+    # empty (vacuous) trace.
+    budget = (int(args.hbm_limit_gb * 2**30) if args.hbm_limit_gb is not None
+              else int(shard_peak))
+    recorder = recorder_for(args)
+    mesh_run = run_mesh(solved, H100_SXM, budget_per_device=budget, iterations=2,
+                        record_events=args.record_events, obs=recorder)
+    print(
+        f"[dist-plan] mesh run: makespan "
+        f"{mesh_run.report.makespan_s*1e3:.2f}ms, mean overhead "
+        f"{mesh_run.mean_overhead()*100:.2f}%"
+    )
+    export_trace(args, recorder, mesh_run.report)
+    export_monitor(args, recorder)
+    if args.verify:
+        from repro_torch.analyze import verify_launch
+
+        verify_launch(args, programs=solved.programs, recorder=recorder,
+                      report=mesh_run.report)
 
 
 def plan_report(model, name: str, batch: int, seq: int, smoke: bool, plan_cache=None,
@@ -189,6 +259,15 @@ def plan_report(model, name: str, batch: int, seq: int, smoke: bool, plan_cache=
         f"simulated overhead {sw.overhead*100:.2f}%)"
     )
     return plan.policy()
+
+
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for CUDA on a host without
+    it, rather than falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
+    return device
 
 
 @dataclass
@@ -232,9 +311,7 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4, seed: int 
     module's docstring says; a resume restores straight onto ``device``
     (the template is the model's meta shapes), so the state is never held
     twice."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass --device cpu to train on the CPU")
+    device = check_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
 
     model = build_model(cfg, device)
@@ -326,10 +403,17 @@ def main(argv=None):
                     help="AutoSwap budget (GiB) for the traced loss step: execute its offload "
                          "plan")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--dist-plan", default=None, metavar="MESH",
+                    help='solve per-device plans for a mesh (e.g. "data=4") '
+                         "before training; cached under a topology-extended key")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_obs_args(ap)
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.dist_plan:
+        check_device(args.device)
+        dist_plan(args, cfg)
     run = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
                 seed=args.seed, device=args.device, plan=args.plan, plan_cache=args.plan_cache,
                 hbm_limit_gb=args.hbm_limit_gb, plan_name=args.arch, smoke=args.smoke,

@@ -15,7 +15,7 @@ Three tuners consume that machinery:
     (``colocate_programs(budget_split="tuned")``);
   * ``lane_split_from_waits`` — directional HostLink lane carving from a
     probe run's per-direction queue wait
-    (the reference's ``run_mesh(lane_split="directional")``, ROADMAP A12).
+    (``dist.run_mesh(lane_split="directional")``).
 
 Every default stays untouched: with no tuner engaged, reports remain
 bit-identical to the frozen ``runtime/_engine_reference.py``.

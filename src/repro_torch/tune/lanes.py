@@ -13,9 +13,8 @@ per-direction decomposition of the link's queue wait (``wait_in_s`` /
 ``channel_contention_s``) in a probe run, falling back to the byte split
 when the probe saw no queueing at all.
 
-The reference's ``dist.execute.run_mesh(lane_split="directional")`` runs
-the probe and applies the split; the port's mesh execution is ROADMAP
-queue A12.
+``dist.execute.run_mesh(lane_split="directional")`` runs the probe and
+applies the split.
 """
 
 from __future__ import annotations
